@@ -1,0 +1,123 @@
+// Feature-row gather and fanout mean on Hopper.
+//
+// Replaces the TPU kernels in src/repro/kernels/feature_gather.py:
+// `feature_gather_rows` (the shared body `_kernel` with K = 1: the exact row
+// copy out[r] = table[ids[r]]) and `feature_gather_mean` (the same body with
+// K > 1: out[m] = sum_k table[ids[m, k]] / K, accumulated in float32 in k
+// order as `_kernel` does, `out += row / K`).  float32 tables.
+//
+// What bounds it on this card: memory bandwidth.  Each output row reads K
+// table rows at data-dependent places and writes one row; there is one add
+// and one divide per element read, far below what the card can do per byte.
+//
+// What the design does about it: one warp per output row, its 32 lanes
+// walking the row with vector loads, so each row is read as whole 32-byte
+// sectors by neighbouring lanes and the many independent rows of the grid
+// keep enough loads in flight to cover the latency of the random row
+// starts.  The vector width is the widest that the row length and the
+// pointers allow (a 602-float row is 8-byte aligned: float2, no tail).
+// The TPU kernel's per-row DMA into a VMEM tile, its semaphore, and its
+// padding of the row count to TILE_M are not carried over: a warp reads its
+// rows straight from device memory and the ragged edge is masked.  For
+// K = 1 the kernel is a plain copy (x / 1 == x exactly); for K > 1 the sum
+// stays in registers, so no (M, K, F) intermediate is written.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;  // output rows per block
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> { using T = float; };
+template <>
+struct Vec<2> { using T = float2; };
+template <>
+struct Vec<4> { using T = float4; };
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ float2 zero<float2>() { return make_float2(0.0f, 0.0f); }
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ void accum(float& acc, float v, float k) { acc += v / k; }
+__device__ __forceinline__ void accum(float2& acc, float2 v, float k) {
+  acc.x += v.x / k;
+  acc.y += v.y / k;
+}
+__device__ __forceinline__ void accum(float4& acc, float4 v, float k) {
+  acc.x += v.x / k;
+  acc.y += v.y / k;
+  acc.z += v.z / k;
+  acc.w += v.w / k;
+}
+
+template <int VEC, bool MEAN>
+__global__ void __launch_bounds__(kWarps * 32)
+feature_gather_kernel(const float* __restrict__ table, int64_t vecs_per_row,
+                      const int32_t* __restrict__ ids, int64_t rows, int fanout,
+                      float* __restrict__ out) {
+  using T = typename Vec<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (m >= rows) return;
+  const T* __restrict__ src = reinterpret_cast<const T*>(table);
+  T* __restrict__ dst = reinterpret_cast<T*>(out) + m * vecs_per_row;
+  if (!MEAN) {
+    const T* row = src + static_cast<int64_t>(ids[m]) * vecs_per_row;
+#pragma unroll 4
+    for (int64_t c = lane; c < vecs_per_row; c += 32) dst[c] = row[c];
+    return;
+  }
+  const int32_t* __restrict__ mids = ids + m * fanout;
+  const float k = static_cast<float>(fanout);
+  for (int64_t c = lane; c < vecs_per_row; c += 32) {
+    T acc = zero<T>();
+    for (int j = 0; j < fanout; ++j)
+      accum(acc, src[static_cast<int64_t>(mids[j]) * vecs_per_row + c], k);
+    dst[c] = acc;
+  }
+}
+
+template <int VEC>
+cudaError_t launch(const float* table, int64_t feat, const int32_t* ids,
+                   int64_t rows, int fanout, float* out, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  const int64_t vecs = feat / VEC;
+  if (fanout == 1)
+    feature_gather_kernel<VEC, false><<<blocks, kWarps * 32, 0, stream>>>(
+        table, vecs, ids, rows, fanout, out);
+  else
+    feature_gather_kernel<VEC, true><<<blocks, kWarps * 32, 0, stream>>>(
+        table, vecs, ids, rows, fanout, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ids: (rows, fanout) int32; out: (rows, feat) float32.  `vec` is 1, 2 or
+// 4 and must divide `feat`, with both pointers aligned to 4 * vec bytes.
+extern "C" int feature_gather_launch(const void* table, int64_t feat,
+                                     const void* ids, int64_t rows, int fanout,
+                                     void* out, int vec, void* stream) {
+  if (rows == 0 || feat == 0) return static_cast<int>(cudaSuccess);
+  const float* t = static_cast<const float*>(table);
+  const int32_t* i = static_cast<const int32_t*>(ids);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 4: return static_cast<int>(launch<4>(t, feat, i, rows, fanout, o, s));
+    case 2: return static_cast<int>(launch<2>(t, feat, i, rows, fanout, o, s));
+    case 1: return static_cast<int>(launch<1>(t, feat, i, rows, fanout, o, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

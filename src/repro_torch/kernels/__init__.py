@@ -1,0 +1,16 @@
+"""The port's kernels: hand-written CUDA for Hopper (``csrc/``), their
+plain PyTorch versions (``ref``), and the device-dispatching wrappers
+(``ops``).
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper has made since
+the last ``reset_launches()``: a run can show that its main path really
+went through the kernels.  The plain CPU path counts nothing.
+"""
+
+LAUNCHES = {"neighbor_sample": 0, "feature_gather_rows": 0,
+            "feature_gather_mean": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,75 @@
+"""Public wrappers for the port's kernels, dispatched by device.
+
+A CUDA tensor launches the hand-written kernel (``kernels.neighbor_sample``,
+``kernels.feature_gather``), which raises on what it does not take; a CPU
+tensor takes the plain version in ``kernels.ref``.  There is no switch
+and no fallback between the two: the device of the data decides.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import rng
+from repro_torch.kernels import feature_gather as _fg
+from repro_torch.kernels import neighbor_sample as _ns
+from repro_torch.kernels import ref
+
+
+def edge_block_size(max_degree: int) -> int:
+    """The reference kernels' edge-block width: 128-aligned and >= the
+    max neighbour-list length.  The CUDA kernel reads each sampled entry
+    directly and needs no blocks; kept so callers size things alike."""
+    return max(128, int(-(-max_degree // 128) * 128))
+
+
+def neighbor_sample(indptr, indices, targets, rand, *, max_degree: int):
+    """CSR fanout sample: (N+1,), (E,), (M,), (M, S) -> (M, S) int32.
+    ``max_degree`` is kept for the reference's signature; no degree
+    limit applies."""
+    args = [x.to(torch.int32).contiguous()
+            for x in (indptr, indices, targets, rand)]
+    if targets.is_cuda:
+        return _ns.neighbor_sample(*args)
+    return ref.neighbor_sample(*args)
+
+
+def sample_khop_kernel(indptr, indices, targets, fanouts, *, key,
+                       max_degree: int):
+    """K-hop GraphSAGE sampling through ``neighbor_sample``.
+
+    Per hop: fold the hop index into ``key`` (an ``rng`` key pair), draw
+    int32 bits in ``[0, 2**31 - 1)`` shaped like the frontier + fanout on
+    the frontier's device, flatten the frontier, and sample.  The bits
+    equal the reference's ``jax.random`` stream, so both packages sample
+    the same ids.  Returns [(M,), (M, f1), (M, f1, f2), ...] int32."""
+    hops = [targets.to(torch.int32)]
+    frontier = hops[0]
+    for i, f in enumerate(fanouts):
+        rand = rng.randint(rng.fold_in(key, i), tuple(frontier.shape) + (f,),
+                           0, 2**31 - 1, device=frontier.device)
+        flat = frontier.reshape(-1)
+        nxt = neighbor_sample(indptr, indices, flat,
+                              rand.reshape(flat.shape[0], f),
+                              max_degree=max_degree)
+        frontier = nxt.reshape(tuple(frontier.shape) + (f,))
+        hops.append(frontier)
+    return hops
+
+
+def feature_gather_rows(table, ids):
+    """(N, F), ids (...,) -> (..., F) row gather, one launch per call."""
+    flat = ids.reshape(-1).to(torch.int32).contiguous()
+    if table.is_cuda:
+        out = _fg.feature_gather_rows(table, flat)
+    else:
+        out = ref.feature_gather_rows(table, flat)
+    return out.reshape(tuple(ids.shape) + (table.shape[1],))
+
+
+def feature_gather_mean(table, ids):
+    """(N, F), (M, K) -> (M, F) fanout mean of gathered rows."""
+    ids = ids.to(torch.int32).contiguous()
+    if table.is_cuda:
+        return _fg.feature_gather_mean(table, ids)
+    return ref.feature_gather_mean(table, ids)

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, and its
+CLI runs on the CPU only when asked and otherwise fails loudly."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PORT = SRC / "repro_torch"
+
+
+def _run(args, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, timeout=timeout, env=env)
+
+
+def test_import_leaves_out_jax_and_repro():
+    code = ("import sys, repro_torch, repro_torch.launch.train\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    out = _run(["-c", code])
+    assert out.returncode == 0, out.stderr
+
+
+def test_no_source_file_imports_jax_or_repro():
+    found = []
+    for path in PORT.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(path.name, n) for n in names
+                      if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not found, found
+
+
+def test_cli_trains_on_cpu_when_asked():
+    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+                "--steps", "2", "--batch", "8", "--fanouts", "3,2",
+                "--hidden", "16", "--log-every", "1"])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("loss=") == 2
+    assert "steps/s, consumer idle" in out.stdout
+
+
+def test_cli_without_gpu_fails_loudly():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = _run(["-m", "repro_torch.launch.train", "--steps", "1"])
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+
+
+def test_cli_rejects_flags_of_later_slices():
+    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+                "--backend", "host"])
+    assert out.returncode == 2 and "invalid choice" in out.stderr
+    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
+                "--graph-store", "disk"])
+    assert out.returncode == 2 and "unrecognized arguments" in out.stderr

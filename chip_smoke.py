@@ -5,25 +5,45 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` and report the
-     build time and ptxas's register report;
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (both sources,
+     five kernels) and report the build time and ptxas's register report;
   3. every kernel against its plain PyTorch version on the card, at the
      shapes of a training step at batch 1024 and fanouts 25,10: on reddit
      ``--large-scale`` and on a reddit-sized R-MAT graph (2**18 nodes,
      2**23 edges drawn, 602 features); ids and rows bit-equal, the mean
-     within 1e-6.  Each kernel is timed (median of 20 launches, L2
-     flushed before each) beside its plain version, one PyTorch library
-     call for the same function, and its bound;
+     within 1e-6.  The cached kernels read a cache built from the batch:
+     ``neighbor_sample_cached`` every edge block the batch reaches
+     resident at a permuted slot (the others at -1), at (1024,25) and
+     (25600,10); ``feature_gather_cached`` the batch's unique rows at
+     permuted slots, at the padded unique-id length and at the segment
+     lengths a 4096-row pinned feature cache cuts the batch into.  Each
+     kernel is timed (median of 20 launches, L2 flushed before each)
+     beside its plain version, one PyTorch library call for the same
+     function, and its bound;
   4. three batches sampled and gathered on the card equal the CPU plain
      path's bit for bit, and four fp32 training steps on the card match
      the CPU's losses within 1e-4;
-  5. the main path through its entry point,
+  5. the in-memory path through its entry point,
      ``repro_torch.launch.train.main``: reddit ``--large-scale``, F=602,
      hidden 256, fanouts 25,10, batch 1024, 8 steps, with the kernel
      launch counters reset just before and read just after;
   6. where the time goes: the same step timed at steady state, then
      profiled (device time by kernel, device busy share);
-  7. a JSON line of the kernels' numbers, the card line, and the result.
+  7. out of core: three batches of the loader over a ``DiskStore`` (4 MB
+     page cache) with a 4096-row feature cache and a 128-block edge
+     cache, pinned, on the card equal the CPU plain path's bit for bit
+     (ids, features, labels, every ``trace.io`` counter), and their ids
+     equal the in-memory loader's on the card;
+  8. the out-of-core path through its entry point: the phase-5 command
+     with ``--graph-store disk --cache-mb 4 --device-cache-rows 4096
+     --edge-cache-blocks 128 --device-cache-policy pinned``; 8 finite
+     losses within 1e-5 of phase 5's, the cached kernels launched as
+     often as the loader's chunks and segments, ``neighbor_sample`` not
+     at all, ``feature_gather_rows`` 3 times a step;
+  9. where the out-of-core step's time goes: the wall time of each stage
+     (sample, resolve, admit, train step) with a device synchronize at
+     each boundary, then a profile of two steps;
+  10. a JSON line of the kernels' numbers, the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -37,6 +57,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -46,18 +67,25 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels, rng  # noqa: E402
-from repro_torch.core import (GNNConfig, GraphSAGE,  # noqa: E402
-                              PallasSubgraphLoader, attach_features,
-                              build_train_step, load_dataset, rmat_graph,
-                              train_loop)
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.core import (DeviceTierSpec, GNNConfig,  # noqa: E402
+                              GraphSAGE, PallasSubgraphLoader,
+                              attach_features, build_train_step,
+                              load_dataset, rmat_graph, train_loop)
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.feature_gather import (  # noqa: E402
-    feature_gather_mean, feature_gather_rows)
-from repro_torch.kernels.neighbor_sample import neighbor_sample  # noqa: E402
+    feature_gather_cached, feature_gather_mean, feature_gather_rows)
+from repro_torch.kernels.neighbor_sample import (  # noqa: E402
+    edge_block_count, neighbor_sample, neighbor_sample_cached)
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.storage import (DeviceFeatureCache, DiskStore,  # noqa: E402
+                                 pad_pow2, save_graph)
 
 BATCH, FANOUTS = 1024, (25, 10)
+RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
+# the out-of-core configuration: page cache (MB), device feature rows,
+# device edge blocks, device policy
+OOC_CACHE_MB, OOC_ROWS, OOC_BLOCKS, OOC_POLICY = 4, 4096, 128, "pinned"
 DEVICE = "cuda"
 # H100 SXM data sheet: HBM bandwidth, and the float32 rate outside the
 # tensor cores (used for the kernels' scalar integer and float work)
@@ -67,11 +95,15 @@ REPLACES = {
     "neighbor_sample": "src/repro/kernels/neighbor_sample.py:104",
     "feature_gather_rows": "src/repro/kernels/feature_gather.py:106",
     "feature_gather_mean": "src/repro/kernels/feature_gather.py:90",
+    "neighbor_sample_cached": "src/repro/kernels/neighbor_sample.py:197",
+    "feature_gather_cached": "src/repro/kernels/feature_gather.py:146",
 }
 SOURCES = {
     "neighbor_sample": "src/repro_torch/csrc/neighbor_sample.cu",
     "feature_gather_rows": "src/repro_torch/csrc/feature_gather.cu",
     "feature_gather_mean": "src/repro_torch/csrc/feature_gather.cu",
+    "neighbor_sample_cached": "src/repro_torch/csrc/neighbor_sample.cu",
+    "feature_gather_cached": "src/repro_torch/csrc/feature_gather.cu",
 }
 
 
@@ -189,6 +221,122 @@ def mean_case(loader, timer, ids2d):
             "bound_ms": b, "bound_by": by}
 
 
+def block_cache(loader, frontiers):
+    """An edge-block cache for ``frontiers``: every block their targets
+    reach (and the padding pair 0, 1) resident at a permuted slot, the
+    other entries of the slot table at -1."""
+    ip, ix = loader.indptr, loader.indices
+    block_e = ops.edge_block_size(loader.max_degree)
+    nb = edge_block_count(ix.shape[0], block_e)
+    max_block = nb - 2
+    b0 = torch.clamp(torch.cat([ip[f.long()] for f in frontiers]).long()
+                     // block_e, max=max_block)
+    reached = torch.unique(torch.cat([b0, b0 + 1, torch.tensor(
+        [0, 1], device=ip.device)]))
+    padded = torch.zeros(nb * block_e, dtype=torch.int32, device=ip.device)
+    padded[:ix.shape[0]] = ix
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    slots = torch.randperm(reached.numel(), generator=gen).to(ip.device)
+    cache = torch.empty((reached.numel(), block_e), dtype=torch.int32,
+                        device=ip.device)
+    cache[slots] = padded.view(nb, block_e)[reached]
+    block_slots = torch.full((nb + 1,), -1, dtype=torch.int32,
+                             device=ip.device)
+    block_slots[reached] = slots.to(torch.int32)
+    return cache, block_slots, block_e, max_block
+
+
+def cached_sample_case(loader, timer, targets, rand, bc, uncached):
+    """neighbor_sample_cached at (M, S): kernel == plain == the uncached
+    kernel's ids, bit for bit, timed."""
+    cache, block_slots, block_e, max_block = bc
+    ip = loader.indptr
+    kw = dict(block_e=block_e, max_block=max_block)
+    got = neighbor_sample_cached(ip, block_slots, targets, rand, cache, **kw)
+    want = ref.neighbor_sample_cached(ip, block_slots, targets, rand, cache,
+                                      **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want) and torch.equal(got, uncached),
+          f"neighbor_sample_cached {tuple(rand.shape)} differs from its "
+          "plain version or from neighbor_sample")
+    M, S = rand.shape
+    t = targets.long()
+    start = ip[t].long()
+    deg = ip[t + 1].long() - start
+    b = torch.clamp(start // block_e, max=max_block)
+    local = (start - b * block_e)[:, None] + torch.remainder(
+        rand.long(), deg.clamp_min(1)[:, None])
+    blk = (b[:, None] + local // block_e)[deg > 0]
+    pos = (block_slots[blk].long() * block_e + (local % block_e)[deg > 0])
+    # what this data needs: each distinct offset, slot entry and sampled
+    # cache entry once, plus targets and rand read and the output written
+    nbytes = (4 * n_unique(torch.cat([t, t + 1])) + 4 * M + 8 * M * S
+              + 4 * n_unique(blk) + 4 * n_unique(pos))
+    bnd, by = bound_ms(nbytes, 10 * M * S)
+    return {"shape": [M, S], "max_abs_err": 0.0, "count": 1,
+            "ms": timer(lambda: neighbor_sample_cached(
+                ip, block_slots, targets, rand, cache, **kw)),
+            "plain_ms": timer(lambda: ref.neighbor_sample_cached(
+                ip, block_slots, targets, rand, cache, **kw)),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by}
+
+
+def cached_rows_case(timer, cache, slot_of, ids, count):
+    """feature_gather_cached at R ids: kernel == plain bit for bit, timed
+    beside ``index_select`` of the looked-up slots."""
+    got = feature_gather_cached(cache, slot_of, ids)
+    want = ref.feature_gather_cached(cache, slot_of, ids)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"feature_gather_cached R={ids.shape[0]} "
+          "differs from its plain version")
+    R, F = ids.shape[0], cache.shape[1]
+    bnd, by = bound_ms(4 * R + 4 * n_unique(ids) + 4 * F * (n_unique(ids) + R),
+                       0)
+    return {"shape": [R, F], "max_abs_err": 0.0, "count": count,
+            "ms": timer(lambda: feature_gather_cached(cache, slot_of, ids)),
+            "plain_ms": timer(lambda: ref.feature_gather_cached(
+                cache, slot_of, ids)),
+            "library_ms": timer(lambda: torch.index_select(
+                cache, 0, slot_of[ids].clamp_min(0).long())),
+            "bound_ms": bnd, "bound_by": by}
+
+
+def cached_rows_cases(g, timer, loader, ids_all) -> list:
+    """feature_gather_cached on the batch's unique ids, the rows at
+    permuted slots: once at the padded unique-id length (not a launch of
+    the step), then at each distinct padded segment length that a
+    ``OOC_ROWS``-row ``OOC_POLICY`` feature cache cuts the batch into,
+    counted as often as the step launches it."""
+    uniq = torch.unique(ids_all)
+    U = uniq.numel()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    slots = torch.randperm(U, generator=gen).to(uniq.device)
+    cache = torch.empty((U, g.feat_dim), dtype=torch.float32,
+                        device=uniq.device)
+    cache[slots] = loader.features[uniq.long()]
+    slot_of = torch.full((g.num_nodes + 1,), -1, dtype=torch.int32,
+                         device=uniq.device)
+    slot_of[uniq.long()] = slots.to(torch.int32)
+    uniq_np = uniq.cpu().numpy()
+    padded = pad_pow2(uniq_np, uniq_np[-1])
+    dc = DeviceFeatureCache(g, rows=OOC_ROWS, policy=OOC_POLICY,
+                            device=DEVICE)
+    plan = dc.plan_rows(padded, n_valid=U)
+    by_len: dict[int, list] = {}
+    for ps in plan.segments:
+        seg = pad_pow2(ps.ids, ps.ids[-1])
+        by_len.setdefault(seg.size, [seg, 0])[1] += 1
+    del dc
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=DEVICE)
+
+    cases = [cached_rows_case(timer, cache, slot_of, dev(padded), 0)]
+    for n, (seg, count) in sorted(by_len.items()):
+        cases.append(cached_rows_case(timer, cache, slot_of, dev(seg), count))
+    return cases
+
+
 def kernel_phase(name: str, g, timer) -> dict:
     """Phase 3 on one graph: the inputs are batch 0 of the main path."""
     loader = PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS,
@@ -202,20 +350,28 @@ def kernel_phase(name: str, g, timer) -> dict:
     r2 = rng.randint(rng.fold_in(key, 1), (BATCH, FANOUTS[0], FANOUTS[1]),
                      0, 2**31 - 1, device=DEVICE).reshape(-1, FANOUTS[1])
     hop2, ns2 = sample_case(loader, timer, flat1, r2)
+    bc = block_cache(loader, (t, flat1))
     cases = {
         "neighbor_sample": [ns1, ns2],
         "feature_gather_rows": [rows_case(loader, timer, ids)
                                 for ids in (t, flat1, hop2.reshape(-1))],
         "feature_gather_mean": [mean_case(loader, timer, hop2)],
+        "neighbor_sample_cached": [
+            cached_sample_case(loader, timer, t, r1, bc, hop1),
+            cached_sample_case(loader, timer, flat1, r2, bc, hop2)],
+        "feature_gather_cached": cached_rows_cases(
+            g, timer, loader, torch.cat([t, flat1, hop2.reshape(-1)])),
     }
+    del bc
     for kname, rows in cases.items():
         for c in rows:
             lib = ("-" if c["library_ms"] is None
                    else f"{c['library_ms']:.4f}")
-            print(f"[smoke]   {name:10s} {kname:20s} {str(c['shape']):18s} "
+            print(f"[smoke]   {name:10s} {kname:22s} {str(c['shape']):18s} "
                   f"kernel {c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  "
                   f"library {lib} ms  bound {c['bound_ms']:.4f} ms "
-                  f"({c['bound_by']})  max_abs_err {c['max_abs_err']:g}")
+                  f"({c['bound_by']})  max_abs_err {c['max_abs_err']:g}  "
+                  f"x{c.get('count', 1)} per step")
     del loader
     torch.cuda.empty_cache()
     return cases
@@ -266,15 +422,49 @@ def _merged_us(intervals) -> float:
     return total
 
 
+def device_profile(run, steps: int) -> dict:
+    """Profile ``run()`` (``steps`` training steps) with ``torch.profiler``:
+    device time by kernel name per step, and the device's busy share of
+    the run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in dev:
+        slot = by_name.setdefault(e.name, [0.0, 0])
+        slot[0] += e.time_range.elapsed_us() / 1e3 / steps
+        slot[1] += 1
+    busy_ms = _merged_us((e.time_range.start, e.time_range.end)
+                         for e in dev) / 1e3
+    return {"profiled_ms_per_step": 1e3 * wall_s / steps,
+            "device_busy_ms_per_step": busy_ms / steps if dev else None,
+            "device_busy_share": busy_ms / (1e3 * wall_s) if dev else None,
+            "device_ops_per_step": len(dev) / steps,
+            "by_kernel_ms_per_step": dict(sorted(
+                ((k, v[0]) for k, v in by_name.items()),
+                key=lambda kv: -kv[1])),
+            "by_kernel_count": {k: v[1] / steps for k, v in by_name.items()}}
+
+
+def print_profile(out: dict) -> None:
+    for name, ms in list(out["by_kernel_ms_per_step"].items())[:12]:
+        count = out["by_kernel_count"][name]
+        print(f"[smoke]   {ms:9.4f} ms/step  x{count:<7g} {name[:110]}")
+
+
 def profile_phase(g) -> dict:
     """Phase 6, where the time goes: the main path's step (batch 1024,
     fanouts 25,10, hidden 256) warmed up for 2 steps, timed for 8 steps
     without the profiler, then 4 more steps under ``torch.profiler``:
     device time by kernel name per step, and the device's busy share of
     the profiled loop's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     loader = PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS,
                                   seed=0, device=DEVICE)
     cfg = GNNConfig(feat_dim=g.feat_dim, hidden=256,
@@ -286,31 +476,12 @@ def profile_phase(g) -> dict:
     state, _ = train_loop(loader, step, state, steps=2)
     state, steady = train_loop(loader, step, state, start=2, steps=10)
     prof_steps = 4
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state, traced = train_loop(loader, step, state, start=10,
-                                   steps=10 + prof_steps)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name: dict[str, list] = {}
-    for e in dev:
-        slot = by_name.setdefault(e.name, [0.0, 0])
-        slot[0] += e.time_range.elapsed_us() / 1e3 / prof_steps
-        slot[1] += 1
-    busy_ms = _merged_us((e.time_range.start, e.time_range.end)
-                         for e in dev) / 1e3
     out = {"steady_steps_per_s": steady.steps_per_s,
            "steady_idle_fraction": steady.idle_fraction,
            "steady_ms_per_step": 1e3 * steady.wall_s / steady.steps,
-           "profiled_ms_per_step": 1e3 * traced.wall_s / prof_steps,
-           "device_busy_ms_per_step": busy_ms / prof_steps if dev else None,
-           "device_busy_share": (busy_ms / (1e3 * traced.wall_s)
-                                 if dev else None),
-           "device_ops_per_step": len(dev) / prof_steps,
-           "by_kernel_ms_per_step": dict(sorted(
-               ((k, v[0]) for k, v in by_name.items()),
-               key=lambda kv: -kv[1])),
-           "by_kernel_count": {k: v[1] // prof_steps
-                               for k, v in by_name.items()}}
+           **device_profile(lambda: train_loop(loader, step, state, start=10,
+                                               steps=10 + prof_steps),
+                            prof_steps)}
     print(f"[smoke] phase 6: steady {out['steady_steps_per_s']:.3f} steps/s "
           f"({out['steady_ms_per_step']:.3f} ms/step, consumer idle "
           f"{out['steady_idle_fraction']:.4f}); profiled "
@@ -318,10 +489,100 @@ def profile_phase(g) -> dict:
           f"{out['device_busy_ms_per_step']} ms/step "
           f"(share {out['device_busy_share']}), "
           f"{out['device_ops_per_step']:.0f} device ops/step")
-    for name, ms in list(out["by_kernel_ms_per_step"].items())[:12]:
-        count = out["by_kernel_count"][name]
-        print(f"[smoke]   {ms:9.4f} ms/step  x{count:<4d} {name[:110]}")
+    print_profile(out)
     return out
+
+
+def ooc_loader(g, store_dir: str, device):
+    """The out-of-core loader of the slice's main path over a fresh
+    ``DiskStore`` on ``store_dir``; returns (loader, store)."""
+    store = DiskStore(store_dir, cache_mb=OOC_CACHE_MB)
+    tier = DeviceTierSpec(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
+                          policy=OOC_POLICY)
+    return PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS, seed=0,
+                                device=device, store=store,
+                                device_tier=tier), store
+
+
+def ooc_parity_phase(g, store_dir: str) -> dict:
+    """Phase 7: the out-of-core loader on the card == on the CPU (plain
+    path) for 3 batches, bit for bit, counters included; its ids == the
+    in-memory loader's on the card."""
+    gpu, gpu_store = ooc_loader(g, store_dir, DEVICE)
+    cpu, cpu_store = ooc_loader(g, store_dir, "cpu")
+    mem = PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS, seed=0,
+                               device=DEVICE)
+    ios = []
+    try:
+        for idx in range(3):
+            a, b = gpu.get_batch(idx), cpu.get_batch(idx)
+            m = mem.get_batch(idx)
+            for x, y in zip(a.hop_ids + a.hop_feats + [a.labels],
+                            b.hop_ids + b.hop_feats + [b.labels]):
+                check(torch.equal(x.cpu(), y), f"out-of-core batch {idx}: "
+                      f"card and CPU differ in a {tuple(y.shape)} tensor")
+            check(a.trace.io == b.trace.io, f"out-of-core batch {idx}: "
+                  f"counters {a.trace.io} on the card, {b.trace.io} on CPU")
+            for x, y in zip(a.hop_ids, m.hop_ids):
+                check(torch.equal(x, y), f"out-of-core batch {idx}: ids "
+                      "differ from the in-memory loader's")
+            ios.append(a.trace.io)
+    finally:
+        gpu_store.close()
+        cpu_store.close()
+    disp = gpu.stats()["dispatches"]
+    print(f"[smoke] phase 7: 3 out-of-core batches bit-equal between card "
+          f"and CPU, ids equal to the in-memory loader's; {disp}; batch 0 "
+          f"io {ios[0]}")
+    return {"io": ios, "dispatches": disp}
+
+
+def ooc_stage_phase(g, store_dir: str) -> dict:
+    """Phase 9: the out-of-core step split by stage (sample, resolve,
+    admit, train step), each boundary a device synchronize, over 4 steps
+    after 2 warm-up steps; then 2 steps profiled."""
+    loader, store = ooc_loader(g, store_dir, DEVICE)
+    cfg = GNNConfig(feat_dim=g.feat_dim, hidden=256,
+                    n_classes=int(g.labels.max()) + 1, fanouts=FANOUTS)
+    model = GraphSAGE(cfg, device=DEVICE)
+    opt = adamw(1e-3)
+    step = build_train_step(loader, model, opt)
+    state = {"opt": opt.init(dict(model.named_parameters())), "step": 0}
+    stages = loader.pipeline_stages()
+    split = {name: [] for name, _ in stages}
+    split["train_step"] = []
+    warm, timed = 2, 4
+    try:
+        for i in range(warm + timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = i
+            for name, fn in stages:
+                payload = fn(payload)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if i >= warm:
+                    split[name].append(1e3 * (t1 - t0))
+                t0 = t1
+            state, _ = step(state, payload)
+            torch.cuda.synchronize()
+            if i >= warm:
+                split["train_step"].append(1e3 * (time.perf_counter() - t0))
+        ms = {k: statistics.median(v) for k, v in split.items()}
+        prof_steps = 2
+        prof = device_profile(lambda: train_loop(
+            loader, step, state, start=warm + timed,
+            steps=warm + timed + prof_steps), prof_steps)
+    finally:
+        store.close()
+    print(f"[smoke] phase 9: out-of-core step, median ms by stage {ms} "
+          f"(sum {sum(ms.values()):.3f} ms); profiled "
+          f"{prof['profiled_ms_per_step']:.3f} ms/step, device busy "
+          f"{prof['device_busy_ms_per_step']} ms/step (share "
+          f"{prof['device_busy_share']}), {prof['device_ops_per_step']:.0f} "
+          "device ops/step")
+    print_profile(prof)
+    return {"stage_ms_median": ms, "stage_ms": split, "profile": prof}
 
 
 def main() -> int:
@@ -349,7 +610,7 @@ def main() -> int:
     timer = Timer()
     reddit = load_dataset("reddit", large_scale=True)
     t0 = time.perf_counter()
-    synth = attach_features(rmat_graph(1 << 18, 1 << 23, seed=0,
+    synth = attach_features(rmat_graph(RMAT_NODES, RMAT_EDGES, seed=0,
                                        name="rmat-2^18"), 602, seed=2)
     print(f"[smoke]   {synth.name}: {synth.num_nodes} nodes "
           f"{synth.num_edges} edges, features "
@@ -367,7 +628,7 @@ def main() -> int:
             "--log-every", "1", "--device", DEVICE]
     print(f"[smoke] phase 5: train {' '.join(argv)}")
     kernels.reset_launches()
-    stats, losses = train.main(argv)
+    stats, losses, _ = train.main(argv)
     launches = dict(kernels.LAUNCHES)
     check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
           f"losses {losses}")
@@ -380,21 +641,71 @@ def main() -> int:
 
     profile = profile_phase(reddit)
 
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-store-") as store_dir:
+        save_graph(reddit, store_dir)
+        ooc_parity = ooc_parity_phase(reddit, store_dir)
+
+        argv_ooc = argv + ["--graph-store", "disk", "--cache-mb",
+                           str(OOC_CACHE_MB), "--device-cache-rows",
+                           str(OOC_ROWS), "--edge-cache-blocks",
+                           str(OOC_BLOCKS), "--device-cache-policy",
+                           OOC_POLICY]
+        print(f"[smoke] phase 8: train {' '.join(argv_ooc)}")
+        kernels.reset_launches()
+        ooc_stats, ooc_losses, ooc_loader_stats = train.main(argv_ooc)
+        ooc_launches = dict(kernels.LAUNCHES)
+        disp = ooc_loader_stats["dispatches"]
+        check(len(ooc_losses) == 8
+              and all(math.isfinite(x) for x in ooc_losses),
+              f"out-of-core losses {ooc_losses}")
+        check(np.allclose(ooc_losses, losses, rtol=1e-5, atol=1e-5),
+              f"out-of-core losses {ooc_losses} vs in-memory {losses}")
+        check(ooc_launches["neighbor_sample_cached"]
+              == disp["edge_chunks"] > 0,
+              f"neighbor_sample_cached launched "
+              f"{ooc_launches['neighbor_sample_cached']} times for "
+              f"{disp['edge_chunks']} chunks")
+        check(ooc_launches["feature_gather_cached"]
+              == disp["feature_segments"] > 0,
+              f"feature_gather_cached launched "
+              f"{ooc_launches['feature_gather_cached']} times for "
+              f"{disp['feature_segments']} segments")
+        check(ooc_launches["neighbor_sample"] == 0,
+              f"neighbor_sample launched {ooc_launches['neighbor_sample']} "
+              "times out of core")
+        check(ooc_launches["feature_gather_rows"] == 3 * 8,
+              f"feature_gather_rows launched "
+              f"{ooc_launches['feature_gather_rows']} times out of core")
+        diff = max(abs(a - b) for a, b in zip(ooc_losses, losses))
+        print(f"[smoke] phase 8: {ooc_stats.steps_per_s:.3f} steps/s, "
+              f"consumer idle {ooc_stats.idle_fraction:.4f}, launches "
+              f"{ooc_launches}, losses equal to phase 5's within 1e-5 "
+              f"(max diff {diff:g})")
+
+        ooc_split = ooc_stage_phase(reddit, store_dir)
+
     # the JSON line: per kernel, summed over one step's launches on the
-    # reddit-sized graph (its 631 MB table does not fit in L2)
+    # reddit-sized graph (its 631 MB table does not fit in L2); each
+    # kernel's launch count is from its path's entry-point run
     table = []
     for kname, cases in per_graph["rmat-2^18"].items():
+        cached = kname.endswith("_cached")
+        counts = [c.get("count", 1) for c in cases]
         libs = [c["library_ms"] for c in cases]
+
+        def per_step(key):
+            return sum(n * c[key] for n, c in zip(counts, cases))
+
         table.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "replaces": REPLACES[kname],
+            "launches": (ooc_launches if cached else launches)[kname],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": sum(c["ms"] for c in cases),
-            "plain_ms": sum(c["plain_ms"] for c in cases),
-            "bound_ms": sum(c["bound_ms"] for c in cases),
-            "bound_by": cases[0]["bound_by"],
-            "library_ms": None if None in libs else sum(libs),
-            "shapes": [c["shape"] for c in cases],
+            "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": per_step("bound_ms"),
+            "bound_by": cases[-1]["bound_by"],
+            "library_ms": None if None in libs else per_step("library_ms"),
+            "shapes": [c["shape"] for c in cases], "per_step": counts,
             "on_main_path": kname != "feature_gather_mean"})
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -405,10 +716,21 @@ def main() -> int:
                          "idle_s": stats.idle_s, "busy_s": stats.busy_s,
                          "wall_s": stats.wall_s, "launches": launches},
                "profile": profile,
+               "ooc_parity": ooc_parity,
+               "ooc_train": {"argv": argv_ooc, "losses": ooc_losses,
+                             "steps_per_s": ooc_stats.steps_per_s,
+                             "idle_fraction": ooc_stats.idle_fraction,
+                             "idle_s": ooc_stats.idle_s,
+                             "busy_s": ooc_stats.busy_s,
+                             "wall_s": ooc_stats.wall_s,
+                             "launches": ooc_launches,
+                             "loader": ooc_loader_stats},
+               "ooc_stages": ooc_split,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)
+    print(f"[smoke] done in {details['seconds']:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

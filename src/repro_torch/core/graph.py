@@ -49,6 +49,51 @@ class CSRGraph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr)
 
+    def neighbors(self, u: int) -> np.ndarray:
+        return self.indices[self.indptr[u]:self.indptr[u + 1]]
+
+    # -- the GraphStore access methods (storage/store.py): CSRGraph is the
+    # in-memory implementation, ``DiskStore`` serves the same calls from
+    # the paged on-disk layout
+
+    def out_degrees(self, nodes: np.ndarray) -> np.ndarray:
+        nodes = np.asarray(nodes, np.int64)
+        return (self.indptr[nodes + 1] - self.indptr[nodes]).astype(np.int64)
+
+    def gather_edges(self, rows: np.ndarray, offsets: np.ndarray
+                     ) -> np.ndarray:
+        """Neighbour ids ``indices[indptr[rows] + offsets]`` with the
+        degree-0 self-loop fallback: (R,) rows x (R, f) offsets -> (R, f)."""
+        rows = np.asarray(rows, np.int64)
+        off = np.asarray(offsets, np.int64)
+        if self.num_edges == 0:
+            return np.broadcast_to(rows[:, None].astype(np.int32),
+                                   off.shape).copy()
+        start = self.indptr[rows]
+        deg = self.indptr[rows + 1] - start
+        idx = start[:, None] + off
+        picked = self.indices[np.minimum(idx, self.num_edges - 1)]
+        return np.where(deg[:, None] > 0, picked,
+                        rows[:, None]).astype(np.int32)
+
+    def gather_features(self, ids: np.ndarray) -> np.ndarray:
+        return self.features[np.asarray(ids)]
+
+    def gather_edge_blocks(self, blocks: np.ndarray,
+                           block_e: int) -> np.ndarray:
+        """``block_e``-wide int32 chunks of the edge-list array, zero-padded
+        past its end: (B,) block ids -> (B, block_e)."""
+        return read_edge_blocks(lambda lo, hi: self.indices[lo:hi],
+                                blocks, block_e, self.num_edges)
+
+    def gather_labels(self, ids: np.ndarray) -> np.ndarray:
+        return self.labels[np.asarray(ids)]
+
+    def edge_byte_range(self, u: int, entry_bytes: int = 8) -> tuple[int, int]:
+        """Byte extent of node u's neighbour list within the edge-list file."""
+        return (int(self.indptr[u]) * entry_bytes,
+                int(self.indptr[u + 1]) * entry_bytes)
+
     def validate(self) -> None:
         if not (self.indptr[0] == 0 and self.indptr[-1] == self.num_edges
                 and np.all(np.diff(self.indptr) >= 0)):
@@ -61,6 +106,22 @@ class CSRGraph:
             if arr is not None and arr.shape[0] != self.num_nodes:
                 raise ValueError(f"{self.name}: {what} has {arr.shape[0]} "
                                  f"rows for {self.num_nodes} nodes")
+
+
+def read_edge_blocks(read, blocks: np.ndarray, block_e: int,
+                     num_edges: int) -> np.ndarray:
+    """``block_e``-wide int32 chunks of an edge array served by
+    ``read(lo_entry, hi_entry)``, zero-padded past ``num_edges``: the one
+    pad rule that ``CSRGraph`` and ``DiskStore`` both follow, so the
+    edge-block cache holds the same bits whatever backs it."""
+    blocks = np.asarray(blocks, np.int64).reshape(-1)
+    out = np.zeros((blocks.size, block_e), np.int32)
+    for j, b in enumerate(blocks):
+        lo = int(b) * block_e
+        hi = min(lo + block_e, num_edges)
+        if hi > lo:
+            out[j, :hi - lo] = read(lo, hi)
+    return out
 
 
 def _edge_keys(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:

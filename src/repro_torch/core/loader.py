@@ -1,20 +1,31 @@
 """The minibatch data plane and the training loop, in PyTorch.
 
-The port of the reference's ``core/loader.py`` for the main path: the
-``pallas`` backend with the whole graph uploaded to the device.  A batch
-is sampled k hops by the ``neighbor_sample`` kernel and its features are
-gathered by the ``feature_gather_rows`` kernel, both hand-written CUDA for
-Hopper when the loader's device is a GPU (the plain PyTorch versions on
-the CPU, as the tests run it).
+The port of the reference's ``core/loader.py`` for the ``pallas``
+backend.  A batch is sampled k hops by the ``neighbor_sample`` kernel and
+its features are gathered by the ``feature_gather_rows`` kernel, both
+hand-written CUDA for Hopper when the loader's device is a GPU (the plain
+PyTorch versions on the CPU, as the tests run it).
+
+Out of core, the graph is read through a ``GraphStore`` (``store=``,
+typically a ``DiskStore`` behind its page cache) and either array family
+can sit behind a device cache instead of a full upload
+(``DeviceTierSpec``): feature rows behind a ``DeviceFeatureCache`` read by
+``feature_gather_cached``, edge blocks behind a ``DeviceEdgeBlockCache``
+read by ``neighbor_sample_cached``.  That path is the reference's staged
+composition, sample -> resolve -> admit, run back to back; each batch's
+``Minibatch.trace.io`` holds its exact store, devcache and edgecache
+counters.
 
 Randomness matches the reference exactly: targets of batch ``i`` come
 from ``np.random.default_rng(seed + i)``, and sampling bits from the
 threefry stream ``fold_in(fold_in(key(seed), i), hop)`` (``repro_torch.
-rng``), so the port's minibatches equal the reference's at equal seeds.
+rng``), drawn on the loader's device, so the port's minibatches equal the
+reference's at equal seeds, cached or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Sequence
@@ -25,8 +36,13 @@ import torch
 from repro_torch import rng
 from repro_torch.core.gnn import gnn_loss_fn
 from repro_torch.core.graph import CSRGraph
+from repro_torch.core.sampler import SampleTrace, _io_delta, _io_snapshot
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import idle_fraction as _idle_fraction
+from repro_torch.storage import store as _store
+from repro_torch.storage.devcache import (DeviceEdgeBlockCache,
+                                          DeviceFeatureCache, _to_device,
+                                          pad_pow2)
 
 
 @dataclasses.dataclass
@@ -37,12 +53,40 @@ class Minibatch:
     hop_ids:   hop_ids[t] has shape (M, f1, ..., ft) -- sampled node ids.
     hop_feats: hop_feats[t] has shape (M, f1, ..., ft, F) -- their features.
     labels:    (M,) int32.
+    trace:     the batch's storage-access record (out-of-core path only).
     """
 
     targets: np.ndarray
     hop_ids: list
     hop_feats: list
     labels: torch.Tensor
+    trace: SampleTrace | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceTierSpec:
+    """The device cache tier of the pallas backend: ``rows`` feature rows
+    behind a ``DeviceFeatureCache`` and/or ``edge_blocks`` edge blocks
+    behind a ``DeviceEdgeBlockCache`` (0 = that array is uploaded whole),
+    placed by ``policy`` (``lru``, or ``pinned`` with ``pinned_fraction``
+    of the capacity staged by degree).  The fields of the reference's
+    device ``CacheTierSpec``, until the port has ``core/config.py``."""
+
+    rows: int = 0
+    edge_blocks: int = 0
+    policy: str = "lru"
+    pinned_fraction: float = 0.5
+
+    def __post_init__(self):
+        if self.rows < 0 or self.edge_blocks < 0:
+            raise ValueError("device cache rows and edge_blocks must be "
+                             ">= 0")
+        if self.policy not in ("lru", "pinned"):
+            raise ValueError(f"device cache policy must be 'lru' or "
+                             f"'pinned', got {self.policy!r}")
+        if not 0.0 <= self.pinned_fraction <= 1.0:
+            raise ValueError("device cache pinned_fraction must be in "
+                             "[0, 1]")
 
 
 LOADERS: dict[str, type] = {}
@@ -57,56 +101,285 @@ def register_loader(name: str):
 
 
 def batch_targets(g, idx: int, batch_size: int, seed: int = 0) -> np.ndarray:
-    """The shared per-batch target stream (a pure function of the index)."""
+    """The shared per-batch target stream (a pure function of the index).
+    ``g`` is anything with ``num_nodes``, a CSRGraph or a GraphStore."""
     rng_ = np.random.default_rng(seed + idx)
     return rng_.integers(0, g.num_nodes, batch_size).astype(np.int32)
 
 
 @register_loader("pallas")
 class PallasSubgraphLoader:
-    """Kernel data preparation on one device: the graph's CSR arrays,
-    features and labels are uploaded once, and each batch runs the
-    ``neighbor_sample`` kernel once per hop and the
-    ``feature_gather_rows`` kernel once per hop tensor -- on a GPU the
-    hand-written Hopper kernels in ``csrc/``."""
+    """Kernel data preparation on one device.
+
+    Without a device tier, the graph's CSR arrays, features and labels
+    are uploaded once, and each batch runs the ``neighbor_sample`` kernel
+    once per hop and the ``feature_gather_rows`` kernel once per hop
+    tensor.  With ``device_tier`` the arrays it names stay behind device
+    caches over ``store``:
+
+    * ``edge_blocks``: sampling runs one ``neighbor_sample_cached`` launch
+      per planned chunk of each hop's frontier, after the chunk's edge
+      blocks are admitted;
+    * ``rows``: the batch's unique ids are resolved against the feature
+      cache (misses fetched through the store), gathered by one
+      ``feature_gather_cached`` launch per segment, and the hop tensors
+      are gathered from those rows by ``feature_gather_rows``.
+
+    ``indptr`` and the labels stay on the device.  ``dispatches`` counts
+    the cached launches the plans call for (``edge_chunks``,
+    ``feature_segments``)."""
 
     backend = "pallas"
 
     def __init__(self, g: CSRGraph, *, batch_size: int,
-                 fanouts: Sequence[int], seed: int = 0, device="cuda"):
+                 fanouts: Sequence[int], seed: int = 0, device="cuda",
+                 store=None, device_tier: DeviceTierSpec | None = None):
         self.g = g
+        self.store = store if store is not None else g
         self.batch_size = batch_size
         self.fanouts = tuple(fanouts)
         self.seed = seed
+        self.devcache = None
+        self.edgecache = None
+        self._epoch0 = None
         self.device = torch.device(device)
         # the reference casts the int64 offsets to int32 as well
         self.indptr = torch.as_tensor(np.asarray(g.indptr, np.int32),
                                       device=self.device)
-        self.indices = torch.as_tensor(np.asarray(g.indices, np.int32),
-                                       device=self.device)
-        self.features = torch.as_tensor(np.asarray(g.features, np.float32),
-                                        device=self.device)
         self.labels = torch.as_tensor(np.asarray(g.labels, np.int32),
                                       device=self.device)
         self.max_degree = int(g.degrees().max()) if g.num_edges else 1
         self._key = rng.key(seed)
-
-    def targets(self, idx: int) -> np.ndarray:
-        return batch_targets(self.g, idx, self.batch_size, self.seed)
+        self.dispatches = {"edge_chunks": 0, "feature_segments": 0}
+        tier = device_tier
+        if tier is not None and tier.edge_blocks:
+            self.indices = None         # topology stays off the device
+            self.edgecache = DeviceEdgeBlockCache(
+                self.store, indptr=np.asarray(g.indptr, np.int64),
+                block_e=ops.edge_block_size(self.max_degree),
+                blocks=tier.edge_blocks, policy=tier.policy,
+                pinned_fraction=tier.pinned_fraction, device=self.device)
+        else:
+            self.indices = torch.as_tensor(np.asarray(g.indices, np.int32),
+                                           device=self.device)
+        if tier is not None and tier.rows:
+            self.features = None        # no full-table upload
+            self.devcache = DeviceFeatureCache(
+                self.store, rows=tier.rows, policy=tier.policy,
+                pinned_fraction=tier.pinned_fraction, device=self.device)
+        else:
+            self.features = torch.as_tensor(
+                np.asarray(g.features, np.float32), device=self.device)
 
     def get_batch(self, idx: int) -> Minibatch:
+        if self.devcache is None and self.edgecache is None:
+            targets = self.targets(idx)
+            t = torch.as_tensor(targets, device=self.device)
+            hops = ops.sample_khop_kernel(self.indptr, self.indices, t,
+                                          self.fanouts,
+                                          key=rng.fold_in(self._key, idx),
+                                          max_degree=self.max_degree)
+            hop_feats = [ops.feature_gather_rows(self.features, h)
+                         for h in hops]
+            return Minibatch(targets=targets, hop_ids=hops,
+                             hop_feats=hop_feats,
+                             labels=self.labels[t.long()])
+        return self._stage_admit(self._stage_resolve(self._stage_sample(idx)))
+
+    # -- the staged cached data plane ----------------------------------------
+    # Stage 0 maps a batch index to a payload, later stages map it
+    # forward; each stage is called in batch order.  Mirror bookkeeping
+    # happens only in plan_rows (resolve) and device mutations replay in
+    # plan order (admit), as in the reference.
+
+    def pipeline_stages(self):
+        """The cached path's decomposition: sample the k hops (edge-block
+        cache traffic included), resolve feature-cache misses (storage
+        reads), admit and gather on the device.  ``None`` for the
+        full-upload configuration."""
+        if self.devcache is None and self.edgecache is None:
+            return None
+        return [("sample", self._stage_sample),
+                ("resolve", self._stage_resolve),
+                ("admit", self._stage_admit)]
+
+    def _attr(self, ctx):
+        """Attribution scope for batch-owned store reads."""
+        if ctx is None:
+            return contextlib.nullcontext()
+        return self.store.io_attribution(ctx)
+
+    def _stage_sample(self, idx: int) -> dict:
+        """Sample the k hops, through the edge-block cache when there is
+        one, else over the device-resident edge array.  The edge cache's
+        counter delta here is the batch's exact edge traffic."""
         targets = self.targets(idx)
+        key = rng.fold_in(self._key, idx)
+        make_ctx = getattr(self.store, "make_io_context", None)
+        ctx = make_ctx() if make_ctx is not None else None
+        io0 = _io_snapshot(self.store) if ctx is None else None
+        edge0 = (self.edgecache.counters()
+                 if self.edgecache is not None else None)
         t = torch.as_tensor(targets, device=self.device)
-        hops = ops.sample_khop_kernel(self.indptr, self.indices, t,
-                                      self.fanouts,
-                                      key=rng.fold_in(self._key, idx),
-                                      max_degree=self.max_degree)
-        hop_feats = [ops.feature_gather_rows(self.features, h) for h in hops]
-        return Minibatch(targets=targets, hop_ids=hops, hop_feats=hop_feats,
-                         labels=self.labels[t.long()])
+        with self._attr(ctx):
+            if self.edgecache is not None:
+                hops, hop_ids = self._sample_khop_edgecached(targets, key)
+            else:
+                hops = ops.sample_khop_kernel(self.indptr, self.indices, t,
+                                              self.fanouts, key=key,
+                                              max_degree=self.max_degree)
+                hop_ids = None
+        edge_io = None
+        if edge0 is not None:
+            e1 = self.edgecache.counters()
+            edge_io = {k: e1[k] - edge0[k] for k in e1}
+        return dict(idx=idx, targets=targets, hops=hops, hop_ids=hop_ids,
+                    labels=self.labels[t.long()], ctx=ctx, io0=io0,
+                    edge_io=edge_io)
+
+    def reset_staged_state(self) -> None:
+        """Discard cache-mirror state staged by abandoned plans."""
+        if self.devcache is not None:
+            self.devcache.reset()
+        if self.edgecache is not None:
+            self.edgecache.reset()
+
+    def _stage_resolve(self, s: dict) -> dict:
+        """Plan and fetch the batch's feature-cache misses.  The unique
+        ids are padded to a power of two with the last id (the pads are
+        hits and count toward the segment cut, as in the reference)."""
+        hop_ids = s["hop_ids"]
+        if hop_ids is None:
+            hop_ids = [h.cpu().numpy() for h in s["hops"]]
+        uniq = np.unique(np.concatenate([h.reshape(-1) for h in hop_ids]))
+        s["hop_ids"], s["uniq"] = hop_ids, uniq
+        if self.devcache is not None:
+            with self._attr(s["ctx"]):
+                plan = self.devcache.plan_rows(pad_pow2(uniq, uniq[-1]),
+                                               n_valid=uniq.size)
+                self.devcache.fetch_plan(plan)
+            s["plan"] = plan
+        return s
+
+    def _stage_admit(self, s: dict) -> Minibatch:
+        """Install the fetched rows, gather them on the device, gather
+        the hop tensors from them (one ``feature_gather_rows`` launch per
+        hop), and assemble the Minibatch with the batch's I/O bill."""
+        hop_ids, uniq = s["hop_ids"], s["uniq"]
+        plan = s.get("plan")
+        if self.devcache is not None:
+            rows = self.devcache.execute_plan(plan)
+            self.dispatches["feature_segments"] += len(plan.segments)
+            F = self.devcache.feat_dim
+            hop_feats = []
+            for h in hop_ids:
+                pos = np.searchsorted(uniq, h.reshape(-1)).astype(np.int32)
+                hop_feats.append(ops.feature_gather_rows(
+                    rows, _to_device(pos, self.device)).reshape(
+                        tuple(h.shape) + (F,)))
+        else:
+            hop_feats = [ops.feature_gather_rows(self.features, h)
+                         for h in s["hops"]]
+        if s["ctx"] is not None:
+            io = s["ctx"].counters()
+        else:
+            io = _io_delta(self.store, s["io0"]) or {}
+        io = _store.nest_fault_counters(io)
+        if self.devcache is not None:
+            io["devcache"] = dict(plan.counters)
+        if s["edge_io"] is not None:
+            io["edgecache"] = s["edge_io"]
+        trace = SampleTrace(touched_nodes=np.empty(0, np.int64),
+                            hops=hop_ids, subgraph_nodes=uniq, io=io)
+        return Minibatch(targets=s["targets"], hop_ids=list(s["hops"]),
+                         hop_feats=hop_feats, labels=s["labels"],
+                         trace=trace)
+
+    def _sample_khop_edgecached(self, targets, key):
+        """K-hop sampling through the edge-block cache.  The rand bits are
+        ``ops.sample_khop_kernel``'s, drawn on the device; each hop's
+        frontier comes to the host, where its chunks are planned and
+        their blocks admitted before each launch.  Returns the hops on the
+        device and on the host."""
+        frontier = np.asarray(targets, np.int32)
+        hops = [torch.as_tensor(frontier, device=self.device)]
+        host = [frontier]
+        for i, f in enumerate(self.fanouts):
+            rand = rng.randint(rng.fold_in(key, i), frontier.shape + (f,),
+                               0, 2**31 - 1, device=self.device)
+            flat = frontier.reshape(-1)
+            nxt, nxt_dev = self._sample_chunk_cached(
+                flat, rand.reshape(flat.shape[0], f))
+            frontier = nxt.reshape(frontier.shape + (f,))
+            hops.append(nxt_dev.reshape(frontier.shape))
+            host.append(frontier)
+        return hops, host
+
+    def _sample_chunk_cached(self, flat: np.ndarray, rand2d: torch.Tensor
+                             ) -> tuple[np.ndarray, torch.Tensor]:
+        """One hop through the edge-block cache: plan chunks whose block
+        set fits the cache, admit each chunk's blocks, launch the cached
+        kernel per chunk.  Chunk lengths are padded to a power of two
+        with node 0 and zero rand rows (node 0's blocks are in every
+        plan), as in the reference."""
+        ec = self.edgecache
+        parts = []
+        for sl, blocks in ec.plan(flat):
+            ec.resolve(blocks)
+            seg = flat[sl]
+            seg_rand = rand2d[sl]
+            n = seg.shape[0]
+            width = 1 << (n - 1).bit_length()
+            if width > n:
+                seg = np.concatenate([seg, np.zeros(width - n, seg.dtype)])
+                seg_rand = torch.cat([seg_rand, seg_rand.new_zeros(
+                    (width - n, seg_rand.shape[1]))])
+            out = ops.neighbor_sample_cached(
+                self.indptr, ec.table, ec.slot_of,
+                _to_device(seg, self.device), seg_rand,
+                block_e=ec.block_e, max_block=ec.max_block)
+            self.dispatches["edge_chunks"] += 1
+            parts.append(out[:n])
+        dev = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return dev.cpu().numpy(), dev
+
+    def targets(self, idx: int) -> np.ndarray:
+        return batch_targets(self.store, idx, self.batch_size, self.seed)
+
+    def _counter_sources(self) -> dict:
+        src = {}
+        io = getattr(self.store, "io_counters", None)
+        if io is not None:
+            src["store"] = io
+        if self.devcache is not None:
+            src["devcache"] = self.devcache.counters
+        if self.edgecache is not None:
+            src["edgecache"] = self.edgecache.counters
+        return src
+
+    def start_epoch(self) -> None:
+        """Mark an epoch boundary: from here on ``stats()`` also reports
+        the counters since this call (``store_epoch``, ``devcache_epoch``,
+        ``edgecache_epoch``) beside the cumulative totals."""
+        self._epoch0 = {k: fn() for k, fn in self._counter_sources().items()}
 
     def stats(self) -> dict:
-        return {"backend": self.backend, "sampler": "khop"}
+        s = {"backend": self.backend, "sampler": "khop",
+             "dispatches": dict(self.dispatches)}
+        store_stats = getattr(self.store, "stats", None)
+        if store_stats is not None:
+            s["store"] = store_stats()
+        if self.devcache is not None:
+            s["devcache"] = self.devcache.stats()
+        if self.edgecache is not None:
+            s["edgecache"] = self.edgecache.stats()
+        if self._epoch0 is not None:
+            for name, fn in self._counter_sources().items():
+                base = self._epoch0.get(name, {})
+                s[f"{name}_epoch"] = {
+                    k: v - base.get(k, 0) for k, v in fn().items()
+                    if isinstance(v, (int, float))}
+        return s
 
     def close(self) -> None:
         pass

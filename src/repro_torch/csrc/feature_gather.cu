@@ -88,6 +88,40 @@ feature_gather_kernel(const float* __restrict__ table, int64_t vecs_per_row,
   }
 }
 
+// The cached gather (replaces feature_gather.py:feature_gather_cached, body
+// `_cached_kernel`): out[r] = cache[max(slot_of[ids[r]], 0)], the row copy
+// above with one more indirection through the node -> slot table; slot -1
+// (not resident) reads slot 0, as the TPU kernel clamps it.  The TPU
+// kernel's padding of the row count with repeats of the last id is not
+// carried over: the ragged edge of the grid is masked.
+template <int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+feature_gather_cached_kernel(const float* __restrict__ cache, int64_t vecs_per_row,
+                             const int32_t* __restrict__ slot_of,
+                             const int32_t* __restrict__ ids, int64_t rows,
+                             float* __restrict__ out) {
+  using T = typename Vec<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (m >= rows) return;
+  int64_t slot = slot_of[ids[m]];
+  if (slot < 0) slot = 0;
+  const T* __restrict__ row = reinterpret_cast<const T*>(cache) + slot * vecs_per_row;
+  T* __restrict__ dst = reinterpret_cast<T*>(out) + m * vecs_per_row;
+#pragma unroll 4
+  for (int64_t c = lane; c < vecs_per_row; c += 32) dst[c] = row[c];
+}
+
+template <int VEC>
+cudaError_t launch_cached(const float* cache, int64_t feat, const int32_t* slot_of,
+                          const int32_t* ids, int64_t rows, float* out,
+                          cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
+  feature_gather_cached_kernel<VEC><<<blocks, kWarps * 32, 0, stream>>>(
+      cache, feat / VEC, slot_of, ids, rows, out);
+  return cudaGetLastError();
+}
+
 template <int VEC>
 cudaError_t launch(const float* table, int64_t feat, const int32_t* ids,
                    int64_t rows, int fanout, float* out, cudaStream_t stream) {
@@ -118,6 +152,26 @@ extern "C" int feature_gather_launch(const void* table, int64_t feat,
     case 4: return static_cast<int>(launch<4>(t, feat, i, rows, fanout, o, s));
     case 2: return static_cast<int>(launch<2>(t, feat, i, rows, fanout, o, s));
     case 1: return static_cast<int>(launch<1>(t, feat, i, rows, fanout, o, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// cache: (C, feat) float32; slot_of: (N+1,) int32; ids: (rows,) int32;
+// out: (rows, feat) float32.  `vec` as above.
+extern "C" int feature_gather_cached_launch(const void* cache, int64_t feat,
+                                            const void* slot_of, const void* ids,
+                                            int64_t rows, void* out, int vec,
+                                            void* stream) {
+  if (rows == 0 || feat == 0) return static_cast<int>(cudaSuccess);
+  const float* c = static_cast<const float*>(cache);
+  const int32_t* so = static_cast<const int32_t*>(slot_of);
+  const int32_t* i = static_cast<const int32_t*>(ids);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 4: return static_cast<int>(launch_cached<4>(c, feat, so, i, rows, o, s));
+    case 2: return static_cast<int>(launch_cached<2>(c, feat, so, i, rows, o, s));
+    case 1: return static_cast<int>(launch_cached<1>(c, feat, so, i, rows, o, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

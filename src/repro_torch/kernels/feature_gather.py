@@ -1,10 +1,12 @@
-"""CUDA kernel wrappers: feature-row gather and fanout mean
-(``csrc/feature_gather.cu``).
+"""CUDA kernel wrappers: feature-row gather, fanout mean and the cached
+row gather (``csrc/feature_gather.cu``).
 
 The counterparts of the reference's Pallas ``feature_gather_rows`` and
-``feature_gather_mean``, which share one body there and one kernel here:
-a warp per output row reads the gathered rows straight from device memory
-with the widest vector load the row length allows.  The wrappers check
+``feature_gather_mean``, which share one body there and one kernel here,
+and of ``feature_gather_cached``, which reads each row of the device
+feature cache through the node -> slot table: a warp per output row reads
+the gathered row straight from device memory with the widest vector load
+the row length allows.  The wrappers check
 their inputs, allocate the output and launch on the current stream; they
 take CUDA tensors only (``kernels.ops`` sends CPU tensors to the plain
 versions in ``kernels.ref``).  Ids must lie in ``[0, N)``: checking them
@@ -23,6 +25,9 @@ from repro_torch.kernels import LAUNCHES, _build
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p)
+_CACHED_ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p)
 
 
 def _vec_width(table: torch.Tensor, out: torch.Tensor) -> int:
@@ -36,13 +41,17 @@ def _vec_width(table: torch.Tensor, out: torch.Tensor) -> int:
     return 1
 
 
-def _gather(table: torch.Tensor, ids2d: torch.Tensor, what: str
-            ) -> torch.Tensor:
+def _check_table(table: torch.Tensor, what: str) -> None:
     if not (table.is_cuda and table.dtype == torch.float32
             and table.dim() == 2 and table.is_contiguous()):
         raise ValueError(f"{what}: table must be a contiguous 2-d float32 "
                          f"CUDA tensor, got {table.dtype} "
                          f"{tuple(table.shape)} on {table.device}")
+
+
+def _gather(table: torch.Tensor, ids2d: torch.Tensor, what: str
+            ) -> torch.Tensor:
+    _check_table(table, what)
     if not (ids2d.is_cuda and ids2d.dtype == torch.int32
             and ids2d.is_contiguous()):
         raise ValueError(f"{what}: ids must be a contiguous int32 CUDA "
@@ -80,3 +89,31 @@ def feature_gather_mean(table: torch.Tensor, ids: torch.Tensor
         raise ValueError(f"feature_gather_mean: ids must be 2-d, got "
                          f"{tuple(ids.shape)}")
     return _gather(table, ids, "feature_gather_mean")
+
+
+def feature_gather_cached(cache: torch.Tensor, slot_of: torch.Tensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """cache (C, F) float32, slot_of (N+1,) int32, ids (R,) int32 ->
+    (R, F) exact copy of ``cache[max(slot_of[ids], 0)]``.  Ids must lie in
+    ``[0, N]``."""
+    name = "feature_gather_cached"
+    _check_table(cache, name)
+    for x, what in ((slot_of, "slot_of"), (ids, "ids")):
+        if not (x.is_cuda and x.dtype == torch.int32 and x.dim() == 1
+                and x.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous 1-d int32 "
+                             f"CUDA tensor, got {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")
+    if not slot_of.device == ids.device == cache.device:
+        raise ValueError(f"{name}: inputs on different devices")
+    R, F = ids.shape[0], cache.shape[1]
+    out = torch.empty((R, F), dtype=torch.float32, device=cache.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("feature_gather", "feature_gather_cached_launch",
+                         _CACHED_ARGTYPES)
+    stream = torch.cuda.current_stream(cache.device).cuda_stream
+    _build.check(fn(cache.data_ptr(), F, slot_of.data_ptr(), ids.data_ptr(),
+                    R, out.data_ptr(), _vec_width(cache, out), stream), name)
+    LAUNCHES[name] += 1
+    return out

@@ -1,7 +1,9 @@
 """Public wrappers for the port's kernels, dispatched by device.
 
 A CUDA tensor launches the hand-written kernel (``kernels.neighbor_sample``,
-``kernels.feature_gather``), which raises on what it does not take; a CPU
+``kernels.feature_gather``, each with its cached variant that reads
+through a device cache's slot table), which raises on what it does not
+take; a CPU
 tensor takes the plain version in ``kernels.ref``.  There is no switch
 and no fallback between the two: the device of the data decides.
 """
@@ -32,6 +34,22 @@ def neighbor_sample(indptr, indices, targets, rand, *, max_degree: int):
     if targets.is_cuda:
         return _ns.neighbor_sample(*args)
     return ref.neighbor_sample(*args)
+
+
+def neighbor_sample_cached(indptr, cache, block_slots, targets, rand, *,
+                           block_e: int, max_block: int):
+    """Fanout sample through the (C, block_e) edge-block cache and its
+    ``block_slots`` indirection instead of the full edge array.
+    Residency is the caller's contract (``DeviceEdgeBlockCache`` resolves
+    the planned block set before the call); the ids then equal
+    ``neighbor_sample``'s."""
+    args = [x.to(torch.int32).contiguous()
+            for x in (indptr, block_slots, targets, rand, cache)]
+    if targets.is_cuda:
+        return _ns.neighbor_sample_cached(*args, block_e=block_e,
+                                          max_block=max_block)
+    return ref.neighbor_sample_cached(*args, block_e=block_e,
+                                      max_block=max_block)
 
 
 def sample_khop_kernel(indptr, indices, targets, fanouts, *, key,
@@ -73,3 +91,21 @@ def feature_gather_mean(table, ids):
     if table.is_cuda:
         return _fg.feature_gather_mean(table, ids)
     return ref.feature_gather_mean(table, ids)
+
+
+def feature_gather_cached(cache, slot_of, ids):
+    """(C, F) row cache, (N+1,) slot table, ids (...,) -> (..., F): the
+    device feature cache's read path, one launch per call.  Every id must
+    be resident (``DeviceFeatureCache`` resolves misses before the
+    call)."""
+    F = cache.shape[1]
+    flat = ids.reshape(-1).to(torch.int32).contiguous()
+    if flat.shape[0] == 0:
+        return torch.zeros(tuple(ids.shape) + (F,), dtype=cache.dtype,
+                           device=cache.device)
+    slot_of = slot_of.to(torch.int32).contiguous()
+    if cache.is_cuda:
+        out = _fg.feature_gather_cached(cache, slot_of, flat)
+    else:
+        out = ref.feature_gather_cached(cache, slot_of, flat)
+    return out.reshape(tuple(ids.shape) + (F,))

@@ -47,3 +47,35 @@ def feature_gather_rows(table, ids):
     """table: (N, F); ids: (R,) int -> (R, F), the exact row copy
     ``table[ids]`` (the K = 1 case of the mean)."""
     return table[ids.long()]
+
+
+def feature_gather_cached(cache, slot_of, ids):
+    """cache: (C, F); slot_of: (N+1,) int node -> slot indirection; ids:
+    (R,) int resident node ids -> (R, F) gathered cache rows.  An
+    unresolved slot (-1) reads slot 0, as the kernels clamp it."""
+    return cache[slot_of[ids.long()].long().clamp_min(0)]
+
+
+def neighbor_sample_cached(indptr, block_slots, targets, rand, cache, *,
+                           block_e: int, max_block: int):
+    """Fanout sampling through an edge-block cache.
+
+    indptr: (N+1,) int32; block_slots: (NB+1,) int32 block id -> cache
+    slot; cache: (C, block_e) int32 resident edge blocks; targets: (M,)
+    int32; rand: (M, S) int32.  The sampled entry sits at ``local =
+    start - b * block_e + rand mod deg`` in the pair of blocks (b, b+1),
+    ``b = min(start // block_e, max_block)``; it is read from block ``b +
+    local // block_e`` of the cache, an unresolved slot (-1) reading slot
+    0.  Degree-0 targets sample themselves.  Returns (M, S) int32, equal
+    to ``neighbor_sample`` over the uncached edge array when every
+    dereferenced block is resident."""
+    t = targets.long()
+    start = indptr[t].long()
+    deg = indptr[t + 1].long() - start
+    b = torch.clamp(start // block_e, max=max_block)
+    r = torch.remainder(rand.long(), deg.clamp_min(1)[:, None])
+    local = (start - b * block_e)[:, None] + r
+    slot = block_slots[b[:, None] + local // block_e].long().clamp_min(0)
+    picked = cache[slot, local % block_e]
+    return torch.where(deg[:, None] > 0, picked.long(),
+                       t[:, None]).to(torch.int32)

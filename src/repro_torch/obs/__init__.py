@@ -1,1 +1,2 @@
-"""Telemetry of the port: for now only the loop's idle-fraction helper."""
+"""Telemetry of the port: the loop's idle-fraction helper and the
+canonical counter keys of the store and the device caches."""

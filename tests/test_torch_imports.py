@@ -20,8 +20,15 @@ def _run(args, timeout=300):
                           text=True, timeout=timeout, env=env)
 
 
+PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
+                "repro_torch.core.sampler", "repro_torch.obs.names",
+                "repro_torch.storage", "repro_torch.storage.store",
+                "repro_torch.storage.devcache", "repro_torch.storage.blockdev",
+                "repro_torch.storage.integrity", "repro_torch.storage.specs")
+
+
 def test_import_leaves_out_jax_and_repro():
-    code = ("import sys, repro_torch, repro_torch.launch.train\n"
+    code = (f"import sys, {', '.join(PORT_MODULES)}\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"
@@ -32,7 +39,12 @@ def test_import_leaves_out_jax_and_repro():
 
 def test_no_source_file_imports_jax_or_repro():
     found = []
-    for path in PORT.rglob("*.py"):
+    paths = list(PORT.rglob("*.py"))
+    for mod in PORT_MODULES[1:]:
+        rel = Path(*mod.split(".")[1:])
+        assert (PORT / rel.with_suffix(".py")) in paths or \
+            (PORT / rel / "__init__.py") in paths, mod
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -67,5 +79,5 @@ def test_cli_rejects_flags_of_later_slices():
                 "--backend", "host"])
     assert out.returncode == 2 and "invalid choice" in out.stderr
     out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-                "--graph-store", "disk"])
+                "--graph-store", "disk", "--prefetch", "2"])
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr

@@ -5,21 +5,28 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (both sources,
-     five kernels) and report the build time and ptxas's register report;
-  3. every kernel against its plain PyTorch version on the card, at the
-     shapes of a training step at batch 1024 and fanouts 25,10: on reddit
-     ``--large-scale`` and on a reddit-sized R-MAT graph (2**18 nodes,
-     2**23 edges drawn, 602 features); ids and rows bit-equal, the mean
-     within 1e-6.  The cached kernels read a cache built from the batch:
-     ``neighbor_sample_cached`` every edge block the batch reaches
-     resident at a permuted slot (the others at -1), at (1024,25) and
-     (25600,10); ``feature_gather_cached`` the batch's unique rows at
-     permuted slots, at the padded unique-id length and at the segment
-     lengths a 4096-row pinned feature cache cuts the batch into.  Each
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (four sources,
+     seven kernels) and report the build time and ptxas's register report;
+  3. every kernel against its plain PyTorch version on the card.  The
+     GNN's five at the shapes of a training step at batch 1024 and
+     fanouts 25,10: on reddit ``--large-scale`` and on a reddit-sized
+     R-MAT graph (2**18 nodes, 2**23 edges drawn, 602 features); ids and
+     rows bit-equal, the mean within 1e-6.  The cached kernels read a
+     cache built from the batch: ``neighbor_sample_cached`` every edge
+     block the batch reaches resident at a permuted slot (the others at
+     -1), at (1024,25) and (25600,10); ``feature_gather_cached`` the
+     batch's unique rows at permuted slots, at the padded unique-id length
+     and at the segment lengths a 4096-row pinned feature cache cuts the
+     batch into.  The LM's two: ``flash_attention_fwd`` (causal) at
+     qwen2-0.5b's prefill (B 8, S 2048, 14 query over 2 kv heads, D 64),
+     at D 128 (B 1, 32 over 8 heads) and D 256 (B 2, S 1024, 4 over 1) and
+     at a ragged S 1000, out within 2e-2 and lse within 1e-3;
+     ``decode_attention`` over qwen2-0.5b's 2,112-position cache at batch
+     8, valid_len 1, 1000 and 2112, window 0 and 512, within 2e-2.  Each
      kernel is timed (median of 20 launches, L2 flushed before each)
      beside its plain version, one PyTorch library call for the same
-     function, and its bound;
+     function (``scaled_dot_product_attention`` for the LM's) and its
+     bound;
   4. three batches sampled and gathered on the card equal the CPU plain
      path's bit for bit, and four fp32 training steps on the card match
      the CPU's losses within 1e-4;
@@ -43,7 +50,19 @@ Phases, in order; any failure raises and the script exits nonzero:
   9. where the out-of-core step's time goes: the wall time of each stage
      (sample, resolve, admit, train step) with a device synchronize at
      each boundary, then a profile of two steps;
-  10. a JSON line of the kernels' numbers, the card line, and the result.
+  10. serving on the card against the CPU's plain path: qwen2-0.5b at full
+     width cut to 2 layers, equal bf16 weights, batch 2, prompt 256, 8
+     tokens, ``attn_impl`` flash and chunked; logits within 0.125 and the
+     greedy ids equal (up to near-ties of the bf16 logits);
+  11. the serving path through its entry point,
+     ``repro_torch.launch.serve.main``: qwen2-0.5b ``--full-config``,
+     batch 8, prompt 2048, 64 tokens, with the launch counters reset just
+     before: ``flash_attention_fwd`` 24 times (one a layer in prefill),
+     ``decode_attention`` 24 x 63 times, finite logits; prefill ms, decode
+     ms per step and tok/s;
+  12. where serving's time goes: a warm prefill and steady decode steps
+     timed, then profiled (device time by kernel, device busy share);
+  13. a JSON line of the kernels' numbers, the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -51,6 +70,7 @@ It needs one CUDA device and exits nonzero without one.  Details go to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -76,7 +96,19 @@ from repro_torch.kernels.feature_gather import (  # noqa: E402
     feature_gather_cached, feature_gather_mean, feature_gather_rows)
 from repro_torch.kernels.neighbor_sample import (  # noqa: E402
     edge_block_count, neighbor_sample, neighbor_sample_cached)
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, valid_range)
+from repro_torch.kernels.flash_attention import \
+    flash_attention_fwd  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.shapes import make_batch  # noqa: E402
+from repro_torch.models.params import (cast_tree, init_params,  # noqa: E402
+                                       tree_map)
+from repro_torch.models.registry import get_config  # noqa: E402
+from repro_torch.models.transformer import (COMPUTE_DTYPE,  # noqa: E402
+                                            LM, build_defs)
+from repro_torch.train.steps import (build_prefill_step,  # noqa: E402
+                                     build_serve_step)
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.storage import (DeviceFeatureCache, DiskStore,  # noqa: E402
                                  pad_pow2, save_graph)
@@ -87,16 +119,41 @@ RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
 # device edge blocks, device policy
 OOC_CACHE_MB, OOC_ROWS, OOC_BLOCKS, OOC_POLICY = 4, 4096, 128, "pinned"
 DEVICE = "cuda"
-# H100 SXM data sheet: HBM bandwidth, and the float32 rate outside the
-# tensor cores (used for the kernels' scalar integer and float work)
+# LM serving: the arch, the entry point's batch, prompt and generation,
+# and the card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
+LM_ARCH = "qwen2-0.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 2, 256, 8
+# attention kernels against their plain versions: bf16 outputs within a
+# few bf16 ulps at |out| < 4, the float32 logsumexp within 1e-3
+ATTN_OUT_TOL, LSE_TOL = 2e-2, 1e-3
+# card vs CPU logits of the serving parity run: the logits are computed in
+# bf16 (magnitude 4-8, one ulp 1/32) from activations that round apart
+# on the two devices; 4 ulps
+LOGIT_TOL = 0.125
+# flash forward cases (B, S, Hq, Hkv, D), causal: qwen2-0.5b's prefill at
+# the entry point's shape first, then head dims 128 and 256 and a ragged S
+FLASH_CASES = [(SERVE_BATCH, SERVE_PROMPT, 14, 2, 64), (1, 2048, 32, 8, 128),
+               (2, 1024, 4, 1, 256), (SERVE_BATCH, 1000, 14, 2, 64)]
+# decode cases: qwen2-0.5b's cache at the entry point's shape, (valid_len,
+# window); the full cache without a window stands for a decode step
+DECODE_SHAPE = (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, 14, 2, 64)
+DECODE_CASES = [(v, w) for v in (1, 1000, SERVE_PROMPT + SERVE_GEN)
+                for w in (0, 512)]
+# H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
+# cores (used for the kernels' scalar integer and float work) and the
+# dense bf16 tensor-core rate (the attention kernels' bf16 inputs)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 REPLACES = {
     "neighbor_sample": "src/repro/kernels/neighbor_sample.py:104",
     "feature_gather_rows": "src/repro/kernels/feature_gather.py:106",
     "feature_gather_mean": "src/repro/kernels/feature_gather.py:90",
     "neighbor_sample_cached": "src/repro/kernels/neighbor_sample.py:197",
     "feature_gather_cached": "src/repro/kernels/feature_gather.py:146",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:78",
+    "decode_attention": "src/repro/kernels/decode_attention.py:72",
 }
 SOURCES = {
     "neighbor_sample": "src/repro_torch/csrc/neighbor_sample.cu",
@@ -104,6 +161,8 @@ SOURCES = {
     "feature_gather_mean": "src/repro_torch/csrc/feature_gather.cu",
     "neighbor_sample_cached": "src/repro_torch/csrc/neighbor_sample.cu",
     "feature_gather_cached": "src/repro_torch/csrc/feature_gather.cu",
+    "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 
 
@@ -146,10 +205,11 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S
+             ) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate or operations
-    over the peak rate, whichever is larger."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / SCALAR_OPS_PER_S * 1e3
+    over the peak rate for their type, whichever is larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -585,6 +645,236 @@ def ooc_stage_phase(g, store_dir: str) -> dict:
     return {"stage_ms_median": ms, "stage_ms": split, "profile": prof}
 
 
+def _sdpa(q, k, v, **kw):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) views, GQA by
+    ``enable_gqa``.  Used on no path of the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **kw)
+
+
+def _bf16_randn(gen, *shape):
+    return torch.randn(*shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+
+def flash_case(timer, gen, B, S, Hq, Hkv, D, count) -> dict:
+    """flash_attention_fwd at (B, S, Hq, Hkv, D), causal: out within
+    ATTN_OUT_TOL and lse within LSE_TOL of the plain version, timed beside
+    it, ``scaled_dot_product_attention`` and the bound (the causal
+    2*B*Hq*S^2*D flops at the bf16 tensor-core rate, or the q/k/v/o and lse
+    bytes at HBM rate)."""
+    q = _bf16_randn(gen, B, S, Hq, D)
+    k, v = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    want, want_lse = ref.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    del want, want_lse
+    check(err <= ATTN_OUT_TOL and lse_err <= LSE_TOL,
+          f"flash_attention_fwd {(B, S, Hq, Hkv, D)}: out off by {err}, "
+          f"lse by {lse_err}")
+    b, by = bound_ms(2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S,
+                     2 * B * Hq * S * S * D, BF16_OPS_PER_S)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_err = float((_sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+                     .float() - out.float()).abs().max())
+    check(lib_err <= ATTN_OUT_TOL, f"scaled_dot_product_attention "
+          f"{(B, S, Hq, Hkv, D)} is off the kernel by {lib_err}")
+    row = {"shape": [B, S, Hq, Hkv, D], "max_abs_err": err,
+           "lse_err": lse_err, "count": count,
+           "ms": timer(lambda: flash_attention_fwd(q, k, v, causal=True)),
+           "plain_ms": timer(lambda: ref.flash_attention_fwd(q, k, v)),
+           "library_ms": timer(lambda: _sdpa(qt, kt, vt, is_causal=True)),
+           "bound_ms": b, "bound_by": by}
+    torch.cuda.empty_cache()
+    return row
+
+
+def decode_case(timer, q, k, v, valid_len, window, count) -> dict:
+    """decode_attention over the (B, S, Hkv, D) cache: out within
+    ATTN_OUT_TOL of the plain version, timed beside it, a masked
+    ``scaled_dot_product_attention`` and the bound (the valid keys' K and V
+    rows, q and out at HBM rate)."""
+    got = decode_attention(q, k, v, valid_len, window)
+    want = ref.decode_attention(q, k, v, valid_len, window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= ATTN_OUT_TOL, f"decode_attention valid_len {valid_len} "
+          f"window {window}: off by {err}")
+    B, Hq, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    lo, hi = valid_range(S, valid_len, window)
+    b, by = bound_ms(4 * B * (hi - lo) * Hkv * D + 4 * B * Hq * D,
+                     4 * B * Hq * (hi - lo) * D, BF16_OPS_PER_S)
+    mask = torch.zeros((1, 1, 1, S), dtype=torch.bool, device=DEVICE)
+    mask[..., lo:hi] = True
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    lib_err = float((_sdpa(q4, kt, vt, attn_mask=mask)[:, :, 0].float()
+                     - got.float()).abs().max())
+    check(lib_err <= ATTN_OUT_TOL, f"scaled_dot_product_attention over the "
+          f"cache (valid_len {valid_len}, window {window}) is off the "
+          f"kernel by {lib_err}")
+    return {"shape": [B, S, Hq, Hkv, D], "valid_len": valid_len,
+            "window": window, "max_abs_err": err, "count": count,
+            "ms": timer(lambda: decode_attention(q, k, v, valid_len, window)),
+            "plain_ms": timer(lambda: ref.decode_attention(
+                q, k, v, valid_len, window)),
+            "library_ms": timer(lambda: _sdpa(q4, kt, vt, attn_mask=mask)),
+            "bound_ms": b, "bound_by": by}
+
+
+def lm_kernel_phase(timer) -> dict:
+    """Phase 3, the LM's kernels: flash_attention_fwd at FLASH_CASES and
+    decode_attention at DECODE_SHAPE x DECODE_CASES, each against its
+    plain version.  ``count`` is the launches per prefill (flash, at the
+    entry point's shape) and per decode step (decode, full cache)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    layers = get_config(LM_ARCH).num_layers
+    flash = [flash_case(timer, gen, *shape, count=layers if i == 0 else 0)
+             for i, shape in enumerate(FLASH_CASES)]
+    B, S, Hq, Hkv, D = DECODE_SHAPE
+    q = _bf16_randn(gen, B, Hq, D)
+    k, v = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+    dec = [decode_case(timer, q, k, v, vl, w,
+                       count=layers if (vl, w) == (S, 0) else 0)
+           for vl, w in DECODE_CASES]
+    cases = {"flash_attention_fwd": flash, "decode_attention": dec}
+    for kname, rows in cases.items():
+        for c in rows:
+            extra = (f"lse_err {c['lse_err']:g}" if "lse_err" in c else
+                     f"valid_len {c['valid_len']} window {c['window']}")
+            print(f"[smoke]   {kname:20s} {str(c['shape']):24s} kernel "
+                  f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library "
+                  f"{c['library_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_by']})  max_abs_err {c['max_abs_err']:g}  "
+                  f"{extra}  x{c['count']}")
+    return cases
+
+
+def _greedy(model, batch, prompt: int, gen: int, device, feed=None):
+    """Prefill + ``gen - 1`` greedy serve steps; returns the ids (B, gen)
+    and each step's logits on the CPU.  With ``feed`` (B, gen) ids, the
+    steps take those tokens instead of their own picks."""
+    prefill = build_prefill_step(model, prompt + gen)
+    step = build_serve_step(model)
+    logits, cache = prefill({k: v.to(device) for k, v in batch.items()})
+    tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)[:, None]
+    ids, all_logits = [tok], [logits.cpu()]
+    for i in range(gen - 1):
+        if feed is not None:
+            tok = feed[:, i:i + 1].to(device)
+        logits, cache, nxt = step(tok, cache, prompt + i)
+        tok = nxt[:, None]
+        ids.append(tok)
+        all_logits.append(logits.cpu())
+    return torch.cat(ids, dim=1).cpu(), all_logits
+
+
+def serve_parity_phase() -> dict:
+    """Phase 10: serving on the card against the CPU's plain path, equal
+    bf16 weights, for LM_ARCH at full width cut to PARITY_LAYERS layers,
+    batch PARITY_BATCH, prompt PARITY_PROMPT, PARITY_GEN tokens, both
+    ``attn_impl``s.  The card decodes greedily; the CPU is fed the card's
+    ids, so every step's logits compare like with like: within LOGIT_TOL.
+    The greedy ids are the card's and the CPU's argmax of the same step;
+    they must be equal, except where the CPU's top two logits lie within
+    LOGIT_TOL of each other (bf16 logits over a 151,936-token vocabulary
+    tie) and the card's pick is within LOGIT_TOL of the CPU's maximum."""
+    out = {}
+    for impl in ("flash", "chunked"):
+        cfg = dataclasses.replace(get_config(LM_ARCH),
+                                  num_layers=PARITY_LAYERS, attn_impl=impl)
+        params = cast_tree(init_params(build_defs(cfg), seed=0),
+                           COMPUTE_DTYPE)
+        batch = make_batch(cfg, PARITY_BATCH, PARITY_PROMPT, kind="prefill")
+        card = LM(cfg, tree_map(lambda t: t.to(DEVICE), params))
+        ids, card_logits = _greedy(card, batch, PARITY_PROMPT, PARITY_GEN,
+                                   DEVICE)
+        del card
+        _, cpu_logits = _greedy(LM(cfg, params), batch, PARITY_PROMPT,
+                                PARITY_GEN, "cpu", feed=ids)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(card_logits, cpu_logits))
+        check(all(torch.isfinite(a).all() for a in card_logits),
+              f"serve parity ({impl}): non-finite logits on the card")
+        check(err <= LOGIT_TOL, f"serve parity ({impl}): card and CPU "
+              f"logits differ by {err}")
+        ties = 0
+        for t, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+            top = torch.topk(b[:, -1], 2).values
+            cpu_ids = torch.argmax(b[:, -1], -1)
+            for r in range(PARITY_BATCH):
+                if int(ids[r, t]) == int(cpu_ids[r]):
+                    continue
+                ties += 1
+                check(float(top[r, 0] - top[r, 1]) <= LOGIT_TOL and
+                      float(b[r, -1, int(ids[r, t])]) >= float(top[r, 0])
+                      - LOGIT_TOL,
+                      f"serve parity ({impl}): step {t} row {r} card picks "
+                      f"{int(ids[r, t])}, CPU {int(cpu_ids[r])}")
+        out[impl] = {"max_logit_diff": err, "ids": ids.tolist(),
+                     "near_tie_picks": ties}
+        print(f"[smoke] phase 10 ({impl}): {PARITY_GEN} greedy ids x "
+              f"{PARITY_BATCH} rows equal to the CPU's "
+              f"({ties} near-tie picks), logits within {err:g} "
+              f"(tolerance {LOGIT_TOL}); card ids {ids[0].tolist()}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_profile_phase() -> dict:
+    """Phase 12, where serving's time goes: the entry point's model and
+    prompt, a warm prefill timed then profiled once, and decode steps
+    timed at steady state (16 steps after 2) then profiled (4 steps):
+    device time by kernel and the device's busy share."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    model = LM(cfg, tree_map(lambda t: t.to(DEVICE), cast_tree(
+        init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)))
+    batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, kind="prefill",
+                       device=DEVICE)
+    prefill = build_prefill_step(model, SERVE_PROMPT + SERVE_GEN)
+    step = build_serve_step(model)
+    prefill(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch)
+    torch.cuda.synchronize()
+    warm_prefill_ms = 1e3 * (time.perf_counter() - t0)
+    pre = device_profile(lambda: prefill(batch), 1)
+    tok = torch.argmax(logits[:, -1, :], -1).to(torch.int32)[:, None]
+    state = {"tok": tok, "pos": SERVE_PROMPT}
+
+    def steps(n):
+        for _ in range(n):
+            _, _, nxt = step(state["tok"], cache, state["pos"])
+            state["tok"] = nxt[:, None]
+            state["pos"] += 1
+
+    steps(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(16)
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t0) / 16
+    dec = device_profile(lambda: steps(4), 4)
+    print(f"[smoke] phase 12: warm prefill {warm_prefill_ms:.3f} ms "
+          f"(profiled {pre['profiled_ms_per_step']:.3f} ms, device busy "
+          f"{pre['device_busy_ms_per_step']} ms, share "
+          f"{pre['device_busy_share']}, {pre['device_ops_per_step']:.0f} "
+          "device ops)")
+    print_profile(pre)
+    print(f"[smoke] phase 12: decode steady {steady_ms:.3f} ms/step "
+          f"({SERVE_BATCH * 1e3 / steady_ms:.1f} tok/s); profiled "
+          f"{dec['profiled_ms_per_step']:.3f} ms/step, device busy "
+          f"{dec['device_busy_ms_per_step']} ms/step (share "
+          f"{dec['device_busy_share']}), {dec['device_ops_per_step']:.0f} "
+          "device ops/step")
+    print_profile(dec)
+    return {"warm_prefill_ms": warm_prefill_ms, "prefill": pre,
+            "decode_steady_ms_per_step": steady_ms, "decode": dec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -619,6 +909,8 @@ def main() -> int:
     per_graph = {"reddit-large": kernel_phase("reddit-lg", reddit, timer),
                  "rmat-2^18": kernel_phase("rmat-2^18", synth, timer)}
     del synth
+    torch.cuda.empty_cache()
+    lm_cases = lm_kernel_phase(timer)
 
     parity_phase(reddit)
 
@@ -684,6 +976,34 @@ def main() -> int:
 
         ooc_split = ooc_stage_phase(reddit, store_dir)
 
+    torch.cuda.empty_cache()
+    serve_parity = serve_parity_phase()
+
+    layers = get_config(LM_ARCH).num_layers
+    argv_serve = ["--arch", LM_ARCH, "--full-config", "--batch",
+                  str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+                  "--gen", str(SERVE_GEN), "--device", DEVICE]
+    print(f"[smoke] phase 11: serve {' '.join(argv_serve)}")
+    kernels.reset_launches()
+    served = serve.main(argv_serve)
+    lm_launches = dict(kernels.LAUNCHES)
+    check(lm_launches["flash_attention_fwd"] == layers,
+          f"flash_attention_fwd launched "
+          f"{lm_launches['flash_attention_fwd']} times, not {layers}")
+    check(lm_launches["decode_attention"] == layers * (SERVE_GEN - 1),
+          f"decode_attention launched {lm_launches['decode_attention']} "
+          f"times, not {layers} x {SERVE_GEN - 1}")
+    check(bool(torch.isfinite(served["prefill_logits"]).all()
+               and torch.isfinite(served["logits"]).all()),
+          "serve: non-finite logits")
+    check(served["tokens"].shape == (SERVE_BATCH, SERVE_GEN),
+          f"serve: ids of shape {served['tokens'].shape}")
+    print(f"[smoke] phase 11: prefill {served['prefill_ms']:.3f} ms, decode "
+          f"{served['decode_ms_per_step']:.3f} ms/step, "
+          f"{served['tok_per_s']:.1f} tok/s, launches {lm_launches}")
+
+    serve_prof = serve_profile_phase()
+
     # the JSON line: per kernel, summed over one step's launches on the
     # reddit-sized graph (its 631 MB table does not fit in L2); each
     # kernel's launch count is from its path's entry-point run
@@ -707,6 +1027,27 @@ def main() -> int:
             "library_ms": None if None in libs else per_step("library_ms"),
             "shapes": [c["shape"] for c in cases], "per_step": counts,
             "on_main_path": kname != "feature_gather_mean"})
+    # the LM's kernels: per prefill (flash, 24 launches at the entry
+    # point's shape) and per decode step (decode, 24 launches over the
+    # full cache); launch counts from the serve entry point's run
+    for kname, cases in lm_cases.items():
+        counts = [c["count"] for c in cases]
+
+        def per_call(key):
+            return sum(n * c[key] for n, c in zip(counts, cases))
+
+        main_case = cases[counts.index(max(counts))]
+        table.append({
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": lm_launches[kname],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
+            "bound_ms": per_call("bound_ms"),
+            "bound_by": main_case["bound_by"],
+            "library_ms": per_call("library_ms"),
+            "shapes": [c["shape"] for c in cases], "per_step": counts,
+            "per": ("prefill" if kname == "flash_attention_fwd"
+                    else "decode step"), "on_main_path": True})
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "kernels": table, "per_graph": per_graph,
@@ -726,6 +1067,13 @@ def main() -> int:
                              "launches": ooc_launches,
                              "loader": ooc_loader_stats},
                "ooc_stages": ooc_split,
+               "lm_kernels": lm_cases, "serve_parity": serve_parity,
+               "serve": {"argv": argv_serve, "launches": lm_launches,
+                         **{k: served[k] for k in (
+                             "prefill_ms", "decode_ms", "decode_ms_per_step",
+                             "tok_per_s")},
+                         "ids": served["tokens"].tolist()},
+               "serve_profile": serve_prof,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

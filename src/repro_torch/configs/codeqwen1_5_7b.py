@@ -1,0 +1,11 @@
+"""codeqwen1.5-7b — dense, qwen1.5 arch (MHA kv=32, QKV bias)
+[hf:Qwen/CodeQwen1.5-7B]."""
+from repro_torch.models.registry import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="codeqwen1.5-7b", family="dense",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=32, head_dim=128,
+    d_ff=13440, vocab_size=92416,
+    qkv_bias=True, rope_theta=1e6,
+    subquadratic=False,
+))

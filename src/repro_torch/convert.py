@@ -1,7 +1,9 @@
-"""Carry the JAX package's GraphSAGE weights and AdamW state into the port.
+"""Carry the JAX package's weights, optimizer state and KV cache into the
+port.
 
-Both packages name and lay out their parameters alike (``l0_self`` is
-``(d_in, d_out)`` in both), so conversion is a copy to float32 tensors.
+Both packages name and lay out their parameters alike (GraphSAGE's
+``l0_self`` is ``(d_in, d_out)`` in both, the LM's ``blocks.wq`` is (L, d,
+H, Dh) in both), so conversion is a copy to float32 tensors.
 The inputs are plain dicts of numpy arrays (``jax.device_get`` of the
 reference's trees), so this module needs no JAX.
 """
@@ -22,3 +24,25 @@ def opt_state_from_jax(opt_state: dict, device="cpu") -> dict:
     """The reference's AdamW state ``{"m": {...}, "v": {...}}`` -> the
     port's, for ``repro_torch.optim.adamw``."""
     return {k: params_from_jax(opt_state[k], device) for k in ("m", "v")}
+
+
+def lm_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The reference LM's parameter tree (nested dicts of numpy arrays,
+    ``jax.device_get(model.init(key))``) -> the same tree of float32
+    tensors for ``repro_torch.models.transformer.LM``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, np.float32)).to(device)
+
+
+def lm_cache_from_jax(cache: dict, S_total: int) -> dict:
+    """The reference's prefill cache ``{"k", "v"}`` of (L, B, S, Hkv, Dh)
+    bf16 arrays -> the port's bf16 cache of ``S_total`` positions, the
+    prompt's S first and zeros after (the reference's right pad)."""
+    out = {}
+    for name in ("k", "v"):
+        a = torch.from_numpy(np.array(cache[name], np.float32))
+        pad = torch.zeros(a.shape[:2] + (S_total - a.shape[2],)
+                          + a.shape[3:])
+        out[name] = torch.cat([a, pad], dim=2).to(torch.bfloat16)
+    return out

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("neighbor_sample", "feature_gather")
+SOURCES = ("neighbor_sample", "feature_gather", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,15 +81,15 @@ def build(names=SOURCES) -> dict[str, str]:
     return logs
 
 
-def function(name: str, symbol: str, argtypes):
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, built and
-    loaded at first use, with its ``argtypes`` set and an int result."""
+    loaded at first use, with its ``argtypes`` and ``restype`` set."""
     fn = _FUNCS.get((name, symbol))
     if fn is None:
         build()
         fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FUNCS[(name, symbol)] = fn
     return fn
 

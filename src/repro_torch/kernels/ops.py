@@ -2,10 +2,11 @@
 
 A CUDA tensor launches the hand-written kernel (``kernels.neighbor_sample``,
 ``kernels.feature_gather``, each with its cached variant that reads
-through a device cache's slot table), which raises on what it does not
-take; a CPU
-tensor takes the plain version in ``kernels.ref``.  There is no switch
-and no fallback between the two: the device of the data decides.
+through a device cache's slot table; ``kernels.flash_attention`` and
+``kernels.decode_attention`` for the LM), which raises on what it does
+not take; a CPU tensor takes the plain version in ``kernels.ref``.
+There is no switch and no fallback between the two: the device of the
+data decides.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch import rng
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import feature_gather as _fg
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import neighbor_sample as _ns
 from repro_torch.kernels import ref
 
@@ -109,3 +112,30 @@ def feature_gather_cached(cache, slot_of, ids):
     else:
         out = ref.feature_gather_cached(cache, slot_of, flat)
     return out.reshape(tuple(ids.shape) + (F,))
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True):
+    """Causal or full GQA attention forward in the model's layout: q (B,
+    S, Hq, D), k and v (B, S, Hkv, D) -> (out (B, S, Hq, D) in q.dtype,
+    lse (B, Hq, S) float32).  The kernel takes bf16 and any S."""
+    if q.is_cuda:
+        return _fa.flash_attention_fwd(q, k, v, causal=causal)
+    return ref.flash_attention_fwd(q, k, v, causal=causal)
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True):
+    """The LM's flash path (``cfg.attn_impl == "flash"``): the forward's
+    output alone.  The kernel picks its own tiles, so the reference's
+    ``block_q``/``block_k`` (clipped to divisors of S there) are not
+    taken."""
+    return flash_attention_fwd(q, k, v, causal=causal)[0]
+
+
+def decode_attention(q, k, v, valid_len: int, window: int = 0):
+    """One token's GQA attention over a KV cache: q (B, Hq, D), k and v
+    (B, S, Hkv, D), ``valid_len`` and ``window`` host ints -> (B, Hq, D)
+    in q.dtype.  Any cache length S; the reference's padding of S to a
+    block multiple is not needed."""
+    if q.is_cuda:
+        return _da.decode_attention(q, k, v, valid_len, window)
+    return ref.decode_attention(q, k, v, valid_len, window)

@@ -8,6 +8,8 @@ as the comparison in ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -79,3 +81,60 @@ def neighbor_sample_cached(indptr, block_slots, targets, rand, cache, *,
     picked = cache[slot, local % block_e]
     return torch.where(deg[:, None] > 0, picked.long(),
                        t[:, None]).to(torch.int32)
+
+
+NEG_INF = -1e30
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True):
+    """Causal or full GQA attention forward with the per-row logsumexp.
+
+    q: (B, S, Hq, D); k, v: (B, S, Hkv, D), the model's layout; query head
+    ``h`` reads kv head ``h // (Hq // Hkv)``.  Scores in float32 with
+    scale ``1/sqrt(D)``, masked (``qpos < kpos`` when causal) to
+    ``NEG_INF = -1e30``.  Returns ``out`` (B, S, Hq, D) in q.dtype, equal
+    to ``(P @ V) / max(l, 1e-30)``, and ``lse = m + log(max(l, 1e-30))``
+    (B, Hq, S) float32: what the reference's ``_fwd_kernel`` writes.  The
+    (B, Hq, S, S) score matrix is materialized whole."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, group, D).float()
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[:, None] < pos[None, :], NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()) / \
+        l.permute(0, 3, 1, 2)[..., None]
+    lse = (m + torch.log(l)).reshape(B, Hq, S)
+    return o.reshape(B, S, Hq, D).to(q.dtype), lse
+
+
+def decode_attention(q, k, v, valid_len: int, window: int = 0):
+    """Single-token GQA attention over a KV cache (the reference's
+    ``ref.decode_attention``).
+
+    q: (B, Hq, D); k, v: (B, S, Hkv, D); key ``s`` is valid iff ``s <
+    valid_len`` and, when ``window > 0``, ``s >= valid_len - window``;
+    invalid scores are ``NEG_INF``.  Returns (B, Hq, D) in q.dtype."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    group = Hq // Hkv
+    qg = q.reshape(B, Hkv, group, D).float()
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    kpos = torch.arange(S, device=q.device)
+    ok = kpos < valid_len
+    if window > 0:
+        ok = ok & (kpos >= valid_len - window)
+    s = s.masked_fill(~ok, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.reshape(B, Hq, D).to(q.dtype)

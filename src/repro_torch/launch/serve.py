@@ -1,0 +1,119 @@
+"""Serving driver of the port: batched prefill + greedy decode for the dense
+LM family.
+
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --full-config \\
+      --batch 8 --prompt-len 2048 --gen 64
+
+Runs on the GPU (``--device cuda``, the default): prefill attention
+through the hand-written flash-attention forward kernel (``--attn-impl
+flash``, the default, on full-causal archs) or the chunked plain path
+(``--attn-impl chunked``), decode attention through the hand-written
+decode kernel.  ``--device cpu`` runs the plain PyTorch versions; without
+a GPU and without ``--device cpu`` it stops with an error.  Without
+``--full-config`` it serves the reduced config, as the reference's
+``repro.launch.serve`` does.  Weights are drawn from seed 0, as the
+reference's are, and cast to bf16 once before serving; prompt tokens are
+the reference's ``make_batch`` draws.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.launch.shapes import make_batch
+from repro_torch.models.params import cast_tree, init_params, tree_map
+from repro_torch.models.registry import ARCH_IDS, get_config
+from repro_torch.models.transformer import COMPUTE_DTYPE, LM, build_defs
+from repro_torch.train.steps import build_prefill_step, build_serve_step
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCH_IDS)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--full-config", action="store_true",
+                    help="use the full (non-reduced) config")
+    ap.add_argument("--attn-impl", default="flash",
+                    choices=("chunked", "flash"),
+                    help="prefill attention: the flash kernel or the "
+                         "chunked plain path (sets ModelConfig.attn_impl)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    if min(args.batch, args.prompt_len, args.gen) < 1:
+        ap.error("--batch, --prompt-len and --gen must be >= 1")
+    return args
+
+
+def serve(args) -> dict:
+    """Prefill the prompt, then ``gen - 1`` greedy decode steps.  Returns
+    the times (prefill and decode, each ending in a device synchronize),
+    the generated ids (B, gen), the prefill's last logits and the last
+    decode step's logits (on the CPU)."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("[serve] no CUDA device: the port serves on the "
+                         "GPU; pass --device cpu to run the plain PyTorch "
+                         "path on the CPU")
+    cfg = get_config(args.arch)
+    if not args.full_config:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    dev = torch.device(args.device)
+    params = cast_tree(init_params(build_defs(cfg), seed=0),
+                       COMPUTE_DTYPE)
+    model = LM(cfg, tree_map(lambda t: t.to(dev), params))
+    del params
+    S_total = args.prompt_len + args.gen
+    prefill = build_prefill_step(model, cache_len=S_total)
+    serve_step = build_serve_step(model)
+    batch = make_batch(cfg, args.batch, args.prompt_len, kind="prefill",
+                       device=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    prefill_logits, cache = prefill(batch)
+    tok = torch.argmax(prefill_logits[:, -1, :], -1).to(torch.int32)[:, None]
+    sync()
+    t_prefill = time.perf_counter() - t0
+
+    toks = [tok]
+    logits = prefill_logits
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, cache, nxt = serve_step(tok, cache, args.prompt_len + i)
+        tok = nxt[:, None]
+        toks.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+
+    steps = args.gen - 1
+    out = {"arch": cfg.name, "prefill_ms": 1e3 * t_prefill,
+           "decode_ms": 1e3 * t_decode,
+           "decode_ms_per_step": 1e3 * t_decode / steps if steps else None,
+           "tok_per_s": steps * args.batch / t_decode if steps else None,
+           "tokens": torch.cat(toks, dim=1).cpu().numpy(),
+           "prefill_logits": prefill_logits.cpu(), "logits": logits.cpu()}
+    print(f"[serve] {cfg.name} on {args.device}: prefill({args.batch}x"
+          f"{args.prompt_len}) {out['prefill_ms']:.1f} ms; decode {steps} "
+          f"steps {out['decode_ms']:.1f} ms"
+          + (f" ({out['decode_ms_per_step']:.3f} ms/step, "
+             f"{out['tok_per_s']:.1f} tok/s)" if steps else ""))
+    print("[serve] sample token ids:", out["tokens"][0, :16].tolist())
+    return out
+
+
+def main(argv=None) -> dict:
+    return serve(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,341 @@
+"""The LM of the dense family: parameters, prefill and greedy decode.
+
+The port of the reference's ``repro/models/transformer.py`` for serving
+the dense family on one card (no mesh, no sharding constraints).
+Parameters keep the reference tree's names and stacked layer shapes
+(``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
+carries the reference's weights over as a copy; ``lax.scan`` over the
+layers becomes a Python loop over layer ``i`` of the stacked tensors.
+Activations are bf16 (``COMPUTE_DTYPE``), logits are computed in bf16
+and cast to float32.  Prefill attention takes the flash kernel under the
+reference's condition (``attn_impl == "flash"``, causal, no window) and
+the chunked path otherwise; decode attention goes through the decode
+kernel (``models.attention.decode_attention_local``).
+
+The KV cache is (L, B, S_total, Hkv, Dh) bf16, allocated once for
+prompt + generation: prefill writes the first S positions, each decode
+step writes its position in place (the reference pads the prefill cache
+and ``dynamic_update_slice``s it, which gives the same values).
+
+``build_defs`` declares every family, so ``count_params`` counts all ten
+archs; ``LM`` itself refuses what this slice does not run (MoE, SSM,
+hybrid, enc-dec, M-RoPE, embedding inputs) with ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.attention import decode_attention_local, mha_chunked
+from repro_torch.models.layers import (activation, apply_rope, embed_def,
+                                       embed_lookup, rmsnorm, rmsnorm_def,
+                                       unembed_def)
+from repro_torch.models.params import ParamDef, init_params, tree_map
+from repro_torch.models.registry import ModelConfig
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions (every family, for ``count_params``)
+# ---------------------------------------------------------------------------
+
+def _attn_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
+    d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    defs = {
+        "attn_norm": rmsnorm_def(d, L),
+        "wq": ParamDef((L, d, H, Dh)),
+        "wk": ParamDef((L, d, Hkv, Dh)),
+        "wv": ParamDef((L, d, Hkv, Dh)),
+        "wo": ParamDef((L, H, Dh, d), fan_in_axes=(1, 2)),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((L, H, Dh), init="zeros")
+        defs["bk"] = ParamDef((L, Hkv, Dh), init="zeros")
+        defs["bv"] = ParamDef((L, Hkv, Dh), init="zeros")
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((L, Dh), init="ones")
+        defs["k_norm"] = ParamDef((L, Dh), init="ones")
+    if cfg.post_norms:
+        defs["post_attn_norm"] = rmsnorm_def(d, L)
+    return defs
+
+
+def _mlp_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    defs = {
+        "mlp_norm": rmsnorm_def(d, L),
+        "w_gate": ParamDef((L, d, f)),
+        "w_up": ParamDef((L, d, f)),
+        "w_down": ParamDef((L, f, d)),
+    }
+    if cfg.post_norms:
+        defs["post_mlp_norm"] = rmsnorm_def(d, L)
+    return defs
+
+
+def _ssm_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
+    """The reference's ``models/ssm.py:ssm_defs`` (shapes only here)."""
+    d_inner, n_heads, g = cfg.d_inner, cfg.ssm_heads, cfg.ssm_groups
+    conv_dim = d_inner + 2 * g * cfg.ssm_state
+    d_in_proj = 2 * d_inner + 2 * g * cfg.ssm_state + n_heads
+    return {
+        "in_proj": ParamDef((L, cfg.d_model, d_in_proj)),
+        "conv_w": ParamDef((L, cfg.d_conv, conv_dim)),
+        "conv_b": ParamDef((L, conv_dim), init="zeros"),
+        "A_log": ParamDef((L, n_heads), init="zeros"),
+        "D": ParamDef((L, n_heads), init="ones"),
+        "dt_bias": ParamDef((L, n_heads), init="zeros"),
+        "norm": ParamDef((L, d_inner), init="ones"),
+        "out_proj": ParamDef((L, d_inner, cfg.d_model)),
+    }
+
+
+def _moe_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
+    """The reference's ``models/moe.py:moe_defs`` (shapes only here)."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    return {
+        "router": ParamDef((L, d, E)),
+        "w_gate": ParamDef((L, E, d, f), fan_in_axes=(2,)),
+        "w_up": ParamDef((L, E, d, f), fan_in_axes=(2,)),
+        "w_down": ParamDef((L, E, f, d), fan_in_axes=(2,)),
+    }
+
+
+def _cross_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
+    d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "cross_norm": rmsnorm_def(d, L),
+        "wq_c": ParamDef((L, d, H, Dh)),
+        "wk_c": ParamDef((L, d, Hkv, Dh)),
+        "wv_c": ParamDef((L, d, Hkv, Dh)),
+        "wo_c": ParamDef((L, H, Dh, d), fan_in_axes=(1, 2)),
+    }
+
+
+def _block_defs(cfg: ModelConfig, L: int, *, decoder_of_encdec=False) -> dict:
+    fam = cfg.family
+    if fam == "ssm":
+        return {"ssm_norm": rmsnorm_def(cfg.d_model, L), **_ssm_defs(cfg, L)}
+    defs = _attn_defs(cfg, L)
+    if fam == "moe":
+        defs["mlp_norm"] = rmsnorm_def(cfg.d_model, L)
+        defs.update(_moe_defs(cfg, L))
+    elif fam == "hybrid":
+        defs.update(_ssm_defs(cfg, L))
+        defs["attn_branch_norm"] = rmsnorm_def(cfg.d_model, L)
+        defs["ssm_branch_norm"] = rmsnorm_def(cfg.d_model, L)
+        defs.update(_mlp_defs(cfg, L))
+    else:  # dense / encdec
+        defs.update(_mlp_defs(cfg, L))
+    if decoder_of_encdec:
+        defs.update(_cross_defs(cfg, L))
+    return defs
+
+
+def build_defs(cfg: ModelConfig) -> dict:
+    defs = {
+        "embed": embed_def(cfg.vocab_size, cfg.d_model),
+        "final_norm": rmsnorm_def(cfg.d_model),
+        "blocks": _block_defs(cfg, cfg.num_layers,
+                              decoder_of_encdec=cfg.family == "encdec"),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = unembed_def(cfg.d_model, cfg.vocab_size)
+    if cfg.family == "encdec":
+        enc_cfg = dataclasses.replace(cfg, family="dense", post_norms=False)
+        defs["enc_blocks"] = _block_defs(enc_cfg, cfg.encoder_layers)
+        defs["enc_final_norm"] = rmsnorm_def(cfg.d_model)
+    return defs
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what the port's LM does not run yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
+            "port's LM serves the dense family)")
+    for field, what in (("mrope_sections", "M-RoPE"),
+                        ("embeds_input", "embedding inputs")):
+        if getattr(cfg, field):
+            raise NotImplementedError(f"{cfg.name}: {what} ({field}) is not "
+                                      "ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Block application (``p`` is one layer's slice of the stacked parameters)
+# ---------------------------------------------------------------------------
+
+def _proj(x, w):
+    """einsum "bsd,d...->bs..." as one matmul in x's dtype."""
+    d = w.shape[0]
+    out = x.reshape(-1, d) @ w.reshape(d, -1).to(x.dtype)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _project_qkv(cfg: ModelConfig, p, x):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _rope_qk(cfg: ModelConfig, q, k, positions):
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _out_proj(cfg: ModelConfig, p, out):
+    """(B, S, H, Dh) @ wo (H, Dh, d), then the post-attention norm."""
+    H, Dh, d = p["wo"].shape
+    out = _proj(out.reshape(*out.shape[:-2], H * Dh), p["wo"].reshape(
+        H * Dh, d))
+    if cfg.post_norms:
+        out = rmsnorm(out, p["post_attn_norm"], cfg.norm_eps)
+    return out
+
+
+def _attn_block(cfg: ModelConfig, p, x, positions, window: int):
+    """Full-sequence causal attention sub-block (prefill).  Returns (out,
+    (k, v)), the roped k and v for the cache."""
+    h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, p, h)
+    bpos = positions.expand(x.shape[0], -1)
+    q, kr = _rope_qk(cfg, q, k, bpos)
+    if (cfg.attn_impl == "flash" and cfg.sliding_window == 0
+            and cfg.local_global_ratio == 0):
+        out = ops.flash_attention_bshd(q, kr, v, causal=True)
+    else:
+        out = mha_chunked(q, kr, v, q_positions=positions,
+                          k_positions=positions, window=window, causal=True,
+                          chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
+                          scores_bf16=cfg.attn_scores_bf16)
+    return _out_proj(cfg, p, out), (kr, v)
+
+
+def _mlp_block(cfg: ModelConfig, p, x):
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    g = activation(cfg.act)(_proj(h, p["w_gate"]))
+    out = _proj(g * _proj(h, p["w_up"]), p["w_down"])
+    if cfg.post_norms:
+        out = rmsnorm(out, p["post_mlp_norm"], cfg.norm_eps)
+    return out
+
+
+def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
+    """One decoder block, prefill path.  Returns (x, (k, v))."""
+    attn_out, kv = _attn_block(cfg, p, x, positions, window)
+    x = x + attn_out
+    return x + _mlp_block(cfg, p, x), kv
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+
+class LM(nn.Module):
+    """The dense-family LM with prefill and decode.
+
+    ``params`` is a tree like the reference's (``convert.lm_params_from_jax``
+    or ``params.init_params(build_defs(cfg), seed)``); without it the
+    weights are drawn from ``seed`` on ``device``.  Parameters are frozen
+    (serving only) and kept in their given dtype: cast the tree with
+    ``params.cast_tree`` first to serve in bf16."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.defs = build_defs(cfg)
+        if params is None:
+            params = init_params(self.defs, seed=seed, device=device)
+        frozen = tree_map(lambda t: nn.Parameter(t, requires_grad=False),
+                          params)
+        self.embed = frozen["embed"]
+        self.final_norm = frozen["final_norm"]
+        self.unembed = frozen.get("unembed")
+        self.blocks = nn.ParameterDict(frozen["blocks"])
+        # per-layer views of the stacked tensors, made once: the decode
+        # loop is host-bound (views of parameters that are never replaced)
+        self._layers = [{k: w[i] for k, w in self.blocks.items()}
+                        for i in range(cfg.num_layers)]
+        self._windows = [int(w) for w in cfg.window_pattern()]
+        # the reference multiplies by sqrt(d) rounded to bf16
+        self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
+                                               dtype=COMPUTE_DTYPE))
+
+    def _embed(self, tokens):
+        x = embed_lookup(self.embed, tokens, COMPUTE_DTYPE)
+        if self.cfg.embed_scale:
+            x = x * self._embed_scale
+        return x
+
+    def _logits(self, x):
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            w = self.embed.to(COMPUTE_DTYPE)             # (V, d)
+            logits = x @ w.T
+        else:
+            logits = x @ self.unembed.to(COMPUTE_DTYPE)
+        return logits.float()
+
+    def init_cache(self, B: int, S: int) -> dict:
+        """A zero (L, B, S, Hkv, Dh) bf16 K and V cache on the model's
+        device."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
+        return {n: torch.zeros(shape, dtype=COMPUTE_DTYPE,
+                               device=self.embed.device) for n in ("k", "v")}
+
+    @torch.no_grad()
+    def prefill(self, batch: dict, cache_len: int | None = None):
+        """Forward over the prompt, writing each layer's K and V into a
+        fresh cache of ``cache_len`` positions (default: the prompt
+        length).  Returns (last-position logits (B, 1, V) float32,
+        cache)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        cache = self.init_cache(B, S if cache_len is None else cache_len)
+        for i, window in enumerate(self._windows):
+            x, (k, v) = _apply_block(self.cfg, self._layers[i], x, positions,
+                                     window)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        return self._logits(x[:, -1:, :]), cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache: dict, position: int):
+        """One-token decode: tokens (B, 1); ``position`` is the host int
+        index the new K and V are written at (attention sees [0,
+        position]).  Updates ``cache`` in place; returns (logits (B, 1,
+        V) float32, cache)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        pos = torch.full((x.shape[0], 1), position, dtype=torch.int32,
+                         device=x.device)
+        for i, window in enumerate(self._windows):
+            p = self._layers[i]
+            h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+            q, k_new, v_new = _project_qkv(cfg, p, h)
+            q, k_new = _rope_qk(cfg, q, k_new, pos)
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck[:, position] = k_new[:, 0]
+            cv[:, position] = v_new[:, 0]
+            out = decode_attention_local(q[:, 0], ck, cv, position + 1,
+                                         window=window)
+            x = x + _out_proj(cfg, p, out[:, None])
+            x = x + _mlp_block(cfg, p, x)
+        return self._logits(x), cache

@@ -24,7 +24,18 @@ PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
                 "repro_torch.core.sampler", "repro_torch.obs.names",
                 "repro_torch.storage", "repro_torch.storage.store",
                 "repro_torch.storage.devcache", "repro_torch.storage.blockdev",
-                "repro_torch.storage.integrity", "repro_torch.storage.specs")
+                "repro_torch.storage.integrity", "repro_torch.storage.specs",
+                "repro_torch.launch.serve", "repro_torch.launch.shapes",
+                "repro_torch.train.steps", "repro_torch.models.transformer",
+                "repro_torch.models.attention", "repro_torch.models.layers",
+                "repro_torch.models.params", "repro_torch.models.registry",
+                *(f"repro_torch.configs.{m}" for m in (
+                    "qwen2_0_5b", "codeqwen1_5_7b", "mistral_nemo_12b",
+                    "gemma3_1b", "mamba2_370m", "mixtral_8x7b",
+                    "moonshot_v1_16b_a3b", "qwen2_vl_7b", "hymba_1_5b",
+                    "seamless_m4t_large_v2")),
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.decode_attention", "repro_torch.convert")
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -71,6 +82,24 @@ def test_cli_without_gpu_fails_loudly():
         pytest.skip("a GPU is present")
     out = _run(["-m", "repro_torch.launch.train", "--steps", "1"])
     assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+
+
+def test_serve_cli_on_cpu_when_asked():
+    out = _run(["-m", "repro_torch.launch.serve", "--device", "cpu",
+                "--arch", "qwen2-0.5b", "--batch", "2", "--prompt-len", "16",
+                "--gen", "4"])
+    assert out.returncode == 0, out.stderr
+    assert "prefill(2x16)" in out.stdout and "decode 3 steps" in out.stdout
+    assert "ms/step" in out.stdout and "tok/s" in out.stdout
+    assert "sample token ids:" in out.stdout
+
+
+def test_serve_cli_without_gpu_fails_loudly():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = _run(["-m", "repro_torch.launch.serve", "--gen", "2"])
+    assert out.returncode == 1
     assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
 
 

@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (four sources,
-     seven kernels) and report the build time and ptxas's register report;
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (five sources,
+     nine kernels) and report the build time and ptxas's register report;
   3. every kernel against its plain PyTorch version on the card.  The
      GNN's five at the shapes of a training step at batch 1024 and
      fanouts 25,10: on reddit ``--large-scale`` and on a reddit-sized
@@ -22,11 +22,16 @@ Phases, in order; any failure raises and the script exits nonzero:
      at D 128 (B 1, 32 over 8 heads) and D 256 (B 2, S 1024, 4 over 1) and
      at a ragged S 1000, out within 2e-2 and lse within 1e-3;
      ``decode_attention`` over qwen2-0.5b's 2,112-position cache at batch
-     8, valid_len 1, 1000 and 2112, window 0 and 512, within 2e-2.  Each
-     kernel is timed (median of 20 launches, L2 flushed before each)
-     beside its plain version, one PyTorch library call for the same
-     function (``scaled_dot_product_attention`` for the LM's) and its
-     bound;
+     8, valid_len 1, 1000 and 2112, window 0 and 512, within 2e-2; the
+     flash backward's ``flash_attention_bwd_dq`` and
+     ``flash_attention_bwd_dkv`` at the training shape (B 4, S 4096, 14
+     over 2 heads, D 64), at D 128 (32 over 8), D 256, a ragged S 1000
+     and one full (non-causal) case, dq, dk and dv within 1 % of the
+     plain version's largest entry.  Each kernel is timed (median of 20
+     launches, L2 flushed before each) beside its plain version, one
+     PyTorch library call for the same function
+     (``scaled_dot_product_attention`` for the LM's, its backward through
+     ``torch.autograd.grad`` for the flash backward) and its bound;
   4. three batches sampled and gathered on the card equal the CPU plain
      path's bit for bit, and four fp32 training steps on the card match
      the CPU's losses within 1e-4;
@@ -62,7 +67,22 @@ Phases, in order; any failure raises and the script exits nonzero:
      ms per step and tok/s;
   12. where serving's time goes: a warm prefill and steady decode steps
      timed, then profiled (device time by kernel, device busy share);
-  13. a JSON line of the kernels' numbers, the card line, and the result.
+  13. training on the card against the CPU's plain path: qwen2-0.5b at
+     full width cut to 2 layers, equal float32 weights, batch 1, 512
+     tokens; ``attn_impl`` flash in bf16 and chunked in float32
+     activations: the loss, the grad norm, each leaf's gradient and the
+     parameters after one AdamW step within stated tolerances;
+  14. the training path through its entry point,
+     ``repro_torch.launch.train.main``: qwen2-0.5b at full width, batch 4,
+     4096 tokens (``train_4k``; its global batch of 256 cut to 4 for one
+     card), 5 steps, ``--attn-impl flash``, with the launch counters reset
+     just before: ``flash_attention_fwd`` 2 x 24 a step (the forward and
+     its remat recompute), ``flash_attention_bwd_dq`` and
+     ``flash_attention_bwd_dkv`` 24 a step, finite losses; step ms,
+     tok/s and peak device memory;
+  15. where a training step's time goes: steady steps timed, then one
+     profiled (device time by kernel, device busy share);
+  16. a JSON line of the kernels' numbers, the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -98,18 +118,23 @@ from repro_torch.kernels.neighbor_sample import (  # noqa: E402
     edge_block_count, neighbor_sample, neighbor_sample_cached)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, valid_range)
-from repro_torch.kernels.flash_attention import \
-    flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.shapes import make_batch  # noqa: E402
 from repro_torch.models.params import (cast_tree, init_params,  # noqa: E402
-                                       tree_map)
+                                       tree_leaves, tree_map)
 from repro_torch.models.registry import get_config  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.transformer import (COMPUTE_DTYPE,  # noqa: E402
                                             LM, build_defs)
 from repro_torch.train.steps import (build_prefill_step,  # noqa: E402
-                                     build_serve_step)
-from repro_torch.optim import adamw  # noqa: E402
+                                     build_serve_step, cross_entropy,
+                                     init_train_state)
+from repro_torch.train.steps import \
+    build_train_step as build_lm_train_step  # noqa: E402
+from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
 from repro_torch.storage import (DeviceFeatureCache, DiskStore,  # noqa: E402
                                  pad_pow2, save_graph)
 
@@ -124,9 +149,29 @@ DEVICE = "cuda"
 LM_ARCH = "qwen2-0.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 2, 256, 8
+# LM training: the entry point's batch, tokens and steps (launch/shapes.py's
+# train_4k, its global batch of 256 cut to 4 for one card), and the
+# card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 5
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 1, 512
 # attention kernels against their plain versions: bf16 outputs within a
 # few bf16 ulps at |out| < 4, the float32 logsumexp within 1e-3
 ATTN_OUT_TOL, LSE_TOL = 2e-2, 1e-3
+# the flash backward's bf16 dq, dk and dv within 1 % of the plain
+# version's largest |entry| (two roundings of one float32 value to bf16
+# differ by at most one ulp, 2**-7 of it; the float32 sums differ only in
+# order), its float32 delta within 1e-4 of the largest; the library's
+# backward, which keeps p and ds in bf16, within 10 % (a yardstick only)
+GRAD_REL_TOL, DELTA_REL_TOL, LIB_GRAD_REL_TOL = 1e-2, 1e-4, 0.1
+# card vs CPU training (phase 13).  In bf16 both round their activations
+# apart (as the reference and the port do on the CPU, where
+# tests/test_torch_lm_train.py states the same loss tolerance): the loss
+# within 5e-3, the grad norm within 2 %, each leaf's gradient within 0.25
+# relative L2 (the ill-conditioned query/key path moves most).  In
+# float32 they differ in the order of their sums only: the loss and the
+# grad norm within 1e-4 relative, each gradient within 1e-2 relative L2
+TRAIN_LOSS_TOL, GRAD_NORM_REL_TOL, TRAIN_GRAD_L2_TOL = 5e-3, 2e-2, 0.25
+F32_TRAIN_REL_TOL, F32_GRAD_L2_TOL = 1e-4, 1e-2
 # card vs CPU logits of the serving parity run: the logits are computed in
 # bf16 (magnitude 4-8, one ulp 1/32) from activations that round apart
 # on the two devices; 4 ulps
@@ -135,6 +180,13 @@ LOGIT_TOL = 0.125
 # the entry point's shape first, then head dims 128 and 256 and a ragged S
 FLASH_CASES = [(SERVE_BATCH, SERVE_PROMPT, 14, 2, 64), (1, 2048, 32, 8, 128),
                (2, 1024, 4, 1, 256), (SERVE_BATCH, 1000, 14, 2, 64)]
+# flash backward cases (B, S, Hq, Hkv, D, causal): qwen2-0.5b's training
+# step at the entry point's shape first, then head dims 128 and 256, a
+# ragged S and a full (non-causal) case
+FLASH_BWD_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, True),
+                   (1, 2048, 32, 8, 128, True), (2, 1024, 4, 1, 256, True),
+                   (TRAIN_BATCH, 1000, 14, 2, 64, True),
+                   (1, 1000, 14, 2, 64, False)]
 # decode cases: qwen2-0.5b's cache at the entry point's shape, (valid_len,
 # window); the full cache without a window stands for a decode step
 DECODE_SHAPE = (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, 14, 2, 64)
@@ -153,6 +205,8 @@ REPLACES = {
     "neighbor_sample_cached": "src/repro/kernels/neighbor_sample.py:197",
     "feature_gather_cached": "src/repro/kernels/feature_gather.py:146",
     "flash_attention_fwd": "src/repro/kernels/flash_attention.py:78",
+    "flash_attention_bwd_dq": "src/repro/kernels/flash_attention.py:147",
+    "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention.py:116",
     "decode_attention": "src/repro/kernels/decode_attention.py:72",
 }
 SOURCES = {
@@ -162,6 +216,8 @@ SOURCES = {
     "neighbor_sample_cached": "src/repro_torch/csrc/neighbor_sample.cu",
     "feature_gather_cached": "src/repro_torch/csrc/feature_gather.cu",
     "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 
@@ -724,11 +780,98 @@ def decode_case(timer, q, k, v, valid_len, window, count) -> dict:
             "bound_ms": b, "bound_by": by}
 
 
+def _rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|), in float32."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1e-30)
+
+
+def flash_bwd_case(timer, gen, B, S, Hq, Hkv, D, causal, count) -> dict:
+    """flash_attention_bwd_dq and flash_attention_bwd_dkv at (B, S, Hq,
+    Hkv, D), on the forward kernel's ``out`` and ``lse`` and a random
+    incoming gradient: dq, dk and dv within GRAD_REL_TOL and delta within
+    DELTA_REL_TOL of the plain version, each kernel timed beside its plain
+    half, the backward of ``scaled_dot_product_attention`` for the same
+    gradients and its bound.  Bounds count the (query, key) pairs this
+    mask keeps: the dQ kernel's function needs 3 products (s, dp, dq) of
+    2 * pairs * D flops per query head, the dK/dV kernel's 4 (s, dp, dv,
+    dk), a fused backward 5 (``pair_bound_ms``)."""
+    q = _bf16_randn(gen, B, S, Hq, D)
+    k, v = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+    do = _bf16_randn(gen, B, S, Hq, D)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, causal=causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    want_delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    torch.cuda.synchronize()
+    errs = {n: _rel_err(g, w) for n, g, w in
+            zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    errs["delta"] = _rel_err(delta, want_delta)
+    del want, want_delta
+    check(all(e[1] <= GRAD_REL_TOL for e in errs.values())
+          and errs["delta"][1] <= DELTA_REL_TOL,
+          f"flash backward {(B, S, Hq, Hkv, D, causal)}: (max abs, "
+          f"relative) errors {errs}")
+    # the library yardstick: SDPA's backward on (B, H, S, D) views
+    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    lib_out = _sdpa(*leaves, is_causal=causal)
+    do_t = do.transpose(1, 2)
+
+    def lib(which):
+        return torch.autograd.grad(lib_out, [leaves[i] for i in which], do_t,
+                                   retain_graph=True)
+
+    lib_errs = [_rel_err(g.transpose(1, 2), w)[1] for g, w in
+                zip(lib((0, 1, 2)), (dq, dk, dv))]
+    check(max(lib_errs) <= LIB_GRAD_REL_TOL, f"the backward of "
+          f"scaled_dot_product_attention {(B, S, Hq, Hkv, D, causal)} is "
+          f"off the kernels by {lib_errs} of their largest entries")
+    pairs = S * (S + 1) // 2 if causal else S * S
+    product = 2 * B * Hq * pairs * D
+    rows = 4 * B * Hq * S                      # one float32 per query row
+    qo_bytes, kv_bytes = 2 * B * S * Hq * D, 2 * B * S * Hkv * D
+    # dQ: reads q, k, v, out, do, lse; writes dq and delta
+    b_dq, by_dq = bound_ms(4 * qo_bytes + 2 * kv_bytes + 2 * rows,
+                           3 * product, BF16_OPS_PER_S)
+    # dK/dV: reads q, k, v, do, lse, delta; writes dk and dv
+    b_kv, by_kv = bound_ms(2 * qo_bytes + 4 * kv_bytes + 2 * rows,
+                           4 * product, BF16_OPS_PER_S)
+    pair, _ = bound_ms(4 * qo_bytes + 4 * kv_bytes + rows, 5 * product,
+                       BF16_OPS_PER_S)
+    common = {"shape": [B, S, Hq, Hkv, D], "causal": causal, "count": count,
+              "errors": errs, "library_rel_errs": lib_errs,
+              "pair_bound_ms": pair}
+    rows_out = {
+        "flash_attention_bwd_dq": dict(
+            common, max_abs_err=errs["dq"][0],
+            ms=timer(lambda: flash_attention_bwd_dq(
+                q, k, v, out, lse, do, causal=causal)),
+            plain_ms=timer(lambda: ref.flash_attention_bwd_dq(
+                q, k, v, out, lse, do, causal=causal)),
+            library_ms=timer(lambda: lib((0,))),
+            bound_ms=b_dq, bound_by=by_dq),
+        "flash_attention_bwd_dkv": dict(
+            common, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+            ms=timer(lambda: flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal=causal)),
+            plain_ms=timer(lambda: ref.flash_attention_bwd_dkv(
+                q, k, v, out, lse, do, causal=causal)),
+            library_ms=timer(lambda: lib((1, 2))),
+            bound_ms=b_kv, bound_by=by_kv)}
+    del leaves, lib_out
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 def lm_kernel_phase(timer) -> dict:
-    """Phase 3, the LM's kernels: flash_attention_fwd at FLASH_CASES and
-    decode_attention at DECODE_SHAPE x DECODE_CASES, each against its
-    plain version.  ``count`` is the launches per prefill (flash, at the
-    entry point's shape) and per decode step (decode, full cache)."""
+    """Phase 3, the LM's kernels: flash_attention_fwd at FLASH_CASES,
+    decode_attention at DECODE_SHAPE x DECODE_CASES and the two flash
+    backward kernels at FLASH_BWD_CASES, each against its plain version.
+    ``count`` is the launches per prefill (flash forward, at the serve
+    entry point's shape), per decode step (decode, full cache) and per
+    training step (the backward kernels, at the train entry point's
+    shape)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     layers = get_config(LM_ARCH).num_layers
     flash = [flash_case(timer, gen, *shape, count=layers if i == 0 else 0)
@@ -739,11 +882,24 @@ def lm_kernel_phase(timer) -> dict:
     dec = [decode_case(timer, q, k, v, vl, w,
                        count=layers if (vl, w) == (S, 0) else 0)
            for vl, w in DECODE_CASES]
-    cases = {"flash_attention_fwd": flash, "decode_attention": dec}
+    del q, k, v
+    torch.cuda.empty_cache()
+    cases = {"flash_attention_fwd": flash, "decode_attention": dec,
+             "flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+    for i, shape in enumerate(FLASH_BWD_CASES):
+        for kname, row in flash_bwd_case(
+                timer, gen, *shape, count=layers if i == 0 else 0).items():
+            cases[kname].append(row)
     for kname, rows in cases.items():
         for c in rows:
-            extra = (f"lse_err {c['lse_err']:g}" if "lse_err" in c else
-                     f"valid_len {c['valid_len']} window {c['window']}")
+            if "lse_err" in c:
+                extra = f"lse_err {c['lse_err']:g}"
+            elif "causal" in c:
+                rel = {n: round(e[1], 6) for n, e in c["errors"].items()}
+                extra = (f"causal {c['causal']} relative errors {rel} "
+                         f"pair bound {c['pair_bound_ms']:.4f} ms")
+            else:
+                extra = f"valid_len {c['valid_len']} window {c['window']}"
             print(f"[smoke]   {kname:20s} {str(c['shape']):24s} kernel "
                   f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library "
                   f"{c['library_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
@@ -875,6 +1031,138 @@ def serve_profile_phase() -> dict:
             "decode_steady_ms_per_step": steady_ms, "decode": dec}
 
 
+def _train_one_step(cfg, params, batch, device) -> dict:
+    """A trainable LM of ``cfg`` on ``device`` from a copy of ``params``:
+    its gradients of the cross-entropy on ``batch``, then one AdamW step
+    (``warmup_cosine(1e-3, 10, 50)``): the step's loss, grad norm and lr
+    and the parameters after it, all on the CPU."""
+    model = LM(cfg, tree_map(lambda t: t.to(device, copy=True), params),
+               trainable=True)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    logits, _ = model(batch)
+    grads = torch.autograd.grad(cross_entropy(logits, batch["labels"]),
+                                tree_leaves(model.param_tree()))
+    del logits
+    opt = adamw(warmup_cosine(1e-3, 10, 50))
+    state = init_train_state(model, opt)
+    state, m = build_lm_train_step(model, opt)(state, batch)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "lr": float(m["lr"]), "grads": [g.cpu() for g in grads],
+            "params": [p.detach().cpu()
+                       for p in tree_leaves(state["params"])]}
+
+
+def train_parity_phase() -> dict:
+    """Phase 13: one training step on the card against the CPU's plain
+    path, equal float32 weights, for LM_ARCH at full width cut to
+    PARITY_LAYERS layers, batch TRAIN_PARITY_BATCH of TRAIN_PARITY_SEQ
+    ``TokenPipeline`` tokens: ``attn_impl="flash"`` as trained, in bf16
+    activations (the card's flash kernels take bf16), and
+    ``attn_impl="chunked"`` in float32 activations on both sides
+    (``transformer.COMPUTE_DTYPE``; TF32 off).  The loss and the grad norm
+    within TRAIN_LOSS_TOL / GRAD_NORM_REL_TOL (bf16) or F32_TRAIN_REL_TOL
+    (float32); each leaf's gradient within TRAIN_GRAD_L2_TOL or
+    F32_GRAD_L2_TOL relative L2 distance; every parameter after the AdamW
+    step within Adam's bound of 2 lr.  At random weights the query/key
+    path's gradients are ill-conditioned (a near-uniform softmax), so
+    rounding moves them further than the others and Adam's sign-like
+    first step may take the other sign on their entries near 0; the
+    share of such entries and the largest entry-wise difference are
+    reported."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for impl, dtype in (("flash", torch.bfloat16),
+                        ("chunked", torch.float32)):
+        cfg = dataclasses.replace(get_config(LM_ARCH),
+                                  num_layers=PARITY_LAYERS, attn_impl=impl)
+        params = init_params(build_defs(cfg), seed=0)
+        batch = TokenPipeline(vocab_size=cfg.vocab_size,
+                              seq_len=TRAIN_PARITY_SEQ,
+                              global_batch=TRAIN_PARITY_BATCH).torch_batch(0)
+        transformer.COMPUTE_DTYPE = dtype
+        try:
+            card = _train_one_step(cfg, params, batch, DEVICE)
+            torch.cuda.empty_cache()
+            cpu = _train_one_step(cfg, params, batch, "cpu")
+        finally:
+            transformer.COMPUTE_DTYPE = COMPUTE_DTYPE
+        lr = card["lr"]
+        grad_l2, grad_max, param_err, beyond = [], [], 0.0, 0.0
+        for ga, gb, pa, pb in zip(card["grads"], cpu["grads"],
+                                  card["params"], cpu["params"]):
+            grad_l2.append(float((ga - gb).norm() / gb.norm().clamp_min(
+                1e-30)))
+            grad_max.append(float((ga - gb).abs().max()
+                                  / gb.abs().max().clamp_min(1e-30)))
+            diff = (pa - pb).abs()
+            param_err = max(param_err, float(diff.max()))
+            beyond = max(beyond, float((diff > 0.05 * lr).float().mean()))
+        res = {"compute_dtype": str(dtype),
+               "loss": [card["loss"], cpu["loss"]],
+               "grad_norm": [card["grad_norm"], cpu["grad_norm"]],
+               "lr": lr, "grad_rel_l2": grad_l2, "grad_rel_max": grad_max,
+               "max_param_diff": param_err,
+               "max_share_beyond_5pct_lr": beyond}
+        f32 = dtype == torch.float32
+        loss_tol = F32_TRAIN_REL_TOL * abs(cpu["loss"]) if f32 \
+            else TRAIN_LOSS_TOL
+        norm_tol = F32_TRAIN_REL_TOL if f32 else GRAD_NORM_REL_TOL
+        l2_tol = F32_GRAD_L2_TOL if f32 else TRAIN_GRAD_L2_TOL
+        check(math.isfinite(card["loss"])
+              and abs(card["loss"] - cpu["loss"]) <= loss_tol,
+              f"train parity ({impl}): losses {res['loss']}")
+        check(abs(card["grad_norm"] - cpu["grad_norm"])
+              <= norm_tol * cpu["grad_norm"],
+              f"train parity ({impl}): grad norms {res['grad_norm']}")
+        check(max(grad_l2) <= l2_tol, f"train parity ({impl}): gradients "
+              f"differ by {max(grad_l2)} relative L2 (tolerance {l2_tol})")
+        check(param_err <= 2 * lr * (1 + 1e-3), f"train parity ({impl}): "
+              f"parameters after a step differ by {param_err} (lr {lr})")
+        out[impl] = res
+        print(f"[smoke] phase 13 ({impl}, {dtype}): loss card "
+              f"{card['loss']:.6f} cpu {cpu['loss']:.6f}, |g| card "
+              f"{card['grad_norm']:.6f} cpu {cpu['grad_norm']:.6f}; "
+              f"gradients' relative L2 per leaf up to {max(grad_l2):.4g} "
+              f"(max-entry {max(grad_max):.4g}); parameters after one step "
+              f"within {param_err:.3g} (lr {lr:.3g}), at most "
+              f"{beyond:.4%} of a leaf beyond 5 % of lr")
+        del card, cpu, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_profile_phase() -> dict:
+    """Phase 15, where a training step's time goes: the entry point's
+    model and batch, 1 warm-up step, 2 steps timed, then 1 profiled
+    (device time by kernel, device busy share)."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    model = LM(cfg, tree_map(lambda t: t.to(DEVICE),
+                             init_params(build_defs(cfg), seed=0)),
+               trainable=True)
+    opt = adamw(warmup_cosine(1e-3, 10, 50))
+    state = init_train_state(model, opt)
+    step = build_lm_train_step(model, opt)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    batch = pipe.torch_batch(0, DEVICE)
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    steady_ms = 1e3 * (time.perf_counter() - t0) / 2
+    prof = device_profile(lambda: step(state, batch), 1)
+    print(f"[smoke] phase 15: steady {steady_ms:.3f} ms/step "
+          f"({TRAIN_BATCH * TRAIN_SEQ * 1e3 / steady_ms:.1f} tok/s); "
+          f"profiled {prof['profiled_ms_per_step']:.3f} ms/step, device "
+          f"busy {prof['device_busy_ms_per_step']} ms/step (share "
+          f"{prof['device_busy_share']}), {prof['device_ops_per_step']:.0f} "
+          "device ops/step")
+    print_profile(prof)
+    return {"steady_ms_per_step": steady_ms, "profile": prof}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1003,6 +1291,36 @@ def main() -> int:
           f"{served['tok_per_s']:.1f} tok/s, launches {lm_launches}")
 
     serve_prof = serve_profile_phase()
+    torch.cuda.empty_cache()
+
+    train_parity = train_parity_phase()
+
+    argv_lm = ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq-len",
+               str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--log-every",
+               "1", "--attn-impl", "flash", "--device", DEVICE]
+    print(f"[smoke] phase 14: train {' '.join(argv_lm)}")
+    kernels.reset_launches()
+    trained = train.main(argv_lm)
+    train_launches = dict(kernels.LAUNCHES)
+    want = {"flash_attention_fwd": 2 * layers * TRAIN_STEPS,
+            "flash_attention_bwd_dq": layers * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": layers * TRAIN_STEPS}
+    for kname, n in want.items():
+        check(train_launches[kname] == n, f"{kname} launched "
+              f"{train_launches[kname]} times in training, not {n}")
+    check(len(trained["losses"]) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in trained["losses"]),
+          f"training losses {trained['losses']}")
+    steady = statistics.median(trained["step_ms"][1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * 1e3 / steady
+    print(f"[smoke] phase 14: step ms {trained['step_ms']} (median after "
+          f"the first {steady:.3f}, {tok_s:.1f} tok/s), "
+          f"{trained['tok_per_s']:.1f} tok/s over the run, peak "
+          f"device memory {trained['peak_bytes'] / 2**30:.2f} GiB, losses "
+          f"{trained['losses']}, launches {train_launches}")
+    torch.cuda.empty_cache()
+
+    train_prof = train_profile_phase()
 
     # the JSON line: per kernel, summed over one step's launches on the
     # reddit-sized graph (its 631 MB table does not fit in L2); each
@@ -1027,9 +1345,15 @@ def main() -> int:
             "library_ms": None if None in libs else per_step("library_ms"),
             "shapes": [c["shape"] for c in cases], "per_step": counts,
             "on_main_path": kname != "feature_gather_mean"})
-    # the LM's kernels: per prefill (flash, 24 launches at the entry
-    # point's shape) and per decode step (decode, 24 launches over the
-    # full cache); launch counts from the serve entry point's run
+    # the LM's kernels: per prefill (flash forward, 24 launches at the
+    # serve entry point's shape), per decode step (decode, 24 launches
+    # over the full cache) and per training step (the backward kernels,
+    # 24 launches each at the train entry point's shape); launch counts
+    # from the serve entry point's run, and the train entry point's for
+    # the backward kernels
+    per = {"flash_attention_fwd": "prefill", "decode_attention":
+           "decode step", "flash_attention_bwd_dq": "training step",
+           "flash_attention_bwd_dkv": "training step"}
     for kname, cases in lm_cases.items():
         counts = [c["count"] for c in cases]
 
@@ -1039,15 +1363,16 @@ def main() -> int:
         main_case = cases[counts.index(max(counts))]
         table.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": lm_launches[kname],
+            "replaces": REPLACES[kname],
+            "launches": (train_launches if per[kname] == "training step"
+                         else lm_launches)[kname],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": per_call("bound_ms"),
             "bound_by": main_case["bound_by"],
             "library_ms": per_call("library_ms"),
             "shapes": [c["shape"] for c in cases], "per_step": counts,
-            "per": ("prefill" if kname == "flash_attention_fwd"
-                    else "decode step"), "on_main_path": True})
+            "per": per[kname], "on_main_path": True})
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "kernels": table, "per_graph": per_graph,
@@ -1074,6 +1399,12 @@ def main() -> int:
                              "tok_per_s")},
                          "ids": served["tokens"].tolist()},
                "serve_profile": serve_prof,
+               "train_parity": train_parity,
+               "lm_train": {"argv": argv_lm, "launches": train_launches,
+                            **{k: trained[k] for k in (
+                                "losses", "grad_norms", "step_ms", "wall_s",
+                                "tok_per_s", "peak_bytes")}},
+               "train_profile": train_prof,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

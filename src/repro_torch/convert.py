@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights, optimizer state and KV cache into the
+"""Carry the JAX package's weights, optimizer states and KV cache into the
 port.
 
 Both packages name and lay out their parameters alike (GraphSAGE's
@@ -46,3 +46,10 @@ def lm_cache_from_jax(cache: dict, S_total: int) -> dict:
                           + a.shape[3:])
         out[name] = torch.cat([a, pad], dim=2).to(torch.bfloat16)
     return out
+
+
+def lm_opt_state_from_jax(opt_state: dict, device="cpu") -> dict:
+    """The reference LM's AdamW state ``{"m": tree, "v": tree}`` (nested
+    dicts of numpy arrays) -> the port's, for ``repro_torch.optim.adamw``
+    over ``LM.param_tree()``."""
+    return {k: lm_params_from_jax(opt_state[k], device) for k in ("m", "v")}

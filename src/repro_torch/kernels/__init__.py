@@ -10,6 +10,7 @@ went through the kernels.  The plain CPU path counts nothing.
 LAUNCHES = {"neighbor_sample": 0, "feature_gather_rows": 0,
             "feature_gather_mean": 0, "neighbor_sample_cached": 0,
             "feature_gather_cached": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "decode_attention": 0}
 
 

@@ -3,8 +3,10 @@
 A CUDA tensor launches the hand-written kernel (``kernels.neighbor_sample``,
 ``kernels.feature_gather``, each with its cached variant that reads
 through a device cache's slot table; ``kernels.flash_attention`` and
-``kernels.decode_attention`` for the LM), which raises on what it does
-not take; a CPU tensor takes the plain version in ``kernels.ref``.
+``kernels.decode_attention`` for the LM, the forward under an autograd
+``FlashAttention`` whose backward is the flash backward kernels), which
+raises on what it does not take; a CPU tensor takes the plain version in
+``kernels.ref``.
 There is no switch and no fallback between the two: the device of the
 data decides.
 """
@@ -123,12 +125,44 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     return ref.flash_attention_fwd(q, k, v, causal=causal)
 
 
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
+    """The flash backward in the model's layout: q, ``out`` and ``do`` (B,
+    S, Hq, D), k and v (B, S, Hkv, D), ``lse`` (B, Hq, S) float32 from the
+    forward -> (dq, dk, dv) in q's, k's and v's dtypes, dk and dv summed
+    over each KV head's group.  On the card the dQ kernel (which also
+    computes delta = rowsum(do * out)) and then the dK/dV kernel."""
+    if q.is_cuda:
+        return _fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    return ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward, the reference's ``custom_vjp``
+    (``flash_attention``): the forward saves (q, k, v, out, lse), the
+    backward recomputes the probabilities from ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention_bshd(q, k, v, *, causal: bool = True):
-    """The LM's flash path (``cfg.attn_impl == "flash"``): the forward's
-    output alone.  The kernel picks its own tiles, so the reference's
-    ``block_q``/``block_k`` (clipped to divisors of S there) are not
-    taken."""
-    return flash_attention_fwd(q, k, v, causal=causal)[0]
+    """The LM's flash path (``cfg.attn_impl == "flash"``), prefill and
+    training alike: the forward's output, differentiable through
+    ``FlashAttention``.  The kernels pick their own tiles, so the
+    reference's ``block_q``/``block_k`` (clipped to divisors of S there)
+    are not taken."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def decode_attention(q, k, v, valid_len: int, window: int = 0):

@@ -114,6 +114,62 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     return o.reshape(B, S, Hq, D).to(q.dtype), lse
 
 
+def _bwd_recompute(q, k, v, out, lse, do, causal: bool):
+    """The recompute of the reference's ``_flash_bwd`` in float32, per
+    query head: p = exp(s - lse) with s masked to ``NEG_INF``, delta =
+    rowsum(dO * O), ds = p * (dp - delta) * scale.  Returns the float32
+    q, k and dO (grouped as (B, S, Hkv, g, D) where per query head), p and
+    ds (B, Hkv, g, S, S)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float().reshape(B, S, Hkv, group, D)
+    kf = k.float()
+    dof = do.float().reshape(B, S, Hkv, group, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if causal:
+        pos = torch.arange(S, device=q.device)
+        s = s.masked_fill(pos[:, None] < pos[None, :], NEG_INF)
+    p = torch.exp(s - lse.float().reshape(B, Hkv, group, S, 1))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    delta = (dof * out.float().reshape(B, S, Hkv, group, D)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    return qf, kf, dof, p, ds
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal: bool = True):
+    """dq of the flash backward (the reference's ``_bwd_dq_kernel`` with
+    its delta): q, out, do (B, S, Hq, D); k, v (B, S, Hkv, D); lse (B, Hq,
+    S) float32 from the forward.  Returns dq = ds . k (B, S, Hq, D) in
+    q.dtype.  The (B, Hq, S, S) matrices are materialized whole."""
+    _, kf, _, _, ds = _bwd_recompute(q, k, v, out, lse, do, causal)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, do, *, causal: bool = True):
+    """dk = ds^T . q and dv = p^T . dO of the flash backward (the
+    reference's ``_bwd_dkv_kernel`` and its wrapper's group sum), each
+    summed over the group's query heads to (B, S, Hkv, D) in k's and v's
+    dtype.  Arguments as ``flash_attention_bwd_dq``."""
+    qf, _, dof, p, ds = _bwd_recompute(q, k, v, out, lse, do, causal)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
+    """The flash backward (the reference's ``_flash_bwd``) in the model's
+    layout: (dq, dk, dv) as ``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkv`` give them, from one recompute."""
+    qf, kf, dof, p, ds = _bwd_recompute(q, k, v, out, lse, do, causal)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(q.shape)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def decode_attention(q, k, v, valid_len: int, window: int = 0):
     """Single-token GQA attention over a KV cache (the reference's
     ``ref.decode_attention``).

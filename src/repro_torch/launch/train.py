@@ -1,4 +1,4 @@
-"""GraphSAGE training driver of the port.
+"""Training entry point of the port: GraphSAGE and the dense-family LMs.
 
   python -m repro_torch.launch.train --arch graphsage --backend pallas \\
       --dataset reddit --large-scale --batch 1024 --fanouts 25,10 \\
@@ -13,6 +13,12 @@ device caches:
       --device-cache-rows 4096 --edge-cache-blocks 128 \\
       --device-cache-policy pinned --steps 8
 
+An LM of the dense family (qwen2-0.5b at full width, 4 x 4096 tokens a
+step), attention through the flash forward and backward kernels:
+
+  python -m repro_torch.launch.train --arch qwen2-0.5b --batch 4 \\
+      --seq-len 4096 --steps 5 --log-every 1
+
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 CUDA kernels, or on the CPU through their plain PyTorch versions with
 ``--device cpu``.  Without a GPU and without ``--device cpu`` it stops
@@ -22,15 +28,23 @@ directory the run owns and removes) and reads it through a ``DiskStore``;
 without a device cache tier the pallas backend never reads through the
 store and proceeds in memory, as the reference does.  The reference's
 ``--spec``, prefetch and overlap, fault injection, direct I/O, ISP mode,
-the ``optimal`` policies, telemetry and checkpoints are not part of the
-port yet, and their flags are rejected.
+the ``optimal`` policies, telemetry and checkpoints (``--ckpt-dir``,
+``--resume``, for the GNN and the LM alike) are not part of the port yet,
+and their flags are rejected.  The LM branch is the reference's
+``run_lm``: weights from seed 0, ``TokenPipeline`` batches, AdamW on
+``warmup_cosine(lr, 10, steps)``; ``--reduced`` trains the small
+same-family config, ``--attn-impl`` picks the flash kernels (default) or
+the chunked plain path; archs outside the dense family raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import shutil
 import tempfile
+import time
 
 import torch
 
@@ -38,8 +52,13 @@ from repro_torch import kernels
 from repro_torch.core import (DATASETS, LOADERS, DeviceTierSpec, GNNConfig,
                               GraphSAGE, build_train_step, load_dataset,
                               train_loop)
-from repro_torch.optim import adamw
+from repro_torch.data import TokenPipeline
+from repro_torch.models.params import count_params, init_params, tree_map
+from repro_torch.models.registry import ARCH_IDS, get_config
+from repro_torch.models.transformer import LM, build_defs
+from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.storage import DEFAULT, RetrySpec, open_store
+from repro_torch.train import steps as lm_steps
 
 POLICIES = ("lru", "pinned")
 
@@ -56,7 +75,8 @@ def _fanouts(s: str) -> tuple[int, ...]:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="graphsage", choices=("graphsage",))
+    ap.add_argument("--arch", default="graphsage",
+                    choices=("graphsage",) + ARCH_IDS)
     ap.add_argument("--backend", default="pallas", choices=tuple(LOADERS),
                     help="data-preparation backend (the CUDA kernels)")
     ap.add_argument("--dataset", default="reddit", choices=tuple(DATASETS))
@@ -71,6 +91,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="per-batch target/sampling seed")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    # the LM's flags, with the reference's names and defaults
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced same-family LM config (CPU)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--attn-impl", default="flash",
+                    choices=("chunked", "flash"),
+                    help="LM attention: the flash kernels or the chunked "
+                         "plain path (sets ModelConfig.attn_impl)")
     # the store and cache-tier flags, with the reference's names and
     # defaults (core/config.py FLAG_TABLE and _spec_defaults)
     ap.add_argument("--graph-store", default="mem", choices=("mem", "disk"),
@@ -118,6 +147,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.batch < 1 or args.steps < 0 or args.log_every < 1:
         ap.error("--batch and --log-every must be >= 1, --steps >= 0")
+    if args.seq_len < 1 or args.microbatches < 1 \
+            or args.batch % args.microbatches:
+        ap.error("--seq-len and --microbatches must be >= 1, and "
+                 "--microbatches must divide --batch")
     for flag in ("lock_shards", "io_threads"):
         v = getattr(args, flag)
         if v is not None and v < 1:
@@ -170,14 +203,18 @@ def _open_store(args, g):
     return store, tmpdir, None
 
 
-def run_gnn(args) -> tuple[object, list[float], dict]:
-    """Train; returns the loop's ``RunStats``, the per-step losses and the
-    loader's final ``stats()``."""
+def _device(args) -> torch.device:
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[train] no CUDA device: the port trains on the "
                          "GPU; pass --device cpu to run the plain kernels "
                          "on the CPU")
-    device = torch.device(args.device)
+    return torch.device(args.device)
+
+
+def run_gnn(args) -> tuple[object, list[float], dict]:
+    """Train; returns the loop's ``RunStats``, the per-step losses and the
+    loader's final ``stats()``."""
+    device = _device(args)
     g = load_dataset(args.dataset, large_scale=args.large_scale)
     store, tmpdir, note = _open_store(args, g)
     loader = None
@@ -250,8 +287,68 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
             shutil.rmtree(tmpdir, ignore_errors=True)
 
 
+def run_lm(args) -> dict:
+    """Train an LM of the dense family (the reference's ``run_lm``).
+    Returns the per-step losses, grad norms and wall ms (each step ends
+    in a device synchronize), tok/s over the run, and the peak device
+    memory on the card."""
+    device = _device(args)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    defs = build_defs(cfg)
+    params = tree_map(lambda t: t.to(device), init_params(defs, seed=0))
+    model = LM(cfg, params, trainable=True)
+    print(f"[train] {cfg.name}: {count_params(defs) / 1e6:.2f}M params, "
+          f"attn_impl={cfg.attn_impl}, remat={cfg.remat}, on {device}")
+    opt = adamw(warmup_cosine(args.lr, 10, args.steps))
+    step_fn = lm_steps.build_train_step(model, opt,
+                                        microbatches=args.microbatches)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                         global_batch=args.batch)
+    state = lm_steps.init_train_state(model, opt)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = {"losses": [], "grad_norms": [], "step_ms": []}
+    sync()
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, pipe.torch_batch(i, device))
+        sync()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t1))
+        out["losses"].append(metrics["loss"])
+        out["grad_norms"].append(metrics["grad_norm"])
+        if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
+            m = {k: float(v) for k, v in metrics.items()}
+            print(f"  step {i+1:5d} loss={m['loss']:.4f} "
+                  f"|g|={m['grad_norm']:.3f} lr={m['lr']:.2e}")
+    dt = time.perf_counter() - t0
+    tokens = args.steps * args.batch * args.seq_len
+    out.update(losses=[float(x) for x in out["losses"]],
+               grad_norms=[float(x) for x in out["grad_norms"]],
+               wall_s=dt, tok_per_s=tokens / max(dt, 1e-9),
+               peak_bytes=(torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None))
+    print(f"[train] {args.steps} steps in {dt:.1f}s "
+          f"({out['tok_per_s']:.0f} tok/s)"
+          + (f", peak device memory {out['peak_bytes'] / 2**30:.2f} GiB"
+             if out["peak_bytes"] is not None else ""))
+    print(f"[train] kernel launches: {dict(kernels.LAUNCHES)}")
+    return out
+
+
 def main(argv=None):
-    return run_gnn(parse_args(argv))
+    args = parse_args(argv)
+    if args.arch == "graphsage":
+        return run_gnn(args)
+    return run_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,16 +1,25 @@
-"""The LM of the dense family: parameters, prefill and greedy decode.
+"""The LM of the dense family: parameters, the training forward, prefill
+and greedy decode.
 
-The port of the reference's ``repro/models/transformer.py`` for serving
-the dense family on one card (no mesh, no sharding constraints).
+The port of the reference's ``repro/models/transformer.py`` for training
+and serving the dense family on one card (no mesh, no sharding
+constraints).
 Parameters keep the reference tree's names and stacked layer shapes
 (``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
 carries the reference's weights over as a copy; ``lax.scan`` over the
 layers becomes a Python loop over layer ``i`` of the stacked tensors.
 Activations are bf16 (``COMPUTE_DTYPE``), logits are computed in bf16
-and cast to float32.  Prefill attention takes the flash kernel under the
-reference's condition (``attn_impl == "flash"``, causal, no window) and
-the chunked path otherwise; decode attention goes through the decode
-kernel (``models.attention.decode_attention_local``).
+and cast to float32.  Training and prefill attention take the flash
+kernels under the reference's condition (``attn_impl == "flash"``,
+causal, no window; the forward and, in training, the backward kernels
+through ``ops.FlashAttention``) and the chunked path otherwise; decode
+attention goes through the decode kernel
+(``models.attention.decode_attention_local``).  ``LM(...,
+trainable=True)`` keeps float32 master parameters that require grad and
+are cast to bf16 at each use, as the reference's; ``forward`` slices
+layer ``i`` inside the graph on every call and, for ``cfg.remat ==
+"full"`` (the reference's default ``jax.checkpoint`` of each layer),
+recomputes each block in the backward (``torch.utils.checkpoint``).
 
 The KV cache is (L, B, S_total, Hkv, Dh) bf16, allocated once for
 prompt + generation: prefill writes the first S positions, each decode
@@ -18,8 +27,9 @@ step writes its position in place (the reference pads the prefill cache
 and ``dynamic_update_slice``s it, which gives the same values).
 
 ``build_defs`` declares every family, so ``count_params`` counts all ten
-archs; ``LM`` itself refuses what this slice does not run (MoE, SSM,
-hybrid, enc-dec, M-RoPE, embedding inputs) with ``NotImplementedError``.
+archs; ``LM`` itself refuses what the port does not run (MoE, SSM,
+hybrid, enc-dec, M-RoPE, embedding inputs, the ``"dots"`` remat policy)
+with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import decode_attention_local, mha_chunked
@@ -159,7 +170,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
-            "port's LM serves the dense family)")
+            "port's LM runs the dense family)")
     for field, what in (("mrope_sections", "M-RoPE"),
                         ("embeds_input", "embedding inputs")):
         if getattr(cfg, field):
@@ -206,8 +217,8 @@ def _out_proj(cfg: ModelConfig, p, out):
 
 
 def _attn_block(cfg: ModelConfig, p, x, positions, window: int):
-    """Full-sequence causal attention sub-block (prefill).  Returns (out,
-    (k, v)), the roped k and v for the cache."""
+    """Full-sequence causal attention sub-block (training and prefill).
+    Returns (out, (k, v)), the roped k and v for the cache."""
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, h)
     bpos = positions.expand(x.shape[0], -1)
@@ -219,6 +230,7 @@ def _attn_block(cfg: ModelConfig, p, x, positions, window: int):
         out = mha_chunked(q, kr, v, q_positions=positions,
                           k_positions=positions, window=window, causal=True,
                           chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
+                          remat_chunks=cfg.attn_remat,
                           scores_bf16=cfg.attn_scores_bf16)
     return _out_proj(cfg, p, out), (kr, v)
 
@@ -233,7 +245,8 @@ def _mlp_block(cfg: ModelConfig, p, x):
 
 
 def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
-    """One decoder block, prefill path.  Returns (x, (k, v))."""
+    """One decoder block, training and prefill path.  Returns (x, (k,
+    v))."""
     attn_out, kv = _attn_block(cfg, p, x, positions, window)
     x = x + attn_out
     return x + _mlp_block(cfg, p, x), kv
@@ -244,36 +257,60 @@ def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
 # ---------------------------------------------------------------------------
 
 class LM(nn.Module):
-    """The dense-family LM with prefill and decode.
+    """The dense-family LM: the training forward, prefill and decode.
 
     ``params`` is a tree like the reference's (``convert.lm_params_from_jax``
     or ``params.init_params(build_defs(cfg), seed)``); without it the
-    weights are drawn from ``seed`` on ``device``.  Parameters are frozen
-    (serving only) and kept in their given dtype: cast the tree with
-    ``params.cast_tree`` first to serve in bf16."""
+    weights are drawn from ``seed`` on ``device``.  Parameters are kept in
+    their given dtype.  Frozen by default (serving: cast the tree with
+    ``params.cast_tree`` first to serve in bf16); ``trainable=True`` makes
+    them require grad, for float32 master parameters as the reference
+    trains them."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", trainable: bool = False):
         super().__init__()
         check_supported(cfg)
+        if trainable and cfg.remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"{cfg.name}: remat={cfg.remat!r} has no counterpart in "
+                "torch (the port takes 'none' and 'full')")
         self.cfg = cfg
         self.defs = build_defs(cfg)
         if params is None:
             params = init_params(self.defs, seed=seed, device=device)
-        frozen = tree_map(lambda t: nn.Parameter(t, requires_grad=False),
-                          params)
-        self.embed = frozen["embed"]
-        self.final_norm = frozen["final_norm"]
-        self.unembed = frozen.get("unembed")
-        self.blocks = nn.ParameterDict(frozen["blocks"])
-        # per-layer views of the stacked tensors, made once: the decode
-        # loop is host-bound (views of parameters that are never replaced)
-        self._layers = [{k: w[i] for k, w in self.blocks.items()}
-                        for i in range(cfg.num_layers)]
+        tree = tree_map(lambda t: nn.Parameter(t, requires_grad=trainable),
+                        params)
+        self.embed = tree["embed"]
+        self.final_norm = tree["final_norm"]
+        self.unembed = tree.get("unembed")
+        self.blocks = nn.ParameterDict(tree["blocks"])
+        # serving: per-layer views of the stacked tensors, made once (the
+        # decode loop is host-bound; views of parameters that are never
+        # replaced).  Training slices layer i inside the graph on every
+        # forward, so no view carries autograd state across steps.
+        self._layers = None if trainable else [
+            {k: w[i] for k, w in self.blocks.items()}
+            for i in range(cfg.num_layers)]
         self._windows = [int(w) for w in cfg.window_pattern()]
         # the reference multiplies by sqrt(d) rounded to bf16
         self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
                                                dtype=COMPUTE_DTYPE))
+
+    def param_tree(self) -> dict:
+        """The parameters as the reference's tree (``embed``,
+        ``final_norm``, ``blocks``, ``unembed`` when untied): what the
+        optimizer updates in place."""
+        tree = {"embed": self.embed, "final_norm": self.final_norm,
+                "blocks": dict(self.blocks)}
+        if self.unembed is not None:
+            tree["unembed"] = self.unembed
+        return tree
+
+    def _layer(self, i: int) -> dict:
+        if self._layers is not None:
+            return self._layers[i]
+        return {k: w[i] for k, w in self.blocks.items()}
 
     def _embed(self, tokens):
         x = embed_lookup(self.embed, tokens, COMPUTE_DTYPE)
@@ -289,6 +326,27 @@ class LM(nn.Module):
         else:
             logits = x @ self.unembed.to(COMPUTE_DTYPE)
         return logits.float()
+
+    def _train_block(self, x, positions, i: int):
+        return _apply_block(self.cfg, self._layer(i), x, positions,
+                            self._windows[i])[0]
+
+    def forward(self, batch: dict):
+        """Training forward: ``batch["tokens"]`` (B, S) -> (logits (B, S,
+        V) float32, {"moe_aux_loss": 0.0}), the reference's
+        ``LM.forward``.  With ``cfg.remat == "full"`` each block is
+        recomputed in the backward."""
+        x = self._embed(batch["tokens"])
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for i in range(self.cfg.num_layers):
+            if self.cfg.remat == "full":
+                x = checkpoint(self._train_block, x, positions, i,
+                               use_reentrant=False)
+            else:
+                x = self._train_block(x, positions, i)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(x), {"moe_aux_loss": aux}
 
     def init_cache(self, B: int, S: int) -> dict:
         """A zero (L, B, S, Hkv, Dh) bf16 K and V cache on the model's
@@ -310,7 +368,7 @@ class LM(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         cache = self.init_cache(B, S if cache_len is None else cache_len)
         for i, window in enumerate(self._windows):
-            x, (k, v) = _apply_block(self.cfg, self._layers[i], x, positions,
+            x, (k, v) = _apply_block(self.cfg, self._layer(i), x, positions,
                                      window)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -327,7 +385,7 @@ class LM(nn.Module):
         pos = torch.full((x.shape[0], 1), position, dtype=torch.int32,
                          device=x.device)
         for i, window in enumerate(self._windows):
-            p = self._layers[i]
+            p = self._layer(i)
             h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
             q, k_new, v_new = _project_qkv(cfg, p, h)
             q, k_new = _rope_qk(cfg, q, k_new, pos)

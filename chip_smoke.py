@@ -5,8 +5,8 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (five sources,
-     nine kernels) and report the build time and ptxas's register report;
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (six sources,
+     ten kernels) and report the build time and ptxas's register report;
   3. every kernel against its plain PyTorch version on the card.  The
      GNN's five at the shapes of a training step at batch 1024 and
      fanouts 25,10: on reddit ``--large-scale`` and on a reddit-sized
@@ -27,7 +27,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``flash_attention_bwd_dkv`` at the training shape (B 4, S 4096, 14
      over 2 heads, D 64), at D 128 (32 over 8), D 256, a ragged S 1000
      and one full (non-causal) case, dq, dk and dv within 1 % of the
-     plain version's largest entry.  Each kernel is timed (median of 20
+     plain version's largest entry; ``ssd_chunk_scan`` at the layer-0
+     mixer inputs of mamba2-370m's and hymba-1.5b's serve entry points
+     (B 8, S 2048; h 32, n 128 and h 50, n 16; p 64, chunk 256) and at a
+     group case (B 1, S 512, 8 heads over 2 groups) on random inputs, y
+     and the final state within 1e-4 of the plain version's largest
+     entry.  Each kernel is timed (median of 20
      launches, L2 flushed before each) beside its plain version, one
      PyTorch library call for the same function
      (``scaled_dot_product_attention`` for the LM's, its backward through
@@ -82,7 +87,19 @@ Phases, in order; any failure raises and the script exits nonzero:
      tok/s and peak device memory;
   15. where a training step's time goes: steady steps timed, then one
      profiled (device time by kernel, device busy share);
-  16. a JSON line of the kernels' numbers, the card line, and the result.
+  16. SSM serving on the card against the CPU's plain path: mamba2-370m
+     and hymba-1.5b at full width cut to 2 layers, equal bf16 weights,
+     batch 2, prompts 300 and 512, 8 tokens; logits within 0.125 and the
+     greedy ids equal up to near-ties, as phase 10;
+  17. the SSM serving paths through the entry point: ``--arch
+     mamba2-370m --full-config --batch 8 --prompt-len 2048 --gen 64``
+     (``ssd_chunk_scan`` 48 times, no other kernel) and ``--arch
+     hymba-1.5b ... --gen 16`` (``ssd_chunk_scan`` and
+     ``flash_attention_fwd`` 32 times each, ``decode_attention`` 32 x 15),
+     the counters reset just before each; finite logits; prefill ms,
+     decode ms per step and tok/s;
+  18. where mamba2-370m's serving time goes, as phase 12;
+  19. a JSON line of the kernels' numbers, the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -120,13 +137,15 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, valid_range)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+from repro_torch.kernels.ssd_chunk_scan import ssd_chunk_scan  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.shapes import make_batch  # noqa: E402
 from repro_torch.models.params import (cast_tree, init_params,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.models.registry import get_config  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import ssm, transformer  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.transformer import (COMPUTE_DTYPE,  # noqa: E402
                                             LM, build_defs)
 from repro_torch.train.steps import (build_prefill_step,  # noqa: E402
@@ -192,6 +211,16 @@ FLASH_BWD_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, True),
 DECODE_SHAPE = (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, 14, 2, 64)
 DECODE_CASES = [(v, w) for v in (1, 1000, SERVE_PROMPT + SERVE_GEN)
                 for w in (0, 512)]
+# SSM and hybrid serving: the archs and the entry point's generation length
+# (batch and prompt as above); the card-vs-CPU parity run's prompts (300
+# pads to the chunk of 256); the SSD kernel's y and final state within
+# 1e-4 of the plain version's largest entry (both float32, sums in
+# another order); its group case (b, s, h, p, g, n, chunk) on seeded
+# random inputs
+SSM_GEN = {"mamba2-370m": SERVE_GEN, "hymba-1.5b": 16}
+SSM_PARITY_PROMPTS = (300, 512)
+SSD_REL_TOL = 1e-4
+SSD_GROUP_CASE = (1, 512, 8, 64, 2, 64, 256)
 # H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
 # cores (used for the kernels' scalar integer and float work) and the
 # dense bf16 tensor-core rate (the attention kernels' bf16 inputs)
@@ -208,6 +237,7 @@ REPLACES = {
     "flash_attention_bwd_dq": "src/repro/kernels/flash_attention.py:147",
     "flash_attention_bwd_dkv": "src/repro/kernels/flash_attention.py:116",
     "decode_attention": "src/repro/kernels/decode_attention.py:72",
+    "ssd_chunk_scan": "src/repro/kernels/ssd_chunk_scan.py:73",
 }
 SOURCES = {
     "neighbor_sample": "src/repro_torch/csrc/neighbor_sample.cu",
@@ -219,6 +249,7 @@ SOURCES = {
     "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+    "ssd_chunk_scan": "src/repro_torch/csrc/ssd_chunk_scan.cu",
 }
 
 
@@ -864,14 +895,96 @@ def flash_bwd_case(timer, gen, B, S, Hq, Hkv, D, causal, count) -> dict:
     return rows_out
 
 
+def ssd_case(timer, x, dt, A, B, C, chunk, count, what) -> dict:
+    """ssd_chunk_scan on (x, dt, A, B, C): y and the final state within
+    SSD_REL_TOL of the plain version's largest entries, timed beside it
+    and its bound: the operations of the i >= j half of the two q x q
+    products (C.B^T over n, then over p), the chunk states and the
+    inter-chunk term (each q x p x n) and the state pass, at the scalar
+    float32 rate, or the inputs and outputs at HBM rate.  No single
+    PyTorch call computes it (library: none)."""
+    y, st = ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    want_y, want_st = ref.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    errs = {"y": _rel_err(y, want_y), "final_state": _rel_err(st, want_st)}
+    del want_y, want_st
+    check(all(math.isfinite(e[0]) and e[1] <= SSD_REL_TOL
+              for e in errs.values()),
+          f"ssd_chunk_scan {what}: (max abs, relative) errors {errs}")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    ops_ = b * h * nc * (2 * pairs * (n + p) + 4 * chunk * p * n + 3 * p * n)
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                  + C.numel() + st.numel())
+    bnd, by = bound_ms(nbytes, ops_)
+    row = {"shape": [b, s, h, p, g, n, chunk], "inputs": what,
+           "max_abs_err": max(e[0] for e in errs.values()), "errors": errs,
+           "count": count,
+           "ms": timer(lambda: ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)),
+           "plain_ms": timer(lambda: ref.ssd_chunk_scan(x, dt, A, B, C,
+                                                        chunk=chunk)),
+           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+    torch.cuda.empty_cache()
+    return row
+
+
+def ssd_model_inputs(arch: str) -> tuple:
+    """The scan's inputs of layer 0's SSM mixer in the serve entry point's
+    model (``--full-config``, weights from seed 0 cast to bf16) at its
+    prompt (batch SERVE_BATCH, SERVE_PROMPT tokens): (x, dt, A, B, C) as
+    ``models.ssm.apply_ssm`` hands them to the kernel, and the chunk."""
+    cfg = get_config(arch)
+    model = LM(cfg, tree_map(lambda t: t.to(DEVICE), cast_tree(
+        init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)))
+    batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, kind="prefill",
+                       device=DEVICE)
+    p = model._layer(0)
+    with torch.no_grad():
+        h = rmsnorm(model._embed(batch["tokens"]),
+                    p["ssm_norm" if cfg.family == "ssm" else "attn_norm"],
+                    cfg.norm_eps)
+        _, _, xs, B, C, dt, A = ssm.ssm_scan_inputs(
+            p, h, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+            d_conv=cfg.d_conv, n_groups=cfg.ssm_groups)
+        out = tuple(t.float().contiguous() for t in (xs, dt, A, B, C))
+    del model
+    torch.cuda.empty_cache()
+    return out, cfg.ssm_chunk
+
+
+def ssd_kernel_cases(timer, gen) -> list:
+    """Phase 3, the SSD kernel: at each SSM arch's layer-0 mixer inputs
+    (mamba2-370m's, counted once a layer in its prefill; hymba-1.5b's)
+    and at SSD_GROUP_CASE on seeded random inputs (dt = |N| * 0.1, A =
+    -|N|, as the reference's sweep draws them)."""
+    rows = []
+    for i, arch in enumerate(SSM_GEN):
+        args, chunk = ssd_model_inputs(arch)
+        rows.append(ssd_case(timer, *args, chunk,
+                             get_config(arch).num_layers if i == 0 else 0,
+                             f"{arch} layer 0"))
+        del args
+    b, s, h, p, g, n, chunk = SSD_GROUP_CASE
+    x = torch.randn(b, s, h, p, generator=gen, device=DEVICE)
+    dt = torch.randn(b, s, h, generator=gen, device=DEVICE).abs() * 0.1
+    A = -torch.randn(h, generator=gen, device=DEVICE).abs()
+    B = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
+    C = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
+    rows.append(ssd_case(timer, x, dt, A, B, C, chunk, 0, "random"))
+    return rows
+
+
 def lm_kernel_phase(timer) -> dict:
     """Phase 3, the LM's kernels: flash_attention_fwd at FLASH_CASES,
-    decode_attention at DECODE_SHAPE x DECODE_CASES and the two flash
-    backward kernels at FLASH_BWD_CASES, each against its plain version.
-    ``count`` is the launches per prefill (flash forward, at the serve
-    entry point's shape), per decode step (decode, full cache) and per
-    training step (the backward kernels, at the train entry point's
-    shape)."""
+    decode_attention at DECODE_SHAPE x DECODE_CASES, the two flash
+    backward kernels at FLASH_BWD_CASES and ssd_chunk_scan
+    (``ssd_kernel_cases``), each against its plain version.  ``count`` is
+    the launches per prefill (flash forward, at the serve entry point's
+    shape; the SSD kernel, in mamba2-370m's), per decode step (decode,
+    full cache) and per training step (the backward kernels, at the train
+    entry point's shape)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     layers = get_config(LM_ARCH).num_layers
     flash = [flash_case(timer, gen, *shape, count=layers if i == 0 else 0)
@@ -890,19 +1003,25 @@ def lm_kernel_phase(timer) -> dict:
         for kname, row in flash_bwd_case(
                 timer, gen, *shape, count=layers if i == 0 else 0).items():
             cases[kname].append(row)
+    cases["ssd_chunk_scan"] = ssd_kernel_cases(timer, gen)
     for kname, rows in cases.items():
         for c in rows:
             if "lse_err" in c:
                 extra = f"lse_err {c['lse_err']:g}"
+            elif "inputs" in c:
+                rel = {n: float(f"{e[1]:.3g}") for n, e in c["errors"].items()}
+                extra = f"{c['inputs']} relative errors {rel}"
             elif "causal" in c:
                 rel = {n: round(e[1], 6) for n, e in c["errors"].items()}
                 extra = (f"causal {c['causal']} relative errors {rel} "
                          f"pair bound {c['pair_bound_ms']:.4f} ms")
             else:
                 extra = f"valid_len {c['valid_len']} window {c['window']}"
+            lib = ("-" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f}")
             print(f"[smoke]   {kname:20s} {str(c['shape']):24s} kernel "
                   f"{c['ms']:.4f} ms  plain {c['plain_ms']:.4f} ms  library "
-                  f"{c['library_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
+                  f"{lib} ms  bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})  max_abs_err {c['max_abs_err']:g}  "
                   f"{extra}  x{c['count']}")
     return cases
@@ -927,69 +1046,94 @@ def _greedy(model, batch, prompt: int, gen: int, device, feed=None):
     return torch.cat(ids, dim=1).cpu(), all_logits
 
 
-def serve_parity_phase() -> dict:
-    """Phase 10: serving on the card against the CPU's plain path, equal
-    bf16 weights, for LM_ARCH at full width cut to PARITY_LAYERS layers,
-    batch PARITY_BATCH, prompt PARITY_PROMPT, PARITY_GEN tokens, both
-    ``attn_impl``s.  The card decodes greedily; the CPU is fed the card's
-    ids, so every step's logits compare like with like: within LOGIT_TOL.
-    The greedy ids are the card's and the CPU's argmax of the same step;
-    they must be equal, except where the CPU's top two logits lie within
-    LOGIT_TOL of each other (bf16 logits over a 151,936-token vocabulary
+def _serve_parity(cfg, prompt: int, tag: str) -> dict:
+    """Serving ``cfg`` on the card against the CPU's plain path, equal bf16
+    weights, batch PARITY_BATCH, ``prompt`` tokens, PARITY_GEN tokens.  The
+    card decodes greedily; the CPU is fed the card's ids, so every step's
+    logits compare like with like: within LOGIT_TOL.  The greedy ids are
+    the card's and the CPU's argmax of the same step; they must be equal,
+    except where the CPU's top two logits lie within LOGIT_TOL of each
+    other (bf16 logits over a vocabulary of tens of thousands of words
     tie) and the card's pick is within LOGIT_TOL of the CPU's maximum."""
+    params = cast_tree(init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)
+    batch = make_batch(cfg, PARITY_BATCH, prompt, kind="prefill")
+    card = LM(cfg, tree_map(lambda t: t.to(DEVICE), params))
+    ids, card_logits = _greedy(card, batch, prompt, PARITY_GEN, DEVICE)
+    del card
+    _, cpu_logits = _greedy(LM(cfg, params), batch, prompt, PARITY_GEN,
+                            "cpu", feed=ids)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(card_logits, cpu_logits))
+    check(all(torch.isfinite(a).all() for a in card_logits),
+          f"serve parity ({tag}): non-finite logits on the card")
+    check(err <= LOGIT_TOL, f"serve parity ({tag}): card and CPU "
+          f"logits differ by {err}")
+    ties = 0
+    for t, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+        top = torch.topk(b[:, -1], 2).values
+        cpu_ids = torch.argmax(b[:, -1], -1)
+        for r in range(PARITY_BATCH):
+            if int(ids[r, t]) == int(cpu_ids[r]):
+                continue
+            ties += 1
+            check(float(top[r, 0] - top[r, 1]) <= LOGIT_TOL and
+                  float(b[r, -1, int(ids[r, t])]) >= float(top[r, 0])
+                  - LOGIT_TOL,
+                  f"serve parity ({tag}): step {t} row {r} card picks "
+                  f"{int(ids[r, t])}, CPU {int(cpu_ids[r])}")
+    torch.cuda.empty_cache()
+    return {"max_logit_diff": err, "ids": ids.tolist(),
+            "near_tie_picks": ties}
+
+
+def serve_parity_phase() -> dict:
+    """Phase 10: ``_serve_parity`` of LM_ARCH at full width cut to
+    PARITY_LAYERS layers, prompt PARITY_PROMPT, both ``attn_impl``s."""
     out = {}
     for impl in ("flash", "chunked"):
         cfg = dataclasses.replace(get_config(LM_ARCH),
                                   num_layers=PARITY_LAYERS, attn_impl=impl)
-        params = cast_tree(init_params(build_defs(cfg), seed=0),
-                           COMPUTE_DTYPE)
-        batch = make_batch(cfg, PARITY_BATCH, PARITY_PROMPT, kind="prefill")
-        card = LM(cfg, tree_map(lambda t: t.to(DEVICE), params))
-        ids, card_logits = _greedy(card, batch, PARITY_PROMPT, PARITY_GEN,
-                                   DEVICE)
-        del card
-        _, cpu_logits = _greedy(LM(cfg, params), batch, PARITY_PROMPT,
-                                PARITY_GEN, "cpu", feed=ids)
-        err = max(float((a - b).abs().max())
-                  for a, b in zip(card_logits, cpu_logits))
-        check(all(torch.isfinite(a).all() for a in card_logits),
-              f"serve parity ({impl}): non-finite logits on the card")
-        check(err <= LOGIT_TOL, f"serve parity ({impl}): card and CPU "
-              f"logits differ by {err}")
-        ties = 0
-        for t, (a, b) in enumerate(zip(card_logits, cpu_logits)):
-            top = torch.topk(b[:, -1], 2).values
-            cpu_ids = torch.argmax(b[:, -1], -1)
-            for r in range(PARITY_BATCH):
-                if int(ids[r, t]) == int(cpu_ids[r]):
-                    continue
-                ties += 1
-                check(float(top[r, 0] - top[r, 1]) <= LOGIT_TOL and
-                      float(b[r, -1, int(ids[r, t])]) >= float(top[r, 0])
-                      - LOGIT_TOL,
-                      f"serve parity ({impl}): step {t} row {r} card picks "
-                      f"{int(ids[r, t])}, CPU {int(cpu_ids[r])}")
-        out[impl] = {"max_logit_diff": err, "ids": ids.tolist(),
-                     "near_tie_picks": ties}
+        res = out[impl] = _serve_parity(cfg, PARITY_PROMPT, impl)
         print(f"[smoke] phase 10 ({impl}): {PARITY_GEN} greedy ids x "
               f"{PARITY_BATCH} rows equal to the CPU's "
-              f"({ties} near-tie picks), logits within {err:g} "
-              f"(tolerance {LOGIT_TOL}); card ids {ids[0].tolist()}")
-        torch.cuda.empty_cache()
+              f"({res['near_tie_picks']} near-tie picks), logits within "
+              f"{res['max_logit_diff']:g} (tolerance {LOGIT_TOL}); card ids "
+              f"{res['ids'][0]}")
     return out
 
 
-def serve_profile_phase() -> dict:
-    """Phase 12, where serving's time goes: the entry point's model and
-    prompt, a warm prefill timed then profiled once, and decode steps
-    timed at steady state (16 steps after 2) then profiled (4 steps):
-    device time by kernel and the device's busy share."""
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+def ssm_parity_phase() -> dict:
+    """Phase 16: ``_serve_parity`` of each SSM arch at full width cut to
+    PARITY_LAYERS layers (hymba's attention on the flash path), at each
+    of SSM_PARITY_PROMPTS."""
+    out = {}
+    for arch in SSM_GEN:
+        cfg = dataclasses.replace(get_config(arch), num_layers=PARITY_LAYERS,
+                                  attn_impl="flash")
+        for prompt in SSM_PARITY_PROMPTS:
+            tag = f"{arch}, prompt {prompt}"
+            res = out[tag] = _serve_parity(cfg, prompt, tag)
+            print(f"[smoke] phase 16 ({tag}): {PARITY_GEN} greedy ids x "
+                  f"{PARITY_BATCH} rows equal to the CPU's "
+                  f"({res['near_tie_picks']} near-tie picks), logits within "
+                  f"{res['max_logit_diff']:g} (tolerance {LOGIT_TOL}); card "
+                  f"ids {res['ids'][0]}")
+    return out
+
+
+def serve_profile_phase(arch: str = LM_ARCH, gen: int = SERVE_GEN,
+                        phase: int = 12) -> dict:
+    """Phase 12 (and 18 for mamba2-370m), where serving's time goes: the
+    entry point's model and prompt, a warm prefill timed then profiled
+    once, and decode steps timed at steady state (16 steps after 2) then
+    profiled (4 steps): device time by kernel and the device's busy
+    share.  ``gen`` sizes the cache (22 steps fit when it is above 22)."""
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
     model = LM(cfg, tree_map(lambda t: t.to(DEVICE), cast_tree(
         init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)))
     batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, kind="prefill",
                        device=DEVICE)
-    prefill = build_prefill_step(model, SERVE_PROMPT + SERVE_GEN)
+    prefill = build_prefill_step(model, SERVE_PROMPT + gen)
     step = build_serve_step(model)
     prefill(batch)
     torch.cuda.synchronize()
@@ -1014,13 +1158,15 @@ def serve_profile_phase() -> dict:
     torch.cuda.synchronize()
     steady_ms = 1e3 * (time.perf_counter() - t0) / 16
     dec = device_profile(lambda: steps(4), 4)
-    print(f"[smoke] phase 12: warm prefill {warm_prefill_ms:.3f} ms "
+    print(f"[smoke] phase {phase}: {arch} warm prefill "
+          f"{warm_prefill_ms:.3f} ms "
           f"(profiled {pre['profiled_ms_per_step']:.3f} ms, device busy "
           f"{pre['device_busy_ms_per_step']} ms, share "
           f"{pre['device_busy_share']}, {pre['device_ops_per_step']:.0f} "
           "device ops)")
     print_profile(pre)
-    print(f"[smoke] phase 12: decode steady {steady_ms:.3f} ms/step "
+    print(f"[smoke] phase {phase}: {arch} decode steady {steady_ms:.3f} "
+          "ms/step "
           f"({SERVE_BATCH * 1e3 / steady_ms:.1f} tok/s); profiled "
           f"{dec['profiled_ms_per_step']:.3f} ms/step, device busy "
           f"{dec['device_busy_ms_per_step']} ms/step (share "
@@ -1161,6 +1307,49 @@ def train_profile_phase() -> dict:
           "device ops/step")
     print_profile(prof)
     return {"steady_ms_per_step": steady_ms, "profile": prof}
+
+
+def ssm_serve_phase() -> dict:
+    """Phase 17: the SSM serving paths through their entry point,
+    ``repro_torch.launch.serve.main``, ``--full-config``, batch
+    SERVE_BATCH, prompt SERVE_PROMPT, SSM_GEN tokens, the launch counters
+    reset just before each run and read just after: ``ssd_chunk_scan``
+    once a layer in prefill (the SSM decode step runs no kernel); for
+    hymba-1.5b also ``flash_attention_fwd`` once a layer and
+    ``decode_attention`` once a layer a decode step; no other kernel."""
+    out = {}
+    for arch, gen in SSM_GEN.items():
+        cfg = get_config(arch)
+        layers, hybrid = cfg.num_layers, cfg.family == "hybrid"
+        argv = ["--arch", arch, "--full-config", "--batch", str(SERVE_BATCH),
+                "--prompt-len", str(SERVE_PROMPT), "--gen", str(gen),
+                "--device", DEVICE]
+        print(f"[smoke] phase 17: serve {' '.join(argv)}")
+        kernels.reset_launches()
+        served = serve.main(argv)
+        launches = dict(kernels.LAUNCHES)
+        want = {"ssd_chunk_scan": layers,
+                "flash_attention_fwd": layers if hybrid else 0,
+                "decode_attention": layers * (gen - 1) if hybrid else 0}
+        for kname, n in launches.items():
+            check(n == want.get(kname, 0), f"serve {arch}: {kname} launched "
+                  f"{n} times, not {want.get(kname, 0)}")
+        check(bool(torch.isfinite(served["prefill_logits"]).all()
+                   and torch.isfinite(served["logits"]).all()),
+              f"serve {arch}: non-finite logits")
+        check(served["tokens"].shape == (SERVE_BATCH, gen),
+              f"serve {arch}: ids of shape {served['tokens'].shape}")
+        print(f"[smoke] phase 17: {arch} prefill {served['prefill_ms']:.3f} "
+              f"ms, decode {served['decode_ms_per_step']:.3f} ms/step, "
+              f"{served['tok_per_s']:.1f} tok/s, launches {launches}")
+        out[arch] = {"argv": argv, "launches": launches,
+                     **{k: served[k] for k in (
+                         "prefill_ms", "decode_ms", "decode_ms_per_step",
+                         "tok_per_s")},
+                     "ids": served["tokens"].tolist()}
+        del served
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1321,6 +1510,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_prof = train_profile_phase()
+    torch.cuda.empty_cache()
+
+    ssm_parity = ssm_parity_phase()
+    ssm_served = ssm_serve_phase()
+    ssm_prof = serve_profile_phase("mamba2-370m", SSM_GEN["mamba2-370m"], 18)
 
     # the JSON line: per kernel, summed over one step's launches on the
     # reddit-sized graph (its 631 MB table does not fit in L2); each
@@ -1346,14 +1540,22 @@ def main() -> int:
             "shapes": [c["shape"] for c in cases], "per_step": counts,
             "on_main_path": kname != "feature_gather_mean"})
     # the LM's kernels: per prefill (flash forward, 24 launches at the
-    # serve entry point's shape), per decode step (decode, 24 launches
-    # over the full cache) and per training step (the backward kernels,
-    # 24 launches each at the train entry point's shape); launch counts
-    # from the serve entry point's run, and the train entry point's for
-    # the backward kernels
+    # serve entry point's shape; the SSD kernel, 48 launches at
+    # mamba2-370m's), per decode step (decode, 24 launches over the full
+    # cache) and per training step (the backward kernels, 24 launches each
+    # at the train entry point's shape); launch counts from the serve entry
+    # point's run of qwen2-0.5b, the train entry point's for the backward
+    # kernels and mamba2-370m's serve run for the SSD kernel (hymba-1.5b's
+    # run beside it)
     per = {"flash_attention_fwd": "prefill", "decode_attention":
            "decode step", "flash_attention_bwd_dq": "training step",
-           "flash_attention_bwd_dkv": "training step"}
+           "flash_attention_bwd_dkv": "training step",
+           "ssd_chunk_scan": "prefill"}
+    launch_runs = {"flash_attention_fwd": lm_launches,
+                   "decode_attention": lm_launches,
+                   "flash_attention_bwd_dq": train_launches,
+                   "flash_attention_bwd_dkv": train_launches,
+                   "ssd_chunk_scan": ssm_served["mamba2-370m"]["launches"]}
     for kname, cases in lm_cases.items():
         counts = [c["count"] for c in cases]
 
@@ -1361,18 +1563,21 @@ def main() -> int:
             return sum(n * c[key] for n, c in zip(counts, cases))
 
         main_case = cases[counts.index(max(counts))]
+        libs = [c["library_ms"] for c in cases]
         table.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],
-            "launches": (train_launches if per[kname] == "training step"
-                         else lm_launches)[kname],
+            "launches": launch_runs[kname][kname],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": per_call("bound_ms"),
             "bound_by": main_case["bound_by"],
-            "library_ms": per_call("library_ms"),
+            "library_ms": None if None in libs else per_call("library_ms"),
             "shapes": [c["shape"] for c in cases], "per_step": counts,
             "per": per[kname], "on_main_path": True})
+        if kname == "ssd_chunk_scan":
+            table[-1]["launches_by_run"] = {
+                arch: r["launches"][kname] for arch, r in ssm_served.items()}
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "kernels": table, "per_graph": per_graph,
@@ -1405,6 +1610,8 @@ def main() -> int:
                                 "losses", "grad_norms", "step_ms", "wall_s",
                                 "tok_per_s", "peak_bytes")}},
                "train_profile": train_prof,
+               "ssm_parity": ssm_parity, "ssm_serve": ssm_served,
+               "ssm_serve_profile": ssm_prof,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

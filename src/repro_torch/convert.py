@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights, optimizer states and KV cache into the
+"""Carry the JAX package's weights, optimizer states and LM cache into the
 port.
 
 Both packages name and lay out their parameters alike (GraphSAGE's
@@ -36,15 +36,21 @@ def lm_params_from_jax(tree: dict, device="cpu") -> dict:
 
 
 def lm_cache_from_jax(cache: dict, S_total: int) -> dict:
-    """The reference's prefill cache ``{"k", "v"}`` of (L, B, S, Hkv, Dh)
-    bf16 arrays -> the port's bf16 cache of ``S_total`` positions, the
-    prompt's S first and zeros after (the reference's right pad)."""
+    """The reference's prefill cache -> the port's bf16 cache: K and V
+    (L, B, S, Hkv, Dh) at ``S_total`` positions, the prompt's S first and
+    zeros after (the reference's right pad); the SSM ``state`` (L, B, H,
+    P, N) and ``conv`` tail (L, B, d_conv - 1, conv_dim) as they are (they
+    have no sequence axis)."""
     out = {}
-    for name in ("k", "v"):
+    for name in ("k", "v", "state", "conv"):
+        if name not in cache:
+            continue
         a = torch.from_numpy(np.array(cache[name], np.float32))
-        pad = torch.zeros(a.shape[:2] + (S_total - a.shape[2],)
-                          + a.shape[3:])
-        out[name] = torch.cat([a, pad], dim=2).to(torch.bfloat16)
+        if name in ("k", "v"):
+            pad = torch.zeros(a.shape[:2] + (S_total - a.shape[2],)
+                              + a.shape[3:])
+            a = torch.cat([a, pad], dim=2)
+        out[name] = a.to(torch.bfloat16)
     return out
 
 

@@ -11,7 +11,7 @@ LAUNCHES = {"neighbor_sample": 0, "feature_gather_rows": 0,
             "feature_gather_mean": 0, "neighbor_sample_cached": 0,
             "feature_gather_cached": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "ssd_chunk_scan": 0}
 
 
 def reset_launches() -> None:

@@ -4,7 +4,8 @@ A CUDA tensor launches the hand-written kernel (``kernels.neighbor_sample``,
 ``kernels.feature_gather``, each with its cached variant that reads
 through a device cache's slot table; ``kernels.flash_attention`` and
 ``kernels.decode_attention`` for the LM, the forward under an autograd
-``FlashAttention`` whose backward is the flash backward kernels), which
+``FlashAttention`` whose backward is the flash backward kernels;
+``kernels.ssd_chunk_scan`` for the SSM mixer), which
 raises on what it does not take; a CPU tensor takes the plain version in
 ``kernels.ref``.
 There is no switch and no fallback between the two: the device of the
@@ -14,6 +15,7 @@ data decides.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import rng
 from repro_torch.kernels import decode_attention as _da
@@ -21,6 +23,7 @@ from repro_torch.kernels import feature_gather as _fg
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import neighbor_sample as _ns
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_chunk_scan as _ssd
 
 
 def edge_block_size(max_degree: int) -> int:
@@ -173,3 +176,25 @@ def decode_attention(q, k, v, valid_len: int, window: int = 0):
     if q.is_cuda:
         return _da.decode_attention(q, k, v, valid_len, window)
     return ref.decode_attention(q, k, v, valid_len, window)
+
+
+def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 128):
+    """The Mamba-2 SSD chunked scan: x (b, s, h, p), dt (b, s, h)
+    post-softplus, A (h,) negative, B and C (b, s, g, n) -> (y (b, s, h,
+    p), final_state (b, h, p, n)), float32.  The reference dispatcher's
+    rule: a chunk longer than a sequence it divides is cut to the
+    sequence, and otherwise the sequence is padded (dt = 0) up to a chunk
+    multiple and y cut back.  On the card the kernel takes float32 and
+    chunks up to 256."""
+    s = x.shape[1]
+    chunk = min(chunk, s) if s % chunk == 0 else chunk
+    pad = -s % chunk
+    if pad:
+        x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, dt, B, C))
+    args = [t.contiguous() for t in (x, dt, A, B, C)]
+    if x.is_cuda:
+        y, state = _ssd.ssd_chunk_scan(*args, chunk=chunk)
+    else:
+        y, state = ref.ssd_chunk_scan(*args, chunk=chunk)
+    return y[:, :s], state

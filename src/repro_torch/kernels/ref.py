@@ -194,3 +194,52 @@ def decode_attention(q, k, v, valid_len: int, window: int = 0):
     o = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return o.reshape(B, Hq, D).to(q.dtype)
+
+
+def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int):
+    """The Mamba-2 SSD chunked scan (the reference's ``ref.ssd_chunk_scan``,
+    which is ``models/ssm.ssd_chunked``).
+
+    x: (b, s, h, p); dt: (b, s, h) post-softplus step sizes; A: (h,)
+    negative decay rates; B, C: (b, s, g, n), head ``j`` reading group ``j //
+    (h // g)``; ``s`` a multiple of ``chunk``.  Within a chunk, ``cs =
+    cumsum(dt * A)`` and ``y_i = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j)
+    dt_j x_j + exp(cs_i) C_i . prev``; across chunks the (p, n) state runs
+    ``state = exp(cs_last) state + sum_q exp(cs_last - cs_q) dt_q x_q B_q``
+    from zero.  The decay ``exp(cs_i - cs_j)`` is taken only where ``i >=
+    j`` (the exponent is -inf elsewhere), so no inf is formed.  Returns y
+    (b, s, h, p) and final_state (b, h, p, n), in x's dtype (float32).
+    The (b, s/chunk, chunk, chunk, h) decay and score tensors are
+    materialized whole."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    assert s % chunk == 0, (s, chunk)
+    nc = s // chunk
+    rep = h // g
+
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Cc = C.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+
+    dA_cs = torch.cumsum(dtc * A, dim=2)                      # (b,nc,q,h)
+    seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]   # (b,nc,q,q,h)
+    lower = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).tril()
+    L = torch.exp(seg.masked_fill(~lower[:, :, None], -math.inf))
+    CB = torch.einsum("bcqhn,bckhn->bcqkh", Cc, Bc)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", CB * L,
+                           xc * dtc[..., None])
+
+    decay_to_end = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)     # (b,nc,q,h)
+    states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bc, decay_to_end * dtc,
+                          xc)
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])               # (b,nc,h)
+    state = torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    prev = []
+    for c in range(nc):                   # the state before each chunk
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Cc,
+                           torch.stack(prev, dim=1), torch.exp(dA_cs))
+    return (y_intra + y_inter).reshape(b, s, h, p), state

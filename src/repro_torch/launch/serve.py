@@ -1,14 +1,20 @@
-"""Serving driver of the port: batched prefill + greedy decode for the dense
-LM family.
+"""The port's serving entry point: batched prefill + greedy decode for the
+dense, ssm and hybrid LM families.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --full-config \\
       --batch 8 --prompt-len 2048 --gen 64
+  python -m repro_torch.launch.serve --arch mamba2-370m --full-config
+  python -m repro_torch.launch.serve --arch hymba-1.5b --full-config
 
 Runs on the GPU (``--device cuda``, the default): prefill attention
 through the hand-written flash-attention forward kernel (``--attn-impl
 flash``, the default, on full-causal archs) or the chunked plain path
 (``--attn-impl chunked``), decode attention through the hand-written
-decode kernel.  ``--device cpu`` runs the plain PyTorch versions; without
+decode kernel, and the SSM mixer's prefill scan (mamba2, hymba's SSM
+branch) through the hand-written SSD chunked-scan kernel; the SSM decode
+step is plain PyTorch, as in the reference.  The cache holds each
+family's leaves (``LM.init_cache``): the SSM state and conv tail have no
+sequence axis.  ``--device cpu`` runs the plain PyTorch versions; without
 a GPU and without ``--device cpu`` it stops with an error.  Without
 ``--full-config`` it serves the reduced config, as the reference's
 ``repro.launch.serve`` does.  Weights are drawn from seed 0, as the

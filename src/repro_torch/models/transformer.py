@@ -1,9 +1,9 @@
-"""The LM of the dense family: parameters, the training forward, prefill
-and greedy decode.
+"""The LM: parameters, the training forward of the dense family, and
+prefill and greedy decode of the dense, SSM and hybrid families.
 
 The port of the reference's ``repro/models/transformer.py`` for training
-and serving the dense family on one card (no mesh, no sharding
-constraints).
+the dense family and serving the dense, ssm (mamba2) and hybrid (hymba)
+families on one card (no mesh, no sharding constraints).
 Parameters keep the reference tree's names and stacked layer shapes
 (``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
 carries the reference's weights over as a copy; ``lax.scan`` over the
@@ -21,15 +21,21 @@ layer ``i`` inside the graph on every call and, for ``cfg.remat ==
 "full"`` (the reference's default ``jax.checkpoint`` of each layer),
 recomputes each block in the backward (``torch.utils.checkpoint``).
 
-The KV cache is (L, B, S_total, Hkv, Dh) bf16, allocated once for
-prompt + generation: prefill writes the first S positions, each decode
-step writes its position in place (the reference pads the prefill cache
-and ``dynamic_update_slice``s it, which gives the same values).
+The cache holds each family's leaves (``init_cache``).  The KV cache is
+(L, B, S_total, Hkv, Dh) bf16, allocated once for prompt + generation:
+prefill writes the first S positions, each decode step writes its
+position in place (the reference pads the prefill cache and
+``dynamic_update_slice``s it, which gives the same values).  The SSM
+cache has no sequence axis: the state (L, B, H, P, N) and the conv tail
+(L, B, d_conv - 1, conv_dim), both bf16, written by prefill and replaced
+by each decode step.  The SSM mixer (``models/ssm.py``) runs its prefill
+scan through the SSD kernel on the card.
 
 ``build_defs`` declares every family, so ``count_params`` counts all ten
-archs; ``LM`` itself refuses what the port does not run (MoE, SSM,
-hybrid, enc-dec, M-RoPE, embedding inputs, the ``"dots"`` remat policy)
-with ``NotImplementedError``.
+archs; ``LM`` itself refuses what the port does not run (MoE, enc-dec,
+M-RoPE, embedding inputs, the ``"dots"`` remat policy, and training of
+the ssm and hybrid families, which needs an SSD backward) with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import decode_attention_local, mha_chunked
 from repro_torch.models.layers import (activation, apply_rope, embed_def,
                                        embed_lookup, rmsnorm, rmsnorm_def,
@@ -91,20 +98,9 @@ def _mlp_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
 
 
 def _ssm_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
-    """The reference's ``models/ssm.py:ssm_defs`` (shapes only here)."""
-    d_inner, n_heads, g = cfg.d_inner, cfg.ssm_heads, cfg.ssm_groups
-    conv_dim = d_inner + 2 * g * cfg.ssm_state
-    d_in_proj = 2 * d_inner + 2 * g * cfg.ssm_state + n_heads
-    return {
-        "in_proj": ParamDef((L, cfg.d_model, d_in_proj)),
-        "conv_w": ParamDef((L, cfg.d_conv, conv_dim)),
-        "conv_b": ParamDef((L, conv_dim), init="zeros"),
-        "A_log": ParamDef((L, n_heads), init="zeros"),
-        "D": ParamDef((L, n_heads), init="ones"),
-        "dt_bias": ParamDef((L, n_heads), init="zeros"),
-        "norm": ParamDef((L, d_inner), init="ones"),
-        "out_proj": ParamDef((L, d_inner, cfg.d_model)),
-    }
+    return ssm_lib.ssm_defs(cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+                            cfg.ssm_state, cfg.d_conv, L,
+                            n_groups=cfg.ssm_groups)
 
 
 def _moe_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
@@ -165,12 +161,16 @@ def build_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense",)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the port's LM does not run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
-            "port's LM runs the dense family)")
+            f"port's LM serves the {', '.join(SERVED_FAMILIES)} families)")
     for field, what in (("mrope_sections", "M-RoPE"),
                         ("embeds_input", "embedding inputs")):
         if getattr(cfg, field):
@@ -244,10 +244,41 @@ def _mlp_block(cfg: ModelConfig, p, x):
     return out
 
 
+def _ssm_kw(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+                d_conv=cfg.d_conv, n_groups=cfg.ssm_groups)
+
+
+def _ssm_decode(cfg: ModelConfig, p, h, cache: dict, i: int):
+    """The SSM mixer's decode step on layer ``i``'s state and conv tail,
+    which it replaces in ``cache``; returns the mixer's output."""
+    out, cache["state"][i], cache["conv"][i] = ssm_lib.apply_ssm_decode(
+        p, h, cache["state"][i], cache["conv"][i], **_ssm_kw(cfg))
+    return out
+
+
+def _branch_mix(cfg: ModelConfig, p, attn_out, ssm_out):
+    """The hybrid block's mean of its two normalized branches."""
+    return 0.5 * (rmsnorm(attn_out, p["attn_branch_norm"], cfg.norm_eps)
+                  + rmsnorm(ssm_out, p["ssm_branch_norm"], cfg.norm_eps))
+
+
 def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
-    """One decoder block, training and prefill path.  Returns (x, (k,
-    v))."""
+    """One decoder block, training and prefill path.  Returns (x, the
+    family's cache seeds): (k, v) for dense, (state, conv_tail) for ssm,
+    (k, v, state, conv_tail) for hybrid."""
+    if cfg.family == "ssm":
+        h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
+        out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
+                                       **_ssm_kw(cfg))
+        return x + out, seeds
     attn_out, kv = _attn_block(cfg, p, x, positions, window)
+    if cfg.family == "hybrid":
+        h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
+        ssm_out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
+                                           **_ssm_kw(cfg))
+        x = x + _branch_mix(cfg, p, attn_out, ssm_out)
+        return x + _mlp_block(cfg, p, x), kv + seeds
     x = x + attn_out
     return x + _mlp_block(cfg, p, x), kv
 
@@ -256,8 +287,12 @@ def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
 # Model
 # ---------------------------------------------------------------------------
 
+CACHE_LEAVES = {"dense": ("k", "v"), "ssm": ("state", "conv"),
+                "hybrid": ("k", "v", "state", "conv")}
+
+
 class LM(nn.Module):
-    """The dense-family LM: the training forward, prefill and decode.
+    """The LM: the training forward (dense family), prefill and decode.
 
     ``params`` is a tree like the reference's (``convert.lm_params_from_jax``
     or ``params.init_params(build_defs(cfg), seed)``); without it the
@@ -271,6 +306,10 @@ class LM(nn.Module):
                  seed: int = 0, device="cuda", trainable: bool = False):
         super().__init__()
         check_supported(cfg)
+        if trainable and cfg.family not in TRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family!r} family is not "
+                "ported yet (the SSD scan has no backward kernel)")
         if trainable and cfg.remat not in ("none", "full"):
             raise NotImplementedError(
                 f"{cfg.name}: remat={cfg.remat!r} has no counterpart in "
@@ -349,43 +388,60 @@ class LM(nn.Module):
         return self._logits(x), {"moe_aux_loss": aux}
 
     def init_cache(self, B: int, S: int) -> dict:
-        """A zero (L, B, S, Hkv, Dh) bf16 K and V cache on the model's
-        device."""
+        """A zero bf16 cache of the family's leaves on the model's device:
+        K and V (L, B, S, Hkv, Dh); the SSM state (L, B, H, P, N) and conv
+        tail (L, B, d_conv - 1, conv_dim), which do not depend on S."""
         cfg = self.cfg
-        shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)
-        return {n: torch.zeros(shape, dtype=COMPUTE_DTYPE,
-                               device=self.embed.device) for n in ("k", "v")}
+        L = cfg.num_layers
+        kv = (L, B, S, cfg.num_kv_heads, cfg.head_dim)
+        shapes = {"k": kv, "v": kv}
+        if cfg.ssm_heads:
+            shapes["state"] = (L, B, cfg.ssm_heads,
+                               cfg.d_inner // cfg.ssm_heads, cfg.ssm_state)
+            shapes["conv"] = (L, B, cfg.d_conv - 1, cfg.d_inner
+                              + 2 * cfg.ssm_groups * cfg.ssm_state)
+        return {n: torch.zeros(shapes[n], dtype=COMPUTE_DTYPE,
+                               device=self.embed.device)
+                for n in CACHE_LEAVES[cfg.family]}
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache_len: int | None = None):
-        """Forward over the prompt, writing each layer's K and V into a
-        fresh cache of ``cache_len`` positions (default: the prompt
-        length).  Returns (last-position logits (B, 1, V) float32,
-        cache)."""
+        """Forward over the prompt, writing each layer's cache seeds into
+        a fresh cache: K and V at the first S of ``cache_len`` positions
+        (default: the prompt length), the SSM state and conv tail whole.
+        Returns (last-position logits (B, 1, V) float32, cache)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         cache = self.init_cache(B, S if cache_len is None else cache_len)
         for i, window in enumerate(self._windows):
-            x, (k, v) = _apply_block(self.cfg, self._layer(i), x, positions,
-                                     window)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            x, seeds = _apply_block(self.cfg, self._layer(i), x, positions,
+                                    window)
+            for name, seed in zip(CACHE_LEAVES[self.cfg.family], seeds):
+                if name in ("k", "v"):
+                    cache[name][i, :, :S] = seed
+                else:
+                    cache[name][i] = seed
         return self._logits(x[:, -1:, :]), cache
 
     @torch.no_grad()
     def decode_step(self, tokens, cache: dict, position: int):
         """One-token decode: tokens (B, 1); ``position`` is the host int
         index the new K and V are written at (attention sees [0,
-        position]).  Updates ``cache`` in place; returns (logits (B, 1,
-        V) float32, cache)."""
+        position]); the SSM state and conv tail advance one step.
+        Updates ``cache`` in place; returns (logits (B, 1, V) float32,
+        cache)."""
         cfg = self.cfg
         x = self._embed(tokens)
         pos = torch.full((x.shape[0], 1), position, dtype=torch.int32,
                          device=x.device)
         for i, window in enumerate(self._windows):
             p = self._layer(i)
+            if cfg.family == "ssm":
+                h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
+                x = x + _ssm_decode(cfg, p, h, cache, i)
+                continue
             h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
             q, k_new, v_new = _project_qkv(cfg, p, h)
             q, k_new = _rope_qk(cfg, q, k_new, pos)
@@ -394,6 +450,12 @@ class LM(nn.Module):
             cv[:, position] = v_new[:, 0]
             out = decode_attention_local(q[:, 0], ck, cv, position + 1,
                                          window=window)
-            x = x + _out_proj(cfg, p, out[:, None])
+            attn_out = _out_proj(cfg, p, out[:, None])
+            if cfg.family == "hybrid":
+                # the SSM branch reads the same normalized input
+                ssm_out = _ssm_decode(cfg, p, h, cache, i)
+                x = x + _branch_mix(cfg, p, attn_out, ssm_out)
+            else:
+                x = x + attn_out
             x = x + _mlp_block(cfg, p, x)
         return self._logits(x), cache

@@ -35,7 +35,9 @@ PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
                     "moonshot_v1_16b_a3b", "qwen2_vl_7b", "hymba_1_5b",
                     "seamless_m4t_large_v2")),
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.kernels.decode_attention", "repro_torch.convert",
+                "repro_torch.kernels.decode_attention",
+                "repro_torch.kernels.ssd_chunk_scan", "repro_torch.models.ssm",
+                "repro_torch.convert",
                 "repro_torch.kernels.ops", "repro_torch.kernels.ref",
                 "repro_torch.data", "repro_torch.data.tokens",
                 "repro_torch.optim", "repro_torch.optim.adamw",

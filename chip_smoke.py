@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
   1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the CUDA kernels from ``src/repro_torch/csrc`` (six sources,
-     ten kernels) and report the build time and ptxas's register report;
+  2. build the CUDA kernels from ``src/repro_torch/csrc`` (six sources
+     and a shared header, ten kernels) and report the build time and
+     ptxas's registers and spills for each kernel instance;
   3. every kernel against its plain PyTorch version on the card.  The
      GNN's five at the shapes of a training step at batch 1024 and
      fanouts 25,10: on reddit ``--large-scale`` and on a reddit-sized
@@ -36,7 +37,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      launches, L2 flushed before each) beside its plain version, one
      PyTorch library call for the same function
      (``scaled_dot_product_attention`` for the LM's, its backward through
-     ``torch.autograd.grad`` for the flash backward) and its bound;
+     ``torch.autograd.grad`` for the flash backward: one whole SDPA
+     backward for each of the two kernels) and its bound; the flash
+     kernels also report their achieved TFLOP/s (the counted flops over
+     their time);
   4. three batches sampled and gathered on the card equal the CPU plain
      path's bit for bit, and four fp32 training steps on the card match
      the CPU's losses within 1e-4;
@@ -177,9 +181,12 @@ TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 1, 512
 # few bf16 ulps at |out| < 4, the float32 logsumexp within 1e-3
 ATTN_OUT_TOL, LSE_TOL = 2e-2, 1e-3
 # the flash backward's bf16 dq, dk and dv within 1 % of the plain
-# version's largest |entry| (two roundings of one float32 value to bf16
-# differ by at most one ulp, 2**-7 of it; the float32 sums differ only in
-# order), its float32 delta within 1e-4 of the largest; the library's
+# version's largest |entry|: dq's float32 sums differ from the plain
+# version's only in order, so its two roundings to bf16 differ by at most
+# one ulp, 2**-7 of it; the dK/dV kernel rounds P^T and dS^T to bf16 before
+# its tensor-core products, about 2**-9 of the largest entry, plus that
+# final rounding (tests/test_torch_flash_precision.py emulates it on the
+# CPU).  Its float32 delta within 1e-4 of the largest; the library's
 # backward, which keeps p and ds in bf16, within 10 % (a yardstick only)
 GRAD_REL_TOL, DELTA_REL_TOL, LIB_GRAD_REL_TOL = 1e-2, 1e-4, 0.1
 # card vs CPU training (phase 13).  In bf16 both round their activations
@@ -761,8 +768,9 @@ def flash_case(timer, gen, B, S, Hq, Hkv, D, count) -> dict:
     check(err <= ATTN_OUT_TOL and lse_err <= LSE_TOL,
           f"flash_attention_fwd {(B, S, Hq, Hkv, D)}: out off by {err}, "
           f"lse by {lse_err}")
+    flops = 2 * B * Hq * S * S * D
     b, by = bound_ms(2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S,
-                     2 * B * Hq * S * S * D, BF16_OPS_PER_S)
+                     flops, BF16_OPS_PER_S)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_err = float((_sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
                      .float() - out.float()).abs().max())
@@ -774,6 +782,7 @@ def flash_case(timer, gen, B, S, Hq, Hkv, D, count) -> dict:
            "plain_ms": timer(lambda: ref.flash_attention_fwd(q, k, v)),
            "library_ms": timer(lambda: _sdpa(qt, kt, vt, is_causal=True)),
            "bound_ms": b, "bound_by": by}
+    row["tflops"] = flops / row["ms"] * 1e-9
     torch.cuda.empty_cache()
     return row
 
@@ -890,6 +899,10 @@ def flash_bwd_case(timer, gen, B, S, Hq, Hkv, D, causal, count) -> dict:
                 q, k, v, out, lse, do, causal=causal)),
             library_ms=timer(lambda: lib((1, 2))),
             bound_ms=b_kv, bound_by=by_kv)}
+    for kname, n_products in (("flash_attention_bwd_dq", 3),
+                              ("flash_attention_bwd_dkv", 4)):
+        row = rows_out[kname]
+        row["tflops"] = n_products * product / row["ms"] * 1e-9
     del leaves, lib_out
     torch.cuda.empty_cache()
     return rows_out
@@ -1017,6 +1030,8 @@ def lm_kernel_phase(timer) -> dict:
                          f"pair bound {c['pair_bound_ms']:.4f} ms")
             else:
                 extra = f"valid_len {c['valid_len']} window {c['window']}"
+            if "tflops" in c:
+                extra += f"  {c['tflops']:.1f} TFLOP/s"
             lib = ("-" if c["library_ms"] is None
                    else f"{c['library_ms']:.4f}")
             print(f"[smoke]   {kname:20s} {str(c['shape']):24s} kernel "
@@ -1024,6 +1039,14 @@ def lm_kernel_phase(timer) -> dict:
                   f"{lib} ms  bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})  max_abs_err {c['max_abs_err']:g}  "
                   f"{extra}  x{c['count']}")
+    # both backward rows' library time is one whole SDPA backward (dq, dk
+    # and dv from one graph): the pair of kernels against it
+    for dq, kv in zip(cases["flash_attention_bwd_dq"],
+                      cases["flash_attention_bwd_dkv"]):
+        print(f"[smoke]   flash backward pair {str(dq['shape']):24s} dq + "
+              f"dK/dV {dq['ms'] + kv['ms']:.4f} ms, one SDPA backward "
+              f"{dq['library_ms']:.4f} / {kv['library_ms']:.4f} ms, fused "
+              f"bound {dq['pair_bound_ms']:.4f} ms")
     return cases
 
 
@@ -1368,10 +1391,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[smoke] phase 2: built {sorted(logs) or 'nothing (cached)'} in "
           f"{build_s:.1f} s")
-    for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[smoke]   {src}: {line.strip()}")
+    ptxas = _build.ptxas_report(logs)
+    for r in ptxas:
+        print(f"[smoke]   {r['source']}: {r['kernel']} {r['registers']} "
+              f"registers, {r['spill_stores']} bytes spill stores, "
+              f"{r['spill_loads']} bytes spill loads")
 
     print("[smoke] phase 3: kernels against their plain versions")
     timer = Timer()
@@ -1580,7 +1604,7 @@ def main() -> int:
                 arch: r["launches"][kname] for arch, r in ssm_served.items()}
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s, "kernels": table, "per_graph": per_graph,
+               "build_s": build_s, "ptxas": ptxas, "kernels": table, "per_graph": per_graph,
                "train": {"argv": argv, "losses": losses,
                          "steps_per_s": stats.steps_per_s,
                          "idle_fraction": stats.idle_fraction,

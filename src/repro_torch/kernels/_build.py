@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` into its own shared library (no PyTorch headers, so a build takes
 seconds).  Libraries are built at first use into ``csrc/build/`` (listed in
 ``.gitignore``), all missing ones at once in parallel, and are named by a
-digest of the source and the flags, so an edited source is rebuilt.
+digest of the source, the shared headers and the flags, so an edited
+source or header is rebuilt.
 Nothing here runs when the module is imported.
 
 Every entry point takes ``c_void_p`` for each pointer and for the stream,
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -44,8 +46,11 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the file name
-    carries a digest of the source and the flags."""
+    carries a digest of the source, of every shared header ``csrc/*.cuh``
+    and of the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -79,6 +84,50 @@ def build(names=SOURCES) -> dict[str, str]:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {n}.cu\n{logs[n]}" for n in failed))
     return logs
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_kernel<64>`` from an Itanium-mangled kernel name: the
+    length-prefixed identifier that ends in ``_kernel`` (its length is
+    the tail of a run of digits) and its integer or bool template
+    arguments; the mangled name if there is none."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        start = m.start() + len(m.group(1))
+        ident = mangled[start:start + int(m.group(1))]
+        if ident.endswith("_kernel"):
+            args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[start + len(ident):])
+            if args:
+                ident += "<" + ", ".join(re.findall(r"L[a-z](\d+)E",
+                                                    args.group(1))) + ">"
+            return ident
+    return mangled
+
+
+def ptxas_report(logs: dict[str, str]) -> list[dict]:
+    """Each kernel's registers and spill bytes from ``build()``'s logs
+    (nvcc runs with ``-Xptxas -v``): one dict per kernel with its source,
+    name, registers, spill stores and spill loads."""
+    out = []
+    for src, log in logs.items():
+        row = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                row = {"source": src, "kernel": _kernel_name(m.group(1)),
+                       "registers": None, "spill_stores": None,
+                       "spill_loads": None}
+                out.append(row)
+                continue
+            if row is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                row["spill_stores"], row["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                row["registers"] = int(m.group(1))
+    return out
 
 
 def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):

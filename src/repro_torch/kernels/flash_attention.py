@@ -4,7 +4,9 @@
 The counterparts of the reference's Pallas ``_flash_fwd`` and
 ``_flash_bwd`` (``repro/kernels/flash_attention.py``), taking the model's
 (B, S, H, D) layout through strides instead of the reference wrapper's
-transposes.  Each wrapper checks its inputs, allocates its outputs and
+transposes.  The forward and the dK/dV kernel run on the tensor cores
+and round P, P^T and dS^T to bf16 before their products; dQ is scalar
+float32.  Each wrapper checks its inputs, allocates its outputs and
 launches on the current stream; they take CUDA tensors only
 (``kernels.ops`` sends CPU tensors to the plain versions in
 ``kernels.ref``).
@@ -42,7 +44,8 @@ def check_head_dim(D: int, what: str) -> None:
 
 def check_bshd(x: torch.Tensor, name: str, what: str) -> None:
     """A 4-d bf16 CUDA tensor whose last dim is contiguous and whose rows
-    start on 16-byte boundaries (the kernels load 8 values at a time)."""
+    start on 16-byte boundaries (TMA's tensor maps need 16-byte aligned
+    bases and strides; the dQ kernel loads 8 values at a time)."""
     if not (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4):
         raise ValueError(f"{what}: {name} must be a 4-d bf16 CUDA tensor, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")

@@ -23,7 +23,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      at D 128 (B 1, 32 over 8 heads) and D 256 (B 2, S 1024, 4 over 1) and
      at a ragged S 1000, out within 2e-2 and lse within 1e-3;
      ``decode_attention`` over qwen2-0.5b's 2,112-position cache at batch
-     8, valid_len 1, 1000 and 2112, window 0 and 512, within 2e-2; the
+     8, valid_len 1, 1000 and 2112, window 0 and 512, within 2e-2, with
+     its achieved GB/s and the host's enqueue time per call; the
      flash backward's ``flash_attention_bwd_dq`` and
      ``flash_attention_bwd_dkv`` at the training shape (B 4, S 4096, 14
      over 2 heads, D 64), at D 128 (32 over 8), D 256, a ragged S 1000
@@ -181,13 +182,14 @@ TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 1, 512
 # few bf16 ulps at |out| < 4, the float32 logsumexp within 1e-3
 ATTN_OUT_TOL, LSE_TOL = 2e-2, 1e-3
 # the flash backward's bf16 dq, dk and dv within 1 % of the plain
-# version's largest |entry|: dq's float32 sums differ from the plain
-# version's only in order, so its two roundings to bf16 differ by at most
-# one ulp, 2**-7 of it; the dK/dV kernel rounds P^T and dS^T to bf16 before
-# its tensor-core products, about 2**-9 of the largest entry, plus that
-# final rounding (tests/test_torch_flash_precision.py emulates it on the
-# CPU).  Its float32 delta within 1e-4 of the largest; the library's
-# backward, which keeps p and ds in bf16, within 10 % (a yardstick only)
+# version's largest |entry|: both kernels round an operand of their last
+# tensor-core products to bf16 (dS before dS.K for dq, P^T and dS^T before
+# the dV and dK products), about 2**-9 of the largest entry, and round
+# their float32 sums to bf16 at the end, up to 2**-8 more
+# (tests/test_torch_flash_precision.py emulates both on the CPU).  The
+# float32 delta, exact products summed in another order, within 1e-4 of
+# the largest; the library's backward, which keeps p and ds in bf16,
+# within 10 % (a yardstick only)
 GRAD_REL_TOL, DELTA_REL_TOL, LIB_GRAD_REL_TOL = 1e-2, 1e-4, 0.1
 # card vs CPU training (phase 13).  In bf16 both round their activations
 # apart (as the reference and the port do on the CPU, where
@@ -787,11 +789,27 @@ def flash_case(timer, gen, B, S, Hq, Hkv, D, count) -> dict:
     return row
 
 
+def enqueue_us(fn, calls: int = 200) -> float:
+    """The host's time to enqueue one call, in microseconds: the host clock
+    over ``calls`` calls with no synchronize between them, after a
+    warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def decode_case(timer, q, k, v, valid_len, window, count) -> dict:
     """decode_attention over the (B, S, Hkv, D) cache: out within
     ATTN_OUT_TOL of the plain version, timed beside it, a masked
     ``scaled_dot_product_attention`` and the bound (the valid keys' K and V
-    rows, q and out at HBM rate)."""
+    rows, q and out at HBM rate); the bytes' achieved rate and the host's
+    enqueue time per call (``enqueue_us``)."""
     got = decode_attention(q, k, v, valid_len, window)
     want = ref.decode_attention(q, k, v, valid_len, window)
     torch.cuda.synchronize()
@@ -801,8 +819,8 @@ def decode_case(timer, q, k, v, valid_len, window, count) -> dict:
     B, Hq, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     lo, hi = valid_range(S, valid_len, window)
-    b, by = bound_ms(4 * B * (hi - lo) * Hkv * D + 4 * B * Hq * D,
-                     4 * B * Hq * (hi - lo) * D, BF16_OPS_PER_S)
+    nbytes = 4 * B * (hi - lo) * Hkv * D + 4 * B * Hq * D
+    b, by = bound_ms(nbytes, 4 * B * Hq * (hi - lo) * D, BF16_OPS_PER_S)
     mask = torch.zeros((1, 1, 1, S), dtype=torch.bool, device=DEVICE)
     mask[..., lo:hi] = True
     q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
@@ -811,13 +829,17 @@ def decode_case(timer, q, k, v, valid_len, window, count) -> dict:
     check(lib_err <= ATTN_OUT_TOL, f"scaled_dot_product_attention over the "
           f"cache (valid_len {valid_len}, window {window}) is off the "
           f"kernel by {lib_err}")
-    return {"shape": [B, S, Hq, Hkv, D], "valid_len": valid_len,
-            "window": window, "max_abs_err": err, "count": count,
-            "ms": timer(lambda: decode_attention(q, k, v, valid_len, window)),
-            "plain_ms": timer(lambda: ref.decode_attention(
-                q, k, v, valid_len, window)),
-            "library_ms": timer(lambda: _sdpa(q4, kt, vt, attn_mask=mask)),
-            "bound_ms": b, "bound_by": by}
+    row = {"shape": [B, S, Hq, Hkv, D], "valid_len": valid_len,
+           "window": window, "max_abs_err": err, "count": count,
+           "ms": timer(lambda: decode_attention(q, k, v, valid_len, window)),
+           "plain_ms": timer(lambda: ref.decode_attention(
+               q, k, v, valid_len, window)),
+           "library_ms": timer(lambda: _sdpa(q4, kt, vt, attn_mask=mask)),
+           "bound_ms": b, "bound_by": by,
+           "host_us": enqueue_us(
+               lambda: decode_attention(q, k, v, valid_len, window))}
+    row["gb_per_s"] = nbytes / row["ms"] * 1e-6
+    return row
 
 
 def _rel_err(got, want) -> tuple[float, float]:
@@ -1029,7 +1051,9 @@ def lm_kernel_phase(timer) -> dict:
                 extra = (f"causal {c['causal']} relative errors {rel} "
                          f"pair bound {c['pair_bound_ms']:.4f} ms")
             else:
-                extra = f"valid_len {c['valid_len']} window {c['window']}"
+                extra = (f"valid_len {c['valid_len']} window {c['window']} "
+                         f"{c['gb_per_s']:.0f} GB/s, host enqueue "
+                         f"{c['host_us']:.1f} us a call")
             if "tflops" in c:
                 extra += f"  {c['tflops']:.1f} TFLOP/s"
             lib = ("-" if c["library_ms"] is None

@@ -53,17 +53,37 @@
 //   are exact products of bf16 inputs summed in float32.  dK and dV are
 //   off the float32 reference by about 2^-9 of their largest entry plus
 //   the final bf16 rounding.
-// - dQ, scalar float32 (no tensor cores yet): one block per (batch, query
-//   head, query tile) of 256 threads as a 16 x 16 grid, walking the key
-//   tiles from 0 to the diagonal; tiles live in shared memory row-major as
-//   float32 with one float of padding per row, so the 16 lanes that read
-//   16 different rows at one column hit 16 banks; a thread owns BQ/16 rows
-//   and BK/16 keys of the (query x key) tiles s, dp and ds and BQ/16 rows
-//   and D/16 columns of dq, which accumulates in registers.  Tiles are 64
-//   wide up to D 128 and 32 at D 256.  q, k, v, O and dO are read in the
-//   model's (B, S, H, D) layout through their strides, 16 bytes at a time;
-//   any S is taken, the ragged tail of rows and keys zero-filled and
-//   masked.
+// - dQ, on the tensor cores: one block per (128 query rows, query head,
+//   batch; 64 rows at D 256), issued heaviest tile first, with two consumer
+//   warpgroups of 64 rows (one at D 256) and a producer warp (a producer
+//   warpgroup at D 128, which gives its registers to the consumers with
+//   setmaxnreg).  It is the forward's layout with K in V's place:
+//     1. S = Q.K^T and 2. dP = dO.V^T: wgmma.m64n64k16 with A (the q and
+//        dO tiles) and B (K, V) K-major in shared memory;
+//     3. P = exp2(S * scale * log2e - lse * log2e), 0 on the diagonal
+//        tile's masked entries and on keys >= S; dS = P * (dP - delta) *
+//        scale in float32;
+//     4. dQ += dS.K: A = dS rounded to bf16 in registers, B = K MN-major
+//        in shared memory (the transpose bit), D/64 instructions per 16
+//        keys.
+//   The producer loads the q and dO tiles once and streams 64-key K and V
+//   tiles through a 2-stage ring under full/empty mbarriers (the same
+//   4-d tensor maps, zero fill past S and D); a warpgroup skips the key
+//   tiles wholly above its rows and still releases their stage.  While
+//   the tiles load, each thread reads its two rows' lse and computes their
+//   delta = rowsum(dO * O) in float32 from global memory (each lane of a
+//   quad sums every fourth 8-column chunk, 16-byte loads through the
+//   strides, then two shuffles); the quad's first lane writes it for the
+//   dK/dV kernel.  dQ accumulates in float32 registers and is written once
+//   in bf16.  At D 256 dQ alone is 128 accumulator registers beside S and
+//   dP, and 128-row q and dO tiles would not fit beside the ring, so the
+//   block is one warpgroup of 64 rows (255 registers a thread), not the
+//   dK/dV kernel's split of D's columns, which would recompute S and dP.
+//   Precision: dS is rounded to bf16 before dS.K (as in SDPA's backward
+//   and the dK/dV kernel); S and dP are exact products of bf16 inputs
+//   summed in float32, and delta is exact in float32 up to the order of
+//   its sum.  dq is off the float32 reference by about 2^-9 of its largest
+//   entry plus the final bf16 rounding.
 
 #include "hopper.cuh"
 
@@ -72,11 +92,14 @@ namespace {
 
 using namespace hopper;
 
+constexpr float kLog2e = 1.4426950408889634f;
+// rows of a tile: dK/dV's keys a block and queries a ring tile, dQ's keys
+// a ring tile
+constexpr int kTile = 64;
+constexpr int kStages = 2;  // ring depth (q/dO tiles for dK/dV, K/V for dQ)
+
 // ------------------------------------------------------------- dK/dV
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kTile = 64;            // keys a block, queries a ring tile
-constexpr int kStages = 2;           // q/dO ring depth
 constexpr int kDkvThreads = 128 + 32;   // a consumer warpgroup, a producer warp
 
 template <int DMAX>
@@ -265,204 +288,219 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
 // --------------------------------------------------------------- dQ
 
-constexpr int kThreads = 256;   // 16 x 16
-
 template <int DMAX>
-struct Tiles {
-  static constexpr int BQ = DMAX >= 256 ? 32 : 64;   // query rows per tile
-  static constexpr int BK = BQ;                      // keys per tile
-  static constexpr int RQ = BQ / 16;     // query rows per thread
-  static constexpr int RK = BK / 16;     // keys per thread
-  static constexpr int NO = DMAX / 16;   // head-dim columns per thread
-  static constexpr int DS = DMAX + 1;    // row stride of the q/dO/k/v tiles
-  static constexpr int PS = BK + 4;      // row stride of the p/ds tiles
-  static constexpr int kDqFloats = 2 * BQ * DS + 2 * BK * DS + BQ * PS
-                                   + 2 * BQ;
+struct Dq {
+  static constexpr int NA = DMAX / 64;                 // 64-column atoms
+  // consumer warpgroups of 64 query rows: two, but one at D 256, where
+  // 128-row q and dO tiles (128 KB) and the K/V ring (128 KB) would not fit
+  // in a block's 227 KB
+  static constexpr int WG = DMAX == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * WG;                   // query rows a block
+  static constexpr int kQBytes = NA * BQ * 128;        // the q or dO tile
+  static constexpr int kTileBytes = NA * kTile * 128;  // a K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;   // stage: K, then V
+  static constexpr int kRingOff = 2 * kQBytes;         // after q and dO
+  static constexpr int kBarOff = kRingOff + kStages * kStageBytes;
+  static constexpr int kBytes = kBarOff + 64 + 1024;   // + alignment slack
+  // a 288-thread block costs 384 threads' registers (168 a thread at most);
+  // at D 128 the dq, S and dP accumulators (64 + 32 + 32 registers) need
+  // more, so the producer is a warpgroup that gives its registers to the
+  // consumers (setmaxnreg: 24 for it, 240 for them).  At D 256 the single
+  // consumer warpgroup and a producer warp (160 threads) get 255 each.
+  static constexpr bool kRebalance = DMAX == 128;
+  static constexpr int kConsumers = 128 * WG;
+  static constexpr int kThreads = kConsumers + (kRebalance ? 128 : 32);
 };
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, bool ok,
-                                      float* f) {
-  if (!ok) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-    return;
-  }
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 t = __bfloat1622float2(h[e]);
-    f[2 * e] = t.x;
-    f[2 * e + 1] = t.y;
-  }
-}
-
-// rows [r0, r0 + ROWS) of a (S, D) bf16 slice with row stride `ss` into a
-// [ROWS][DS] float32 tile; rows at or past S read as zeros
-template <int ROWS, int DS>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* base,
-                                          int64_t ss, int r0, int S, int D,
-                                          float* dst) {
-  const int chunks = D / 8;
-  for (int c = threadIdx.x; c < ROWS * chunks; c += kThreads) {
-    const int r = c / chunks, d0 = (c % chunks) * 8;
-    float f[8];
-    load8(base + (int64_t)(r0 + r) * ss + d0, r0 + r < S, f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[r * DS + d0 + e] = f[e];
-  }
-}
-
-// ds of the tile at (q0, k0) for rows ty * RQ + i and keys tx + 16 * j:
-// s = q.k and dp = dO.v from shared memory, then p = exp(s * scale - lse) on
-// the valid entries (0 elsewhere, what exp(NEG_INF - lse) gives) and
-// ds = p * (dp - delta) * scale, stored at [row][key] of sG.
 template <int DMAX>
-__device__ __forceinline__ void probs(const float* sQ, const float* sO,
-                                      const float* sK, const float* sV,
-                                      const float* sL, const float* sD,
-                                      float* sG, int q0, int k0,
-                                      int S, int D, float scale, int causal) {
-  using T = Tiles<DMAX>;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[T::RQ][T::RK], dp[T::RQ][T::RK];
-#pragma unroll
-  for (int i = 0; i < T::RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < T::RK; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[T::RQ], ov[T::RQ], kv[T::RK], vv[T::RK];
-#pragma unroll
-    for (int i = 0; i < T::RQ; ++i) {
-      qv[i] = sQ[(ty * T::RQ + i) * T::DS + d];
-      ov[i] = sO[(ty * T::RQ + i) * T::DS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < T::RK; ++j) {
-      kv[j] = sK[(tx + 16 * j) * T::DS + d];
-      vv[j] = sV[(tx + 16 * j) * T::DS + d];
-    }
-#pragma unroll
-    for (int i = 0; i < T::RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < T::RK; ++j) {
-        s[i][j] += qv[i] * kv[j];
-        dp[i][j] += ov[i] * vv[j];
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < T::RQ; ++i) {
-    const int r = ty * T::RQ + i, qpos = q0 + r;
-    const float lse = sL[r], delta = sD[r];
-#pragma unroll
-    for (int j = 0; j < T::RK; ++j) {
-      const int c = tx + 16 * j, kpos = k0 + c;
-      const bool ok = qpos < S && kpos < S && (!causal || kpos <= qpos);
-      const float p = ok ? expf(s[i][j] * scale - lse) : 0.0f;
-      sG[r * T::PS + c] = p * (dp[i][j] - delta) * scale;
-    }
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(Dq<DMAX>::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const __nv_bfloat16* __restrict__ out,
                     const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int S, int Hq, int group,
-                    int D, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-                    int64_t v_ss, int64_t v_sh, int64_t x_sb, int64_t x_ss,
-                    int64_t x_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                    float scale, int causal) {
-  using T = Tiles<DMAX>;
-  extern __shared__ float smem[];
-  float* sQ = smem;                        // [BQ][DS]
-  float* sO = sQ + T::BQ * T::DS;          // dO, [BQ][DS]
-  float* sK = sO + T::BQ * T::DS;          // [BK][DS]
-  float* sV = sK + T::BK * T::DS;          // [BK][DS]
-  float* sG = sV + T::BK * T::DS;          // ds, [BQ][PS]
-  float* sL = sG + T::BQ * T::PS;          // lse, [BQ]
-  float* sD = sL + T::BQ;                  // delta, [BQ]
+                    int D, int64_t x_sb, int64_t x_ss, int64_t x_sh,
+                    int64_t o_sb, int64_t o_ss, int64_t o_sh, float scale,
+                    int causal) {
+  using L = Dq<DMAX>;
+  constexpr int NA = L::NA;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;
+  uint8_t* sO = smem + L::kQBytes;   // dO
+  uint8_t* ring = smem + L::kRingOff;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::kBarOff);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * T::BQ;   // heaviest first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-  load_tile<T::BQ, T::DS>(q + b * q_sb + h * q_sh, q_ss, q0, S, D, sQ);
-  load_tile<T::BQ, T::DS>(dout + b * o_sb + h * o_sh, o_ss, q0, S, D, sO);
-  const float* lb = lse + ((int64_t)b * Hq + h) * S;
-  for (int r = tid; r < T::BQ; r += kThreads)
-    sL[r] = q0 + r < S ? lb[q0 + r] : 0.0f;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * L::BQ;   // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int q_end = min(S, q0 + L::BQ);
+  const int n_tiles = ((causal ? q_end : S) + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kConsumers);
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  // delta = rowsum(dO * O) in float32, a warp per row; written out for the
-  // dK/dV kernel
-  const int warp = tid >> 5, lane = tid & 31;
-  const __nv_bfloat16* xb = out + b * x_sb + h * x_sh;
-  for (int r = warp; r < T::BQ; r += kThreads / 32) {
-    float acc = 0.0f;
-    if (q0 + r < S) {
-      const __nv_bfloat16* row = xb + (int64_t)(q0 + r) * x_ss;
-      for (int d = lane; d < D; d += 32)
-        acc += sO[r * T::DS + d] * __bfloat162float(row[d]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      sD[r] = acc;
-      if (q0 + r < S) delta[((int64_t)b * Hq + h) * S + q0 + r] = acc;
-    }
-  }
-
-  float acc[T::RQ][T::NO];
-#pragma unroll
-  for (int i = 0; i < T::RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NO; ++j) acc[i][j] = 0.0f;
-
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
-  const int k_end = causal ? min(S, q0 + T::BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += T::BK) {
-    __syncthreads();   // the previous tile's readers are done; sD is written
-    load_tile<T::BK, T::DS>(kb, k_ss, k0, S, D, sK);
-    load_tile<T::BK, T::DS>(vb, v_ss, k0, S, D, sV);
-    __syncthreads();
-    probs<DMAX>(sQ, sO, sK, sV, sL, sD, sG, q0, k0, S, D, scale, causal);
-    __syncthreads();
-
-    // dq += ds.k: rows ty * RQ + i, columns tx + 16 * j
-    const int kn = min(T::BK, k_end - k0);
-    for (int c = 0; c < kn; ++c) {
-      float gv[T::RQ];
-#pragma unroll
-      for (int i = 0; i < T::RQ; ++i) gv[i] = sG[(ty * T::RQ + i) * T::PS + c];
-#pragma unroll
-      for (int j = 0; j < T::NO; ++j) {
-        if (16 * j < D) {
-          const float x = sK[c * T::DS + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < T::RQ; ++i) acc[i][j] += gv[i] * x;
+  if (tid >= L::kConsumers) {   // the producer: one thread issues TMA
+    if constexpr (L::kRebalance)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (tid == L::kConsumers) {
+      mbar_expect_tx(qbar, 2 * L::kQBytes);
+      for (int a = 0; a < NA; ++a) {
+        tma_load_4d(sQ + a * L::BQ * 128, &tq, qbar, 64 * a, h, q0, b);
+        tma_load_4d(sO + a * L::BQ * 128, &tdo, qbar, 64 * a, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        uint8_t* sK = ring + s * L::kStageBytes;
+        uint8_t* sV = sK + L::kTileBytes;
+        for (int a = 0; a < NA; ++a) {
+          tma_load_4d(sK + a * kTile * 128, &tk, &full[s], 64 * a, hk,
+                      j * kTile, b);
+          tma_load_4d(sV + a * kTile * 128, &tv, &full[s], 64 * a, hk,
+                      j * kTile, b);
         }
       }
     }
+    return;
+  }
+
+  if constexpr (L::kRebalance)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  // consumers: warpgroup wg owns rows first .. first + 63; this thread rows
+  // row0 and row0 + 8 (accumulator registers i with (i / 2) % 2 == 0, 1)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int first = q0 + 64 * wg;
+  const int row0 = first + 16 * warp + (lane >> 2);
+  const uint32_t qa = smem_addr(sQ) + wg * 64 * 128;
+  const uint32_t oa = smem_addr(sO) + wg * 64 * 128;
+  const float sl2 = scale * kLog2e;
+
+  // while TMA loads the tiles: this thread's rows' lse (in log2 units) and
+  // delta = rowsum(dO * O) in float32, each lane of the quad summing every
+  // fourth 8-column chunk of the two rows from global memory; the quad's
+  // first lane writes delta for the dK/dV kernel (rows < S only)
+  const int64_t hrow = ((int64_t)b * Hq + h) * S;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    float acc = 0.0f;
+    lse2[r] = 0.0f;
+    if (row < S) {
+      lse2[r] = lse[hrow + row] * kLog2e;
+      const __nv_bfloat16* xr = out + b * x_sb + row * x_ss + h * x_sh;
+      const __nv_bfloat16* gr = dout + b * o_sb + row * o_ss + h * o_sh;
+      for (int c = 8 * (lane & 3); c < D; c += 32) {
+        const uint4 xu = *reinterpret_cast<const uint4*>(xr + c);
+        const uint4 gu = *reinterpret_cast<const uint4*>(gr + c);
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xu);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gu);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 xf = __bfloat1622float2(x2[e]);
+          const float2 gf = __bfloat1622float2(g2[e]);
+          acc = fmaf(xf.x, gf.x, acc);
+          acc = fmaf(xf.y, gf.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlt[r] = acc;
+    if ((lane & 3) == 0 && row < S) delta[hrow + row] = acc;
+  }
+
+  float adq[NA][32];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) adq[n][i] = 0.0f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages, k0 = j * kTile;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    // key tiles wholly above this warpgroup's rows, and a warpgroup whose
+    // rows all lie past S, are skipped; the arrival still releases the stage
+    if (first < S && (!causal || k0 <= first + 63)) {
+      const uint32_t ka = smem_addr(ring + s * L::kStageBytes);
+      const uint32_t va = ka + L::kTileBytes;
+
+      // S = Q.K^T and dP = dO.V^T
+      float sc[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk)
+        mma_ss(sc, desc_k(qa, L::BQ, kk), desc_k(ka, kTile, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk)
+        mma_ss(dp, desc_k(oa, L::BQ, kk), desc_k(va, kTile, kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      pin(sc);
+      pin(dp);
+
+      // P and dS in float32; the mask on the diagonal tile and past S
+      const bool edge = (causal && k0 + kTile - 1 > first) || k0 + kTile > S;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(sc[i] * sl2 - lse2[r]);
+        if (edge) {
+          const int key = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          if (key >= S || (causal && key > row0 + 8 * r)) p = 0.0f;
+        }
+        sc[i] = p * (dp[i] - dlt[r]) * scale;
+      }
+
+      // dQ += dS.K: dS in bf16 from registers, K MN-major
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t a[4];
+        frag(sc, kk, a);
+#pragma unroll
+        for (int n = 0; n < NA; ++n)
+          mma_rs_t(adq[n], a, desc_mn(ka, kTile, kk, n));
+      }
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int n = 0; n < NA; ++n) pin(adq[n]);
+    }
+    mbar_arrive(&empty[s]);
   }
 
   // dq: (B, S, Hq, D), contiguous
 #pragma unroll
-  for (int i = 0; i < T::RQ; ++i) {
-    const int r = q0 + ty * T::RQ + i;
-    if (r >= S) continue;
-    __nv_bfloat16* o = dq + (((int64_t)b * S + r) * Hq + h) * D;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = dq + (((int64_t)b * S + row) * Hq + h) * D;
 #pragma unroll
-    for (int j = 0; j < T::NO; ++j)
-      if (16 * j < D) o[tx + 16 * j] = __float2bfloat16(acc[i][j]);
+    for (int n = 0; n < NA; ++n)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = 64 * n + 8 * c + 2 * (lane & 3);
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(adq[n][4 * c + 2 * r],
+                                    adq[n][4 * c + 2 * r + 1]);
+      }
   }
 }
 
@@ -482,15 +520,19 @@ cudaError_t launch_dq(bf16p q, bf16p k, bf16p v, bf16p out, bf16p dout,
                       const int64_t* ks, const int64_t* vs, const int64_t* xs,
                       const int64_t* os, float scale, int causal,
                       cudaStream_t stream) {
-  using T = Tiles<DMAX>;
-  const size_t smem = sizeof(float) * T::kDqFloats;
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<DMAX>, smem);
+  using L = Dq<DMAX>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = bshd_map(&tq, q, B, S, Hq, D, qs, L::BQ);
+  if (err == cudaSuccess) err = bshd_map(&tk, k, B, S, Hkv, D, ks, kTile);
+  if (err == cudaSuccess) err = bshd_map(&tv, v, B, S, Hkv, D, vs, kTile);
+  if (err == cudaSuccess) err = bshd_map(&tdo, dout, B, S, Hq, D, os, L::BQ);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + T::BQ - 1) / T::BQ, Hq, B);
-  flash_bwd_dq_kernel<DMAX><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, dout, lse, delta, dq, S, Hq, Hq / Hkv, D, qs[0], qs[1],
-      qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], xs[0], xs[1], xs[2],
-      os[0], os[1], os[2], scale, causal);
+  err = allow_smem(flash_bwd_dq_kernel<DMAX>, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + L::BQ - 1) / L::BQ, Hq, B);
+  flash_bwd_dq_kernel<DMAX><<<grid, L::kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, tdo, out, dout, lse, delta, dq, S, Hq, Hq / Hkv, D, xs[0],
+      xs[1], xs[2], os[0], os[1], os[2], scale, causal);
   return cudaGetLastError();
 }
 
@@ -529,8 +571,9 @@ bool bad_shape(int D, int Hq, int Hkv) {
 
 // q and out (O): (B, S, Hq, D), k and v: (B, S, Hkv, D), dout (dO): (B, S,
 // Hq, D), all bf16 with element strides {batch, seq, head} in *_strides
-// (x_strides are O's, do_strides dO's; last dim contiguous, rows 16-byte
-// aligned); lse: (B, Hq, S) float32 from the forward kernel, contiguous.
+// (x_strides are O's, do_strides dO's; last dim contiguous, strides
+// multiples of 8 and base addresses 16-byte aligned, as TMA needs); lse:
+// (B, Hq, S) float32 from the forward kernel, contiguous.
 // Writes dq (B, S, Hq, D) bf16 and delta (B, Hq, S) float32, both
 // contiguous.  D is a multiple of 16 up to 256 and Hq a multiple of Hkv.
 extern "C" int flash_attention_bwd_dq_launch(
@@ -562,8 +605,7 @@ extern "C" int flash_attention_bwd_dq_launch(
       v_strides, x_strides, do_strides, scale, causal, s));
 }
 
-// q, k, v, dout and lse as above (the strides multiples of 8 and the base
-// addresses 16-byte aligned, as TMA needs); delta: (B, Hq, S) float32 from
+// q, k, v, dout and lse as above; delta: (B, Hq, S) float32 from
 // flash_attention_bwd_dq_launch, contiguous.  Writes dk and dv (B, S, Hkv,
 // D) bf16, contiguous, each summed over the group's query heads.
 extern "C" int flash_attention_bwd_dkv_launch(

@@ -5,10 +5,15 @@ The counterpart of the reference's Pallas ``decode_attention``
 (B, S, Hkv, D) KV cache with a valid length and a sliding window, both
 host ints passed by value.  The wrapper clips the key range to the valid
 keys, cuts it into slices so that the card has a few blocks per SM,
-allocates the output and the per-slice partials and launches on the
-current stream (the partial kernel, then the combine).  It takes CUDA
-tensors only (``kernels.ops`` sends CPU tensors to the plain version in
-``kernels.ref``).
+allocates the output and launches one kernel on the current stream: each
+block attends over its slice on the tensor cores and writes a float32
+partial, and the last block of each (batch, kv head) combines them.  The
+partials' workspace and the blocks' tickets are kept per (device, stream),
+created once (the tickets zeroed; each launch leaves them zero) and grown
+when a launch needs more: launches on one stream run in order, so none
+shares them with another while it runs.  So a call allocates only its
+output.  It takes CUDA tensors only (``kernels.ops`` sends CPU tensors to
+the plain version in ``kernels.ref``).
 """
 
 from __future__ import annotations
@@ -22,12 +27,15 @@ from repro_torch.kernels import LAUNCHES, _build
 from repro_torch.kernels.flash_attention import check_bshd, check_head_dim
 
 _STRIDES = ctypes.c_int64 * 3
-_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
+_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
              + (ctypes.POINTER(ctypes.c_int64),) * 2 + (ctypes.c_int,) * 4
              + (ctypes.c_float, ctypes.c_void_p))
 TILE = 64                       # keys per tile (kTK in the source)
 BLOCKS_PER_SM = 4
 MAX_SMEM = 232448               # bytes a block may use on Hopper
+_FN = None                      # the launch entry point, resolved once
+# (device index, stream) -> (float32 partials, int32 tickets)
+_WORK: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,9 +59,31 @@ def split_plan(n_keys: int, blocks: int, sms: int) -> tuple[int, int]:
     return split_len, -(-n_keys // split_len)
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_bytes(group: int, D: int) -> int:
+    return _build.function(
+        "decode_attention", "decode_attention_smem_bytes",
+        (ctypes.c_int, ctypes.c_int), restype=ctypes.c_int64)(group, D)
+
+
+def _workspace(device: torch.device, stream: int, floats: int,
+               tickets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (device, stream)'s float32 partials and int32 tickets, at least
+    ``floats`` and ``tickets`` long; a new tickets tensor is zeroed."""
+    key = (device.index, stream)
+    work, tick = _WORK.get(key, (None, None))
+    if work is None or work.numel() < floats:
+        work = torch.empty(floats, dtype=torch.float32, device=device)
+    if tick is None or tick.numel() < tickets:
+        tick = torch.zeros(tickets, dtype=torch.int32, device=device)
+    _WORK[key] = (work, tick)
+    return work, tick
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: int, window: int = 0) -> torch.Tensor:
     """q (B, Hq, D), k and v (B, S, Hkv, D) bf16 -> (B, Hq, D) bf16."""
+    global _FN
     what = "decode_attention"
     if not (q.is_cuda and q.dtype == torch.bfloat16 and q.dim() == 3):
         raise ValueError(f"{what}: q must be a 3-d bf16 CUDA tensor, got "
@@ -73,13 +103,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: no valid key (cache length {S}, "
                          f"valid_len {valid_len}, window {window})")
     group = Hq // Hkv
-    smem_bytes = _build.function(
-        "decode_attention", "decode_attention_smem_bytes",
-        (ctypes.c_int, ctypes.c_int), restype=ctypes.c_int64)
-    if smem_bytes(group, D) > MAX_SMEM:
+    if _smem_bytes(group, D) > MAX_SMEM:
         raise ValueError(f"{what}: group {group} at head dim {D} needs more "
                          "shared memory than a block has")
-    q = q.contiguous()
+    if not q.is_contiguous():
+        q = q.contiguous()
     if q.data_ptr() % 16:
         raise ValueError(f"{what}: q must start on a 16-byte boundary")
     out = torch.empty((B, Hq, D), dtype=torch.bfloat16, device=q.device)
@@ -87,18 +115,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     split_len, nsplit = split_plan(hi - lo, B * Hkv,
                                    _sm_count(q.device.index))
-    m_part = torch.empty((B, Hq, nsplit), dtype=torch.float32,
-                         device=q.device)
-    l_part = torch.empty_like(m_part)
-    o_part = torch.empty((B, Hq, nsplit, D), dtype=torch.float32,
-                         device=q.device)
-    fn = _build.function("decode_attention", "decode_attention_launch",
-                         _ARGTYPES)
+    if _FN is None:
+        _FN = _build.function("decode_attention", "decode_attention_launch",
+                              _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    m_part.data_ptr(), l_part.data_ptr(), o_part.data_ptr(),
-                    B, Hq, Hkv, D, _STRIDES(*k.stride()[:3]),
-                    _STRIDES(*v.stride()[:3]), lo, hi, split_len, nsplit,
-                    1.0 / D ** 0.5, stream), what)
+    work, tickets = _workspace(q.device, stream, B * Hq * nsplit * (D + 2),
+                               B * Hkv)
+    _build.check(_FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, D,
+                     _STRIDES(*k.stride()[:3]), _STRIDES(*v.stride()[:3]),
+                     lo, hi, split_len, nsplit, 1.0 / D ** 0.5, stream), what)
     LAUNCHES[what] += 1
     return out

@@ -4,9 +4,9 @@
 The counterparts of the reference's Pallas ``_flash_fwd`` and
 ``_flash_bwd`` (``repro/kernels/flash_attention.py``), taking the model's
 (B, S, H, D) layout through strides instead of the reference wrapper's
-transposes.  The forward and the dK/dV kernel run on the tensor cores
-and round P, P^T and dS^T to bf16 before their products; dQ is scalar
-float32.  Each wrapper checks its inputs, allocates its outputs and
+transposes.  All three kernels run on the tensor cores (wgmma on tiles
+that TMA loads) and round P, P^T, dS^T and dS to bf16 before their
+products.  Each wrapper checks its inputs, allocates its outputs and
 launches on the current stream; they take CUDA tensors only
 (``kernels.ops`` sends CPU tensors to the plain versions in
 ``kernels.ref``).
@@ -44,8 +44,9 @@ def check_head_dim(D: int, what: str) -> None:
 
 def check_bshd(x: torch.Tensor, name: str, what: str) -> None:
     """A 4-d bf16 CUDA tensor whose last dim is contiguous and whose rows
-    start on 16-byte boundaries (TMA's tensor maps need 16-byte aligned
-    bases and strides; the dQ kernel loads 8 values at a time)."""
+    start on 16-byte boundaries (TMA's tensor maps, which read every
+    kernel's q, k, v and dO, need 16-byte aligned bases and strides; the
+    dQ kernel and the decode kernel also load 8 values at a time)."""
     if not (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4):
         raise ValueError(f"{what}: {name} must be a 4-d bf16 CUDA tensor, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")

@@ -182,3 +182,100 @@ def test_decode_on_the_valid_range_alone_is_exact(valid_len, window):
     part = ref.decode_attention(q, k[:, lo:hi], v[:, lo:hi], hi - lo, 0)
     np.testing.assert_allclose(part.numpy(), whole.numpy(), atol=1e-6,
                                rtol=1e-6)
+
+
+LOG2E = 1.4426950408889634
+
+
+def emulate_decode(q, k, v, valid_len, window, *, round_p=True):
+    """The decode kernel's arithmetic in torch: the valid keys cut by
+    ``split_plan`` (for a 132-SM card) into slices of 64-key tiles; in each
+    slice 4 warps own 16 keys of every tile, each with its own online max
+    and sum in log2 units (masked keys past the slice give p = 0), P
+    rounded to bf16 for P.V and l summed from the float32 P; the warps'
+    (m, l, acc) merged into the slice's partial, the partials merged into
+    out = sum acc 2^(m - M) / max(sum l 2^(m - M), 1e-30)."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, D)
+    kf, vf = k.float(), v.float()
+    sl2 = LOG2E / D ** 0.5
+    lo, hi = dec_kernel.valid_range(S, valid_len, window)
+    split_len, nsplit = dec_kernel.split_plan(hi - lo, B * Hkv, 132)
+    tile = dec_kernel.TILE
+
+    def merge(parts):
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp2(m - M) for m, _, _ in parts]
+        return (M, sum(l * x for (_, l, _), x in zip(parts, w)),
+                sum(a * x[..., None] for (_, _, a), x in zip(parts, w)))
+
+    slices = []
+    for i in range(nsplit):
+        s0 = lo + i * split_len
+        s1 = min(hi, s0 + split_len)
+        warps = []
+        for w in range(4):
+            m = torch.full(qg.shape[:-1], ref.NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(qg.shape)
+            for t0 in range(s0, s1, tile):
+                keys = torch.arange(t0 + 16 * w, t0 + 16 * w + 16)
+                ok = keys < s1
+                kk = keys.clamp_max(S - 1)
+                x = torch.einsum("bhgd,bshd->bhgs", qg, kf[:, kk]) * sl2
+                x = x.masked_fill(~ok, ref.NEG_INF)
+                m_new = torch.maximum(m, x.amax(-1))
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(x - m_new[..., None]).masked_fill(~ok, 0.0)
+                l = l * corr + p.sum(-1)
+                pv = p.to(torch.bfloat16).float() if round_p else p
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bhgs,bshd->bhgd", pv, vf[:, kk])
+                m = m_new
+            warps.append((m, l, acc))
+        slices.append(merge(warps))
+    _, l, acc = merge(slices)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("valid_len,window", [(1, 0), (1, 100), (700, 0),
+                                              (700, 100)])
+@pytest.mark.parametrize("group", [1, 5, 7, 20])
+def test_decode_kernel_emulation_matches_the_reference(group, valid_len,
+                                                       window):
+    """The single-launch kernel's slices, warps, bf16 P and (m, l, acc)
+    combine: within BF16_TOL (chip_smoke's ATTN_OUT_TOL) of the plain
+    version in bf16, and within 1e-6 in float32, where only the order of
+    the sums differs."""
+    B, S, Hkv, D = 2, 777, 2, 64
+    q, k, v = _inputs(group * 31 + valid_len + window, (B, group * Hkv, D),
+                      (B, S, Hkv, D), (B, S, Hkv, D))
+    t32 = [torch.from_numpy(x) for x in (q, k, v)]
+    t16 = [x.to(torch.bfloat16) for x in t32]
+    got = emulate_decode(*t16, valid_len, window)
+    want = ref.decode_attention(*t16, valid_len, window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=BF16_TOL, rtol=0)
+    got = emulate_decode(*t32, valid_len, window, round_p=False)
+    want = ref.decode_attention(*t32, valid_len, window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
+
+
+def test_decode_workspace_is_kept_per_stream_and_grown(monkeypatch):
+    """The kernel's partials and tickets: one pair per (device, stream),
+    reused while a launch fits, replaced by larger ones (new tickets
+    zeroed) when it does not."""
+    monkeypatch.setattr(dec_kernel, "_WORK", {})
+    cpu = torch.device("cpu")
+    work, tick = dec_kernel._workspace(cpu, 7, 100, 4)
+    assert work.numel() == 100 and tick.dtype == torch.int32
+    assert torch.equal(tick, torch.zeros(4, dtype=torch.int32))
+    again = dec_kernel._workspace(cpu, 7, 50, 2)
+    assert again[0] is work and again[1] is tick
+    other = dec_kernel._workspace(cpu, 8, 50, 2)
+    assert other[0] is not work and other[1] is not tick
+    grown = dec_kernel._workspace(cpu, 7, 200, 16)
+    assert grown[0].numel() == 200 and grown[1].numel() == 16
+    assert torch.equal(grown[1], torch.zeros(16, dtype=torch.int32))
+    assert dec_kernel._workspace(cpu, 7, 10, 1)[1] is grown[1]

@@ -1,6 +1,6 @@
 """The precision of the tensor-core flash kernels, emulated on the CPU.
 
-``csrc/flash_attention.cu`` and the dK/dV kernel of
+``csrc/flash_attention.cu`` and the dQ and dK/dV kernels of
 ``csrc/flash_attention_bwd.cu`` take bf16 products on the tensor cores.
 Their rounding points, emulated here in torch:
 - the forward: scores of the bf16 inputs summed in float32, the online
@@ -9,15 +9,19 @@ Their rounding points, emulated here in torch:
   bf16;
 - dK/dV: S^T and dP^T of the bf16 inputs summed in float32, P^T and dS^T
   computed in float32 and rounded to bf16 before the dV and dK products
-  (float32 sums), dK and dV rounded to bf16.
+  (float32 sums), dK and dV rounded to bf16;
+- dQ: S and dP likewise, P and dS in float32, dS rounded to bf16 before
+  dS.K (a float32 sum), dq rounded to bf16; delta = rowsum(dO * O) of the
+  bf16 inputs summed in float32 (no rounding).
 The emulation is held to the plain float32 versions (``ref``) within the
 tolerances ``chip_smoke.py`` phase 3 holds the kernels to on the card:
 out within 2e-2 (a few bf16 ulps at |out| < 4), lse within 1e-3 (P's
-rounding does not reach it), dK and dV within 1 % of the largest entry
-(rounding P^T and dS^T to bf16 costs about 2^-9 of it, the final bf16
-rounding up to 2^-8 more).  So these tolerances hold for the rounding the
-design adds before any card time is spent.  Without the bf16 rounding the
-emulation is the reference's arithmetic in another order: within 1e-4.
+rounding does not reach it), dq, dK and dV within 1 % of the largest
+entry (rounding P^T, dS^T or dS to bf16 costs about 2^-9 of it, the final
+bf16 rounding up to 2^-8 more), delta within 1e-4 of its largest entry.
+So these tolerances hold for the rounding the design adds before any card
+time is spent.  Without the bf16 rounding the emulation is the reference's
+arithmetic in another order: within 1e-4.
 Inputs are numpy-seeded standard normals in bf16, as phase 3 draws them.
 """
 
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.kernels import ref
 
-ATTN_OUT_TOL, LSE_TOL, GRAD_REL_TOL = 2e-2, 1e-3, 1e-2
+ATTN_OUT_TOL, LSE_TOL, GRAD_REL_TOL, DELTA_REL_TOL = 2e-2, 1e-3, 1e-2, 1e-4
 F32_TOL = 1e-4
 TILE = 64   # keys per tile of the forward kernel
 
@@ -104,6 +108,24 @@ def emulate_dkv(q, k, v, out, lse, do, *, causal, round_p=True):
     return dk.to(k.dtype), dv.to(k.dtype)
 
 
+def emulate_dq(q, k, v, out, lse, do, *, causal, round_ds=True):
+    """The dQ kernel's arithmetic: (dq in q's dtype, delta (B, Hq, S)
+    float32)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    grouped = (B, S, Hkv, Hq // Hkv, D)
+    qf, dof = q.float().reshape(grouped), do.float().reshape(grouped)
+    delta = (dof * out.float().reshape(grouped)).sum(-1)   # (B, S, Hkv, g)
+    p = torch.exp(_scores(qf, k.float(), D, causal)
+                  - lse.reshape(B, Hkv, Hq // Hkv, S, 1))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) / math.sqrt(D)
+    r = _bf16 if round_ds else (lambda x: x)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", r(ds), k.float())
+    return (dq.reshape(q.shape).to(q.dtype),
+            delta.reshape(B, S, Hq).transpose(1, 2))
+
+
 def _rel(got, want):
     return float((got.float() - want.float()).abs().max()
                  / want.float().abs().max())
@@ -148,3 +170,26 @@ def test_emulation_without_rounding_is_the_reference(B, S, Hq, Hkv, D,
     for g, w in zip(got, ref.flash_attention_bwd_dkv(q, k, v, want, want_lse,
                                                      do, causal=causal)):
         assert _rel(g, w) <= F32_TOL
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", CASES)
+def test_dq_rounding_within_phase3_tolerances(B, S, Hq, Hkv, D, causal):
+    q, k, v, do = _inputs(B, S, Hq, Hkv, D)
+    out, lse = ref.flash_attention_fwd(q, k, v, causal=causal)
+    dq, delta = emulate_dq(q, k, v, out, lse, do, causal=causal)
+    want = ref.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=causal)
+    want_delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    errs = _rel(dq, want), _rel(delta, want_delta)
+    assert errs[0] <= GRAD_REL_TOL and errs[1] <= DELTA_REL_TOL, errs
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal", CASES)
+def test_dq_emulation_without_rounding_is_the_reference(B, S, Hq, Hkv, D,
+                                                        causal):
+    """With dS kept in float32 the dQ emulation is the reference's float32
+    arithmetic in another order: dq within F32_TOL."""
+    q, k, v, do = (x.float() for x in _inputs(B, S, Hq, Hkv, D))
+    out, lse = ref.flash_attention_fwd(q, k, v, causal=causal)
+    dq, _ = emulate_dq(q, k, v, out, lse, do, causal=causal, round_ds=False)
+    want = ref.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=causal)
+    assert _rel(dq, want) <= F32_TOL

@@ -31,10 +31,17 @@ Phases, in order; any failure raises and the script exits nonzero:
      and one full (non-causal) case, dq, dk and dv within 1 % of the
      plain version's largest entry; ``ssd_chunk_scan`` at the layer-0
      mixer inputs of mamba2-370m's and hymba-1.5b's serve entry points
-     (B 8, S 2048; h 32, n 128 and h 50, n 16; p 64, chunk 256) and at a
-     group case (B 1, S 512, 8 heads over 2 groups) on random inputs, y
-     and the final state within 1e-4 of the plain version's largest
-     entry.  Each kernel is timed (median of 20
+     (B 8, S 2048; h 32, n 128 and h 50, n 16; p 64, chunk 256), at a
+     group case (B 1, S 512, 8 heads over 2 groups) and at two ragged
+     cases (p 24, n 40, chunk 32 and p 100, n 72, chunk 100: no tile
+     multiples, the second past 64 in p and n) on random inputs, y and the
+     final state within 1e-4 of the plain version's largest entry, with
+     its achieved TFLOP/s, each of its two grids' mean device time (by
+     kernel name, from ``torch.profiler``), and its bound at the 3xTF32
+     tensor-core rate (three TF32 products for each of its four).  An
+     empty kernel's time (``torch.cuda._sleep(0)``) is the card's launch
+     floor.
+     Each kernel is timed (median of 20
      launches, L2 flushed before each) beside its plain version, one
      PyTorch library call for the same function
      (``scaled_dot_product_attention`` for the LM's, its backward through
@@ -230,12 +237,15 @@ SSM_GEN = {"mamba2-370m": SERVE_GEN, "hymba-1.5b": 16}
 SSM_PARITY_PROMPTS = (300, 512)
 SSD_REL_TOL = 1e-4
 SSD_GROUP_CASE = (1, 512, 8, 64, 2, 64, 256)
+SSD_RAGGED_CASES = ((2, 96, 6, 24, 3, 40, 32), (1, 300, 4, 100, 2, 72, 100))
 # H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
-# cores (used for the kernels' scalar integer and float work) and the
-# dense bf16 tensor-core rate (the attention kernels' bf16 inputs)
+# cores (used for the kernels' scalar integer and float work), the dense
+# bf16 tensor-core rate (the attention kernels' bf16 inputs) and the dense
+# TF32 one (the SSD kernel's 3xTF32 products)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 REPLACES = {
     "neighbor_sample": "src/repro/kernels/neighbor_sample.py:104",
     "feature_gather_rows": "src/repro/kernels/feature_gather.py:106",
@@ -307,6 +317,12 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S
     over the peak rate for their type, whichever is larger."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def launch_floor_ms(timer) -> float:
+    """The card's floor for one launch: ``torch.cuda._sleep(0)``, a one-
+    thread kernel that spins for no cycles, under the kernels' timer."""
+    return timer(lambda: torch.cuda._sleep(0))
 
 
 def n_unique(x: torch.Tensor) -> int:
@@ -932,11 +948,14 @@ def flash_bwd_case(timer, gen, B, S, Hq, Hkv, D, causal, count) -> dict:
 
 def ssd_case(timer, x, dt, A, B, C, chunk, count, what) -> dict:
     """ssd_chunk_scan on (x, dt, A, B, C): y and the final state within
-    SSD_REL_TOL of the plain version's largest entries, timed beside it
-    and its bound: the operations of the i >= j half of the two q x q
-    products (C.B^T over n, then over p), the chunk states and the
-    inter-chunk term (each q x p x n) and the state pass, at the scalar
-    float32 rate, or the inputs and outputs at HBM rate.  No single
+    SSD_REL_TOL of the plain version's largest entries, timed beside it,
+    each of its two grids' mean device time over as many calls, and its
+    bound: the four products (C.B^T over n, once per group, and the
+    scored x over p, per head, on the i >= j half of each chunk; the
+    chunk states and the inter-chunk term, each q x p x n per head) three
+    times over (3xTF32) at the TF32 tensor-core rate, or the inputs and
+    outputs at HBM rate; the products and the state pass at the scalar
+    float32 rate are kept beside it as the old bound's kind.  No single
     PyTorch call computes it (library: none)."""
     y, st = ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
     want_y, want_st = ref.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
@@ -950,17 +969,39 @@ def ssd_case(timer, x, dt, A, B, C, chunk, count, what) -> dict:
     g, n = B.shape[2], B.shape[3]
     nc = s // chunk
     pairs = chunk * (chunk + 1) // 2
-    ops_ = b * h * nc * (2 * pairs * (n + p) + 4 * chunk * p * n + 3 * p * n)
+    products = b * nc * (g * 2 * pairs * n
+                         + h * (2 * pairs * p + 4 * chunk * p * n))
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
                   + C.numel() + st.numel())
-    bnd, by = bound_ms(nbytes, ops_)
+    bnd, by = bound_ms(nbytes, 3 * products, TF32_OPS_PER_S)
+    scalar_bnd, _ = bound_ms(nbytes, products + b * h * nc * 3 * p * n)
+
+    def call():
+        return ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+
+    def calls():
+        for _ in range(timer.reps):
+            timer.flush.zero_()
+            call()
+
+    calls()
+    prof = device_profile(calls, timer.reps)
+    grid_ms = {}
+    for label, name in (("states", "ssd_state_kernel"),
+                        ("output", "ssd_output_kernel")):
+        hits = [k for k in prof["by_kernel_ms_per_step"] if name in k]
+        check(len(hits) == 1 and prof["by_kernel_count"][hits[0]] == 1,
+              f"profile of {what}: {name} {hits}")
+        grid_ms[label] = prof["by_kernel_ms_per_step"][hits[0]]
+    ms = timer(call)
     row = {"shape": [b, s, h, p, g, n, chunk], "inputs": what,
            "max_abs_err": max(e[0] for e in errs.values()), "errors": errs,
-           "count": count,
-           "ms": timer(lambda: ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)),
+           "count": count, "ms": ms, "grid_ms": grid_ms,
+           "tflops": products / ms * 1e-9, "gflop": products * 1e-9,
            "plain_ms": timer(lambda: ref.ssd_chunk_scan(x, dt, A, B, C,
                                                         chunk=chunk)),
-           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+           "library_ms": None, "bound_ms": bnd, "bound_by": by,
+           "scalar_bound_ms": scalar_bnd}
     torch.cuda.empty_cache()
     return row
 
@@ -992,8 +1033,8 @@ def ssd_model_inputs(arch: str) -> tuple:
 def ssd_kernel_cases(timer, gen) -> list:
     """Phase 3, the SSD kernel: at each SSM arch's layer-0 mixer inputs
     (mamba2-370m's, counted once a layer in its prefill; hymba-1.5b's)
-    and at SSD_GROUP_CASE on seeded random inputs (dt = |N| * 0.1, A =
-    -|N|, as the reference's sweep draws them)."""
+    and at SSD_GROUP_CASE and SSD_RAGGED_CASES on seeded random inputs (dt
+    = |N| * 0.1, A = -|N|, as the reference's sweep draws them)."""
     rows = []
     for i, arch in enumerate(SSM_GEN):
         args, chunk = ssd_model_inputs(arch)
@@ -1001,13 +1042,15 @@ def ssd_kernel_cases(timer, gen) -> list:
                              get_config(arch).num_layers if i == 0 else 0,
                              f"{arch} layer 0"))
         del args
-    b, s, h, p, g, n, chunk = SSD_GROUP_CASE
-    x = torch.randn(b, s, h, p, generator=gen, device=DEVICE)
-    dt = torch.randn(b, s, h, generator=gen, device=DEVICE).abs() * 0.1
-    A = -torch.randn(h, generator=gen, device=DEVICE).abs()
-    B = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
-    C = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
-    rows.append(ssd_case(timer, x, dt, A, B, C, chunk, 0, "random"))
+    for case, what in ((SSD_GROUP_CASE, "random"),
+                       *((c, "ragged") for c in SSD_RAGGED_CASES)):
+        b, s, h, p, g, n, chunk = case
+        x = torch.randn(b, s, h, p, generator=gen, device=DEVICE)
+        dt = torch.randn(b, s, h, generator=gen, device=DEVICE).abs() * 0.1
+        A = -torch.randn(h, generator=gen, device=DEVICE).abs()
+        B = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
+        C = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
+        rows.append(ssd_case(timer, x, dt, A, B, C, chunk, 0, what))
     return rows
 
 
@@ -1056,6 +1099,9 @@ def lm_kernel_phase(timer) -> dict:
                          f"{c['host_us']:.1f} us a call")
             if "tflops" in c:
                 extra += f"  {c['tflops']:.1f} TFLOP/s"
+            if "grid_ms" in c:
+                extra += (f"  grids {c['grid_ms']}  scalar bound "
+                          f"{c['scalar_bound_ms']:.4f} ms")
             lib = ("-" if c["library_ms"] is None
                    else f"{c['library_ms']:.4f}")
             print(f"[smoke]   {kname:20s} {str(c['shape']):24s} kernel "
@@ -1423,6 +1469,8 @@ def main() -> int:
 
     print("[smoke] phase 3: kernels against their plain versions")
     timer = Timer()
+    floor_ms = launch_floor_ms(timer)
+    print(f"[smoke]   launch floor (an empty kernel) {floor_ms:.4f} ms")
     reddit = load_dataset("reddit", large_scale=True)
     t0 = time.perf_counter()
     synth = attach_features(rmat_graph(RMAT_NODES, RMAT_EDGES, seed=0,
@@ -1628,7 +1676,8 @@ def main() -> int:
                 arch: r["launches"][kname] for arch, r in ssm_served.items()}
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s, "ptxas": ptxas, "kernels": table, "per_graph": per_graph,
+               "build_s": build_s, "ptxas": ptxas, "kernels": table,
+               "launch_floor_ms": floor_ms, "per_graph": per_graph,
                "train": {"argv": argv, "losses": losses,
                          "steps_per_s": stats.steps_per_s,
                          "idle_fraction": stats.idle_fraction,

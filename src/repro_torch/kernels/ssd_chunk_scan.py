@@ -3,11 +3,12 @@
 
 The counterpart of the reference's Pallas ``ssd_chunk_scan``
 (``repro/kernels/ssd_chunk_scan.py``).  The wrapper checks its inputs,
-allocates the outputs and the float32 scratch of the three stages (the
-chunks' cumulative decays and their states) and launches on the current
-stream.  It takes CUDA tensors only (``kernels.ops`` pads the sequence to
-a chunk multiple and sends CPU tensors to the plain version in
-``kernels.ref``).
+allocates the outputs and the float32 scratch that passes the state before
+each chunk from the kernel's first grid (the chunk states and their
+recurrence) to its second (the output), and launches both on the current
+stream: one counted launch.  It takes CUDA tensors only (``kernels.ops``
+pads the sequence to a chunk multiple and sends CPU tensors to the plain
+version in ``kernels.ref``).
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 
-_ARGTYPES = (ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 MAX_CHUNK = 256      # the chunk's prefix sum is one scan over a block
-MAX_DIM = 128        # p and n: the register tiles
+MAX_DIM = 128        # p and n: the shared tiles
 
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -57,16 +58,14 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if s == 0 or b * h == 0:
         return y, state.zero_()
-    nc = s // chunk
-    cs = torch.empty((b, h, nc, chunk), dtype=torch.float32, device=x.device)
-    states = torch.empty((b, h, nc, p, n), dtype=torch.float32,
-                         device=x.device)
+    prev = torch.empty((b, h, s // chunk - 1, p, n), dtype=torch.float32,
+                       device=x.device)
     fn = _build.function("ssd_chunk_scan", "ssd_chunk_scan_launch",
                          _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.check(fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                     C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                    cs.data_ptr(), states.data_ptr(), b, s, h, p, g, n, chunk,
-                    stream), what)
+                    prev.data_ptr(), b, s, h, p, g, n, chunk, stream),
+                 what)
     LAUNCHES[what] += 1
     return y, state

@@ -15,10 +15,17 @@ Phases, in order; any failure raises and the script exits nonzero:
      rows bit-equal, the mean within 1e-6.  The cached kernels read a
      cache built from the batch: ``neighbor_sample_cached`` every edge
      block the batch reaches resident at a permuted slot (the others at
-     -1), at (1024,25) and (25600,10); ``feature_gather_cached`` the
-     batch's unique rows at permuted slots, at the padded unique-id length
-     and at the segment lengths a 4096-row pinned feature cache cuts the
-     batch into.  The LM's two: ``flash_attention_fwd`` (causal) at
+     -1), at every chunk that phase 8's 128-block pinned edge cache plans
+     for the batch's two hops (~224 launches of 19-285 targets on reddit)
+     and, as count-0 yardsticks, at (1024,25) and (25600,10);
+     ``feature_gather_cached`` the batch's unique rows at permuted slots,
+     at each segment that a 4096-row pinned feature cache cuts the batch
+     into (unpadded, as the path launches them) and at the padded
+     unique-id length (count 0).  Both also at their edge cases, bit-equal
+     to their plain versions: sampler widths off the block size, M 1,
+     fanout 1, degree-0 tail targets, an unresolved slot, slot tables at
+     and above the shared-memory budget; gathers of 1, 13 and 1001 rows at
+     F 602, 100 and 7 with an unresolved id.  The LM's two: ``flash_attention_fwd`` (causal) at
      qwen2-0.5b's prefill (B 8, S 2048, 14 query over 2 kv heads, D 64),
      at D 128 (B 1, 32 over 8 heads) and D 256 (B 2, S 1024, 4 over 1) and
      at a ragged S 1000, out within 2e-2 and lse within 1e-3;
@@ -111,7 +118,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      the counters reset just before each; finite logits; prefill ms,
      decode ms per step and tok/s;
   18. where mamba2-370m's serving time goes, as phase 12;
-  19. a JSON line of the kernels' numbers, the card line, and the result.
+  19. a JSON line of the kernels' numbers (the GNN's per launch, with
+     their sums per step beside them), the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -128,6 +136,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -166,8 +175,9 @@ from repro_torch.train.steps import (build_prefill_step,  # noqa: E402
 from repro_torch.train.steps import \
     build_train_step as build_lm_train_step  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
-from repro_torch.storage import (DeviceFeatureCache, DiskStore,  # noqa: E402
-                                 pad_pow2, save_graph)
+from repro_torch.storage import (DeviceEdgeBlockCache,  # noqa: E402
+                                 DeviceFeatureCache, DiskStore, pad_pow2,
+                                 save_graph)
 
 BATCH, FANOUTS = 1024, (25, 10)
 RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
@@ -300,7 +310,7 @@ class Timer:
             fn()
         pairs = []
         for _ in range(self.reps):
-            self.flush.zero_()
+            self.flush_l2()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -309,6 +319,9 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def flush_l2(self) -> None:
+        self.flush.zero_()
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S
@@ -418,9 +431,9 @@ def block_cache(loader, frontiers):
     return cache, block_slots, block_e, max_block
 
 
-def cached_sample_case(loader, timer, targets, rand, bc, uncached):
+def cached_sample_case(loader, timer, targets, rand, bc, uncached, count):
     """neighbor_sample_cached at (M, S): kernel == plain == the uncached
-    kernel's ids, bit for bit, timed."""
+    kernel's ids, bit for bit, timed; ``count`` launches of it a step."""
     cache, block_slots, block_e, max_block = bc
     ip = loader.indptr
     kw = dict(block_e=block_e, max_block=max_block)
@@ -445,7 +458,7 @@ def cached_sample_case(loader, timer, targets, rand, bc, uncached):
     nbytes = (4 * n_unique(torch.cat([t, t + 1])) + 4 * M + 8 * M * S
               + 4 * n_unique(blk) + 4 * n_unique(pos))
     bnd, by = bound_ms(nbytes, 10 * M * S)
-    return {"shape": [M, S], "max_abs_err": 0.0, "count": 1,
+    return {"shape": [M, S], "max_abs_err": 0.0, "count": count,
             "ms": timer(lambda: neighbor_sample_cached(
                 ip, block_slots, targets, rand, cache, **kw)),
             "plain_ms": timer(lambda: ref.neighbor_sample_cached(
@@ -473,12 +486,9 @@ def cached_rows_case(timer, cache, slot_of, ids, count):
             "bound_ms": bnd, "bound_by": by}
 
 
-def cached_rows_cases(g, timer, loader, ids_all) -> list:
-    """feature_gather_cached on the batch's unique ids, the rows at
-    permuted slots: once at the padded unique-id length (not a launch of
-    the step), then at each distinct padded segment length that a
-    ``OOC_ROWS``-row ``OOC_POLICY`` feature cache cuts the batch into,
-    counted as often as the step launches it."""
+def gather_cache(g, loader, ids_all):
+    """A feature cache holding the batch's unique ids at permuted slots:
+    (cache, slot_of, the unique ids on the host)."""
     uniq = torch.unique(ids_all)
     U = uniq.numel()
     gen = torch.Generator(device="cpu").manual_seed(2)
@@ -489,54 +499,211 @@ def cached_rows_cases(g, timer, loader, ids_all) -> list:
     slot_of = torch.full((g.num_nodes + 1,), -1, dtype=torch.int32,
                          device=uniq.device)
     slot_of[uniq.long()] = slots.to(torch.int32)
-    uniq_np = uniq.cpu().numpy()
-    padded = pad_pow2(uniq_np, uniq_np[-1])
-    dc = DeviceFeatureCache(g, rows=OOC_ROWS, policy=OOC_POLICY,
-                            device=DEVICE)
-    plan = dc.plan_rows(padded, n_valid=U)
+    return cache, slot_of, uniq.cpu().numpy()
+
+
+def ooc_plan(g, t, flat1, uniq):
+    """What phase 8's out-of-core step launches for a batch whose hop
+    frontiers are ``t`` and ``flat1`` and whose unique ids are ``uniq``:
+    the (hop, slice) chunks that a ``OOC_BLOCKS``-block ``OOC_POLICY``
+    edge-block cache's plan cuts each frontier into (one
+    ``neighbor_sample_cached`` launch each), and the id segments that a
+    ``OOC_ROWS``-row feature cache's plan cuts the padded unique ids into
+    (one ``feature_gather_cached`` launch each, at its own length)."""
+    ec = DeviceEdgeBlockCache(
+        g, indptr=np.asarray(g.indptr, np.int64),
+        block_e=ops.edge_block_size(int(g.degrees().max())),
+        blocks=OOC_BLOCKS, policy=OOC_POLICY,
+        pinned_fraction=DeviceTierSpec().pinned_fraction, device="cpu")
+    chunks = [(hop, sl) for hop, f in enumerate((t, flat1))
+              for sl, _ in ec.plan(f.cpu().numpy())]
+    dc = DeviceFeatureCache(
+        g, rows=OOC_ROWS, policy=OOC_POLICY,
+        pinned_fraction=DeviceTierSpec().pinned_fraction, device="cpu")
+    plan = dc.plan_rows(pad_pow2(uniq, uniq[-1]), n_valid=uniq.size)
+    return chunks, [ps.ids for ps in plan.segments]
+
+
+def cached_rows_cases(timer, gc, segments) -> list:
+    """feature_gather_cached on the batch's unique ids through ``gc``
+    (``gather_cache``): once at the padded unique-id length (a count-0
+    yardstick, not a launch of the step), then at each distinct length of
+    the feature cache's ``segments``, counted as often as the step
+    launches it."""
+    cache, slot_of, uniq = gc
     by_len: dict[int, list] = {}
-    for ps in plan.segments:
-        seg = pad_pow2(ps.ids, ps.ids[-1])
+    for seg in segments:
         by_len.setdefault(seg.size, [seg, 0])[1] += 1
-    del dc
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.int32), device=DEVICE)
 
-    cases = [cached_rows_case(timer, cache, slot_of, dev(padded), 0)]
+    cases = [cached_rows_case(timer, cache, slot_of,
+                              dev(pad_pow2(uniq, uniq[-1])), 0)]
     for n, (seg, count) in sorted(by_len.items()):
         cases.append(cached_rows_case(timer, cache, slot_of, dev(seg), count))
     return cases
 
 
-def kernel_phase(name: str, g, timer) -> dict:
-    """Phase 3 on one graph: the inputs are batch 0 of the main path."""
-    loader = PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS,
-                                  seed=0, device=DEVICE)
+def cached_sample_cases(g, loader, timer, hops, rands, outs, chunks) -> list:
+    """neighbor_sample_cached through a cache holding every block the
+    batch reaches: at each hop's whole frontier (count-0 yardsticks, the
+    widths of the in-memory step) and at each planned chunk (count 1: the
+    out-of-core step's launches)."""
+    bc = block_cache(loader, hops)
+    cases = [cached_sample_case(loader, timer, f, r, bc, o, 0)
+             for f, r, o in zip(hops, rands, outs)]
+    for hop, sl in chunks:
+        cases.append(cached_sample_case(loader, timer, hops[hop][sl],
+                                        rands[hop][sl], bc, outs[hop][sl], 1))
+    del bc
+    return cases
+
+
+def _degree0_tail_graph():
+    """Neighbour lists 100, 128, 28, 0, 0 (256 edges: two 128-wide blocks,
+    so the degree-0 tail targets' base block is clamped) on the card."""
+    degs = [100, 128, 28, 0, 0]
+    indptr = torch.zeros(len(degs) + 1, dtype=torch.int32)
+    indptr[1:] = torch.cumsum(torch.tensor(degs), 0)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    indices = torch.randint(0, len(degs), (256,), generator=gen,
+                            dtype=torch.int32)
+    return indptr.to(DEVICE), indices.to(DEVICE)
+
+
+def cached_edge_inputs(reddit_loader) -> tuple[list, list]:
+    """The cached kernels' edge cases on the card.  The sampler's, as
+    (indptr, indices, block_slots, targets, rand, cache, block_e,
+    max_block), ``indices`` None where a block is unresolved: widths off
+    the block size, M 1, fanout 1, slot tables at and above the
+    shared-memory budget (reddit, every block resident), degree-0 tail
+    targets and an unresolved slot (``_degree0_tail_graph``).  The
+    gather's, as (cache, slot_of, ids): 1, 13 and 1001 rows (rows a block
+    does not divide) at permuted (odd and even) slots with an unresolved
+    id, at F 602, 100 and 7 (the float2, float4 and scalar instances)."""
+    from repro_torch.kernels.neighbor_sample import SLOT_BUDGET
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(DEVICE)
+
+    samples = []
+    ip, ix = reddit_loader.indptr, reddit_loader.indices
+    n = reddit_loader.g.num_nodes
+    cache, block_slots, block_e, max_block = block_cache(reddit_loader, (
+        torch.arange(n, dtype=torch.int32, device=DEVICE),))
+    budget = SLOT_BUDGET - block_slots.numel()
+    for M, S, extra in ((1, 1, 0), (1, 25, 0), (3, 25, 0), (113, 10, 0),
+                        (113, 1, 0), (1000, 7, 0), (113, 10, budget),
+                        (113, 10, budget + 1)):
+        slots = torch.cat([block_slots, torch.full(
+            (extra,), -1, dtype=torch.int32, device=DEVICE)])
+        samples.append((ip, ix, slots, randint(0, n, (M,)),
+                        randint(-2**31, 2**31 - 1, (M, S)), cache, block_e,
+                        max_block))
+    ip, ix = _degree0_tail_graph()
+    tail = types.SimpleNamespace(indptr=ip, indices=ix, max_degree=128)
+    cache, block_slots, block_e, max_block = block_cache(tail, (
+        torch.arange(5, dtype=torch.int32, device=DEVICE),))
+    targets = torch.tensor([4, 2, 3, 0, 1, 4], dtype=torch.int32,
+                           device=DEVICE)
+    rand = randint(-2**31, 2**31 - 1, (6, 7))
+    dropped = block_slots.clone()
+    dropped[1] = -1                  # nodes 1 and 2 reach into block 1
+    for slots, indices in ((block_slots, ix), (dropped, None)):
+        samples.append((ip, indices, slots, targets, rand, cache, block_e,
+                        max_block))
+
+    gathers = []
+    for F in (602, 100, 7):
+        C = 64
+        cache = torch.randn((C, F), generator=gen).to(DEVICE)
+        slot_of = torch.full((3 * C + 1,), -1, dtype=torch.int32)
+        resident = torch.randperm(3 * C, generator=gen)[:C]
+        slot_of[resident] = torch.randperm(C, generator=gen).to(torch.int32)
+        slot_of = slot_of.to(DEVICE)
+        for R in (1, 13, 1001):
+            ids = resident[torch.randint(0, C, (R,), generator=gen)]
+            ids[R // 2] = int(torch.nonzero(slot_of[:3 * C] < 0)[0])
+            gathers.append((cache, slot_of, ids.to(torch.int32).to(DEVICE)))
+    return samples, gathers
+
+
+def cached_edge_cases(reddit_loader) -> dict:
+    """The cached kernels at ``cached_edge_inputs``, bit-equal to their
+    plain versions, and the sampler's ids to ``neighbor_sample``'s where
+    every block is resident."""
+    samples, gathers = cached_edge_inputs(reddit_loader)
+    ns, fg = [], []
+    for ip, ix, slots, targets, rand, cache, block_e, max_block in samples:
+        kw = dict(block_e=block_e, max_block=max_block)
+        got = neighbor_sample_cached(ip, slots, targets, rand, cache, **kw)
+        want = ref.neighbor_sample_cached(ip, slots, targets, rand, cache,
+                                          **kw)
+        torch.cuda.synchronize()
+        what = (f"neighbor_sample_cached edge case {tuple(rand.shape)}, "
+                f"{slots.numel()} slots")
+        check(torch.equal(got, want), f"{what} differs from its plain version")
+        if ix is not None:
+            check(torch.equal(got, neighbor_sample(ip, ix, targets, rand)),
+                  f"{what} differs from neighbor_sample")
+        ns.append([*rand.shape, slots.numel()])
+    for cache, slot_of, ids in gathers:
+        got = feature_gather_cached(cache, slot_of, ids)
+        want = ref.feature_gather_cached(cache, slot_of, ids)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"feature_gather_cached edge case "
+              f"{tuple(want.shape)} differs from its plain version")
+        fg.append(list(want.shape))
+    print(f"[smoke]   cached kernels' edge cases bit-equal to their plain "
+          f"versions: neighbor_sample_cached (M, S, slot-table entries) {ns}; "
+          f"feature_gather_cached (R, F) {fg}")
+    return {"neighbor_sample_cached": ns, "feature_gather_cached": fg}
+
+
+def batch0(loader):
+    """Batch 0's targets and its two hops' random draws, (BATCH,) and
+    (BATCH, FANOUTS[0]), (BATCH * FANOUTS[0], FANOUTS[1]), as the main path
+    draws them."""
     key = rng.fold_in(rng.key(0), 0)
     t = torch.as_tensor(loader.targets(0), device=DEVICE)
     r1 = rng.randint(rng.fold_in(key, 0), (BATCH, FANOUTS[0]), 0, 2**31 - 1,
                      device=DEVICE)
-    hop1, ns1 = sample_case(loader, timer, t, r1)
-    flat1 = hop1.reshape(-1)
     r2 = rng.randint(rng.fold_in(key, 1), (BATCH, FANOUTS[0], FANOUTS[1]),
                      0, 2**31 - 1, device=DEVICE).reshape(-1, FANOUTS[1])
+    return t, r1, r2
+
+
+def kernel_phase(name: str, g, timer, chunks: bool) -> dict:
+    """Phase 3 on one graph: the inputs are batch 0 of the main path; the
+    cached kernels' counted cases are what phase 8's out-of-core step
+    launches for it (the sampler's planned chunks only if ``chunks``)."""
+    loader = PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS,
+                                  seed=0, device=DEVICE)
+    t, r1, r2 = batch0(loader)
+    hop1, ns1 = sample_case(loader, timer, t, r1)
+    flat1 = hop1.reshape(-1)
     hop2, ns2 = sample_case(loader, timer, flat1, r2)
-    bc = block_cache(loader, (t, flat1))
+    gc = gather_cache(g, loader, torch.cat([t, flat1, hop2.reshape(-1)]))
+    plan, segments = ooc_plan(g, t, flat1, gc[2])
     cases = {
         "neighbor_sample": [ns1, ns2],
         "feature_gather_rows": [rows_case(loader, timer, ids)
                                 for ids in (t, flat1, hop2.reshape(-1))],
         "feature_gather_mean": [mean_case(loader, timer, hop2)],
-        "neighbor_sample_cached": [
-            cached_sample_case(loader, timer, t, r1, bc, hop1),
-            cached_sample_case(loader, timer, flat1, r2, bc, hop2)],
-        "feature_gather_cached": cached_rows_cases(
-            g, timer, loader, torch.cat([t, flat1, hop2.reshape(-1)])),
+        "neighbor_sample_cached": cached_sample_cases(
+            g, loader, timer, (t, flat1), (r1, r2), (hop1, hop2),
+            plan if chunks else []),
+        "feature_gather_cached": cached_rows_cases(timer, gc, segments),
     }
-    del bc
+    del gc
     for kname, rows in cases.items():
-        for c in rows:
+        counted = [c for c in rows if c.get("count", 1)]
+        shown = rows if len(rows) <= 8 else [c for c in rows
+                                             if not c.get("count", 1)]
+        for c in shown:
             lib = ("-" if c["library_ms"] is None
                    else f"{c['library_ms']:.4f}")
             print(f"[smoke]   {name:10s} {kname:22s} {str(c['shape']):18s} "
@@ -544,9 +711,48 @@ def kernel_phase(name: str, g, timer) -> dict:
                   f"library {lib} ms  bound {c['bound_ms']:.4f} ms "
                   f"({c['bound_by']})  max_abs_err {c['max_abs_err']:g}  "
                   f"x{c.get('count', 1)} per step")
+        if len(rows) > 8:
+            n = sum(c["count"] for c in counted)
+            widths = sorted(c["shape"][0] for c in counted)
+            print(f"[smoke]   {name:10s} {kname:22s} {n} launches a step "
+                  f"(widths {widths[0]}-{widths[-1]}, median "
+                  f"{statistics.median(widths)}): kernel "
+                  f"{per_step(counted, 'ms'):.4f} ms a step, "
+                  f"{per_step(counted, 'ms') / n:.4f} a launch  plain "
+                  f"{per_step(counted, 'plain_ms'):.4f}  bound "
+                  f"{per_step(counted, 'bound_ms'):.4f}")
     del loader
     torch.cuda.empty_cache()
     return cases
+
+
+def per_step(cases, key) -> float:
+    """Sum of count x ``key`` over ``cases``: the time a step spends."""
+    return sum(c.get("count", 1) * c[key] for c in cases)
+
+
+def gnn_row(kname: str, cases: list, launches: int) -> dict:
+    """The JSON line's row of a GNN kernel: ``ms``, ``plain_ms``,
+    ``bound_ms`` and ``library_ms`` per launch (count-weighted over the
+    step's cases), the same per step beside them."""
+    counted = [c for c in cases if c.get("count", 1)]
+    n = sum(c.get("count", 1) for c in counted)
+    libs = [c["library_ms"] for c in counted]
+    row = {"name": kname, "route": "cuda", "source": SOURCES[kname],
+           "replaces": REPLACES[kname], "launches": launches,
+           "max_abs_err": max(c["max_abs_err"] for c in cases)}
+    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        tot = None if key == "library_ms" and None in libs else per_step(
+            counted, key)
+        row[key] = None if tot is None else tot / n
+        row[f"{key}_per_step"] = tot
+    row["ms_per_launch"] = row["ms"]
+    row["bound_by"] = counted[-1]["bound_by"]
+    row.update({"per": "launch", "launches_per_step": n,
+                "shapes": [c["shape"] for c in counted],
+                "per_step": [c.get("count", 1) for c in counted],
+                "on_main_path": kname != "feature_gather_mean"})
+    return row
 
 
 def parity_phase(g) -> None:
@@ -1479,8 +1685,14 @@ def main() -> int:
           f"{synth.num_edges} edges, features "
           f"{synth.features.nbytes / 1e6:.0f} MB, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    per_graph = {"reddit-large": kernel_phase("reddit-lg", reddit, timer),
-                 "rmat-2^18": kernel_phase("rmat-2^18", synth, timer)}
+    # the cached kernels' rows are reddit's (phase 8's graph); R-MAT keeps
+    # the whole-hop sampler cases as count-0 yardsticks
+    per_graph = {"reddit-large": kernel_phase("reddit-lg", reddit, timer,
+                                              chunks=True),
+                 "rmat-2^18": kernel_phase("rmat-2^18", synth, timer,
+                                           chunks=False)}
+    edge_cases = cached_edge_cases(PallasSubgraphLoader(
+        reddit, batch_size=BATCH, fanouts=FANOUTS, seed=0, device=DEVICE))
     del synth
     torch.cuda.empty_cache()
     lm_cases = lm_kernel_phase(timer)
@@ -1612,29 +1824,18 @@ def main() -> int:
     ssm_served = ssm_serve_phase()
     ssm_prof = serve_profile_phase("mamba2-370m", SSM_GEN["mamba2-370m"], 18)
 
-    # the JSON line: per kernel, summed over one step's launches on the
-    # reddit-sized graph (its 631 MB table does not fit in L2); each
-    # kernel's launch count is from its path's entry-point run
+    # the JSON line: the GNN kernels per launch and per step; the in-memory
+    # kernels at the reddit-sized graph's shapes (its 631 MB table does not
+    # fit in L2; the widths are the graph's batch and fanouts either way),
+    # their launches from phase 5's run; the cached kernels at the widths
+    # phase 8's out-of-core step launches on reddit --large-scale, their
+    # launches from phase 8's run
     table = []
-    for kname, cases in per_graph["rmat-2^18"].items():
+    for kname in per_graph["rmat-2^18"]:
         cached = kname.endswith("_cached")
-        counts = [c.get("count", 1) for c in cases]
-        libs = [c["library_ms"] for c in cases]
-
-        def per_step(key):
-            return sum(n * c[key] for n, c in zip(counts, cases))
-
-        table.append({
-            "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname],
-            "launches": (ooc_launches if cached else launches)[kname],
-            "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-            "bound_ms": per_step("bound_ms"),
-            "bound_by": cases[-1]["bound_by"],
-            "library_ms": None if None in libs else per_step("library_ms"),
-            "shapes": [c["shape"] for c in cases], "per_step": counts,
-            "on_main_path": kname != "feature_gather_mean"})
+        cases = per_graph["reddit-large" if cached else "rmat-2^18"][kname]
+        table.append(gnn_row(kname, cases,
+                             (ooc_launches if cached else launches)[kname]))
     # the LM's kernels: per prefill (flash forward, 24 launches at the
     # serve entry point's shape; the SSD kernel, 48 launches at
     # mamba2-370m's), per decode step (decode, 24 launches over the full
@@ -1678,6 +1879,7 @@ def main() -> int:
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "kernels": table,
                "launch_floor_ms": floor_ms, "per_graph": per_graph,
+               "cached_edge_cases": edge_cases,
                "train": {"argv": argv, "losses": losses,
                          "steps_per_s": stats.steps_per_s,
                          "idle_fraction": stats.idle_fraction,

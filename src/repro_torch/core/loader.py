@@ -319,27 +319,18 @@ class PallasSubgraphLoader:
                              ) -> tuple[np.ndarray, torch.Tensor]:
         """One hop through the edge-block cache: plan chunks whose block
         set fits the cache, admit each chunk's blocks, launch the cached
-        kernel per chunk.  Chunk lengths are padded to a power of two
-        with node 0 and zero rand rows (node 0's blocks are in every
-        plan), as in the reference."""
+        kernel per chunk at the chunk's own length (the reference pads it
+        to a power of two for jit's static shapes; the pads change no id
+        and no counter, since the plan is made before the launch)."""
         ec = self.edgecache
         parts = []
         for sl, blocks in ec.plan(flat):
             ec.resolve(blocks)
-            seg = flat[sl]
-            seg_rand = rand2d[sl]
-            n = seg.shape[0]
-            width = 1 << (n - 1).bit_length()
-            if width > n:
-                seg = np.concatenate([seg, np.zeros(width - n, seg.dtype)])
-                seg_rand = torch.cat([seg_rand, seg_rand.new_zeros(
-                    (width - n, seg_rand.shape[1]))])
-            out = ops.neighbor_sample_cached(
+            parts.append(ops.neighbor_sample_cached(
                 self.indptr, ec.table, ec.slot_of,
-                _to_device(seg, self.device), seg_rand,
-                block_e=ec.block_e, max_block=ec.max_block)
+                _to_device(flat[sl], self.device), rand2d[sl],
+                block_e=ec.block_e, max_block=ec.max_block))
             self.dispatches["edge_chunks"] += 1
-            parts.append(out[:n])
         dev = parts[0] if len(parts) == 1 else torch.cat(parts)
         return dev.cpu().numpy(), dev
 

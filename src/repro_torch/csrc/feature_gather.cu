@@ -89,36 +89,116 @@ feature_gather_kernel(const float* __restrict__ table, int64_t vecs_per_row,
 }
 
 // The cached gather (replaces feature_gather.py:feature_gather_cached, body
-// `_cached_kernel`): out[r] = cache[max(slot_of[ids[r]], 0)], the row copy
-// above with one more indirection through the node -> slot table; slot -1
-// (not resident) reads slot 0, as the TPU kernel clamps it.  The TPU
-// kernel's padding of the row count with repeats of the last id is not
-// carried over: the ragged edge of the grid is masked.
+// `_cached_kernel`): out[r] = cache[max(slot_of[ids[r]], 0)], an exact
+// float32 row copy through the node -> slot table; slot -1 (not resident)
+// reads slot 0, as the TPU kernel clamps it.  The TPU kernel's padding of
+// the row count with repeats of the last id is not carried over: the
+// ragged edge is masked.
+//
+// What bounds it at the out-of-core step's widths: bytes, at launches whose
+// bytes take about as long as the launch itself (a segment of 2,000-3,500
+// rows of 2,408 bytes is 10-17 MB read and written: 3-5 us at 3.35 TB/s).
+// Phase 3's timer rewrites L2 before each launch, so the kernel's misses
+// also evict dirty lines; with L2 read instead, a 3,460-row launch is
+// ~2.5 us faster (PERF.md).
+//
+// What the design does about it:
+// - each block resolves all of its rows first, one coalesced pass over ids
+//   and one over slot_of into shared memory, before any row byte moves;
+// - a warp copies a row by loading all of it (up to 3 KB: 96 bytes a lane)
+//   into registers before its first store, so every row's bytes are in
+//   flight at once;
+// - the grid is one full wave: rows_per_block = 8 warps x the fewest rows
+//   a warp that cover all rows with the blocks resident at once
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs).
+// The vector width is the widest the row length and the pointers allow
+// (float2 for a 602-float row).  Two other row copies were measured on the
+// card and were no faster (PERF.md): float4 through each row's 16-
+// byte-aligned interior where source and destination share their phase
+// mod 16 (every other slot and output row at F = 602), and Hopper's 1-d
+// bulk copy (cp.async.bulk into shared memory on an mbarrier, the lanes
+// writing the row out).  The parent kernel, with four of a warp's loads in
+// flight, took the same time: the memory system, not the chain, sets it.
+constexpr int kGatherWarps = 8;
+constexpr int kGatherThreads = kGatherWarps * 32;
+constexpr int kLaneBytes = 96;  // in flight per lane for one row chunk
+
+// a row of F floats (a multiple of V) from src to dst by one warp: each
+// lane loads its kLaneBytes of a chunk into registers, then stores them
+template <int V>
+__device__ __forceinline__ void copy_row(const float* __restrict__ src,
+                                         float* __restrict__ dst, int F,
+                                         int lane) {
+  using T = typename Vec<V>::T;
+  constexpr int U = kLaneBytes / (4 * V);
+  const T* __restrict__ s = reinterpret_cast<const T*>(src);
+  T* __restrict__ d = reinterpret_cast<T*>(dst);
+  const int nv = F / V;
+  for (int base = lane; base < nv; base += 32 * U) {
+    T buf[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + 32 * u < nv) buf[u] = __ldg(s + base + 32 * u);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + 32 * u < nv) d[base + 32 * u] = buf[u];
+  }
+}
+
 template <int VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-feature_gather_cached_kernel(const float* __restrict__ cache, int64_t vecs_per_row,
+__global__ void __launch_bounds__(kGatherThreads)
+feature_gather_cached_kernel(const float* __restrict__ cache, int F,
                              const int32_t* __restrict__ slot_of,
-                             const int32_t* __restrict__ ids, int64_t rows,
-                             float* __restrict__ out) {
-  using T = typename Vec<VEC>::T;
+                             const int32_t* __restrict__ ids, int32_t rows,
+                             int32_t rows_per_block, float* __restrict__ out) {
+  __shared__ int32_t s_slot[kGatherThreads];  // rows_per_block <= threads
+  const int32_t row0 = static_cast<int32_t>(blockIdx.x) * rows_per_block;
+  const int32_t n = min(rows_per_block, rows - row0);
+  const int k0 = threadIdx.x;
+  int32_t id = 0;
+  if (k0 < n) id = ids[row0 + k0];
+  if (k0 < n) {
+    const int32_t slot = slot_of[id];
+    s_slot[k0] = slot < 0 ? 0 : slot;
+  }
+  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int64_t m = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (m >= rows) return;
-  int64_t slot = slot_of[ids[m]];
-  if (slot < 0) slot = 0;
-  const T* __restrict__ row = reinterpret_cast<const T*>(cache) + slot * vecs_per_row;
-  T* __restrict__ dst = reinterpret_cast<T*>(out) + m * vecs_per_row;
-#pragma unroll 4
-  for (int64_t c = lane; c < vecs_per_row; c += 32) dst[c] = row[c];
+  for (int k = threadIdx.x >> 5; k < n; k += kGatherWarps)
+    copy_row<VEC>(cache + static_cast<int64_t>(s_slot[k]) * F,
+                  out + static_cast<int64_t>(row0 + k) * F, F, lane);
+}
+
+// the blocks of one instance resident on the current device at once
+template <int VEC>
+int wave_blocks() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, feature_gather_cached_kernel<VEC>, kGatherThreads, 0);
+    cached[dev] = sms * per_sm;
+  }
+  return cached[dev];
 }
 
 template <int VEC>
 cudaError_t launch_cached(const float* cache, int64_t feat, const int32_t* slot_of,
                           const int32_t* ids, int64_t rows, float* out,
                           cudaStream_t stream) {
-  const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
-  feature_gather_cached_kernel<VEC><<<blocks, kWarps * 32, 0, stream>>>(
-      cache, feat / VEC, slot_of, ids, rows, out);
+  const int64_t wave = wave_blocks<VEC>();
+  int64_t per_warp = wave > 0 ? (rows + kGatherWarps * wave - 1) /
+                                    (kGatherWarps * wave)
+                              : 1;
+  per_warp = per_warp < 1 ? 1 : (per_warp > 32 ? 32 : per_warp);
+  const int64_t per_block = kGatherWarps * per_warp;
+  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+  feature_gather_cached_kernel<VEC><<<blocks, kGatherThreads, 0, stream>>>(
+      cache, static_cast<int>(feat), slot_of, ids, static_cast<int32_t>(rows),
+      static_cast<int32_t>(per_block), out);
   return cudaGetLastError();
 }
 
@@ -157,12 +237,14 @@ extern "C" int feature_gather_launch(const void* table, int64_t feat,
 }
 
 // cache: (C, feat) float32; slot_of: (N+1,) int32; ids: (rows,) int32;
-// out: (rows, feat) float32.  `vec` as above.
+// out: (rows, feat) float32.  `vec` as above; rows and feat below 2**31.
 extern "C" int feature_gather_cached_launch(const void* cache, int64_t feat,
                                             const void* slot_of, const void* ids,
                                             int64_t rows, void* out, int vec,
                                             void* stream) {
   if (rows == 0 || feat == 0) return static_cast<int>(cudaSuccess);
+  if (rows >= (int64_t{1} << 31) || feat >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* c = static_cast<const float*>(cache);
   const int32_t* so = static_cast<const int32_t*>(slot_of);
   const int32_t* i = static_cast<const int32_t*>(ids);

@@ -6,7 +6,9 @@ The counterparts of the reference's Pallas ``feature_gather_rows`` and
 and of ``feature_gather_cached``, which reads each row of the device
 feature cache through the node -> slot table: a warp per output row reads
 the gathered row straight from device memory with the widest vector load
-the row length allows.  The wrappers check
+the row length allows (the cached kernel resolves a block's slots first
+and loads a whole row before storing it, in a grid of one wave).  The
+wrappers check
 their inputs, allocate the output and launch on the current stream; they
 take CUDA tensors only (``kernels.ops`` sends CPU tensors to the plain
 versions in ``kernels.ref``).  Ids must lie in ``[0, N)``: checking them

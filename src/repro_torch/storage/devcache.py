@@ -24,7 +24,9 @@ unchanged bits, so cached training equals the full-upload path.
 Admission is staged (``plan_rows`` -> ``fetch_plan`` -> ``execute_plan``)
 exactly as in the reference, with every pad kept: the pads count toward
 the LRU cut of ``_segments``, so they decide segments, evictions and the
-per-batch counters.  The reference's jitted ``_update`` becomes in-place
+per-batch counters.  The gathers themselves launch at each segment's own
+length: the reference's padding of a launch to a power of two (jit's
+static shapes) changes no row and no counter.  The reference's jitted ``_update`` becomes in-place
 tensor scatters on the cache's device (``_push``), issued on the current
 stream between the gathers, in plan order.  The ``optimal`` (Belady)
 policy is not part of the port yet.
@@ -432,16 +434,16 @@ class DeviceFeatureCache(DeviceArrayCache):
         strictly in plan order: install(k) -> gather(k) -> install(k+1),
         so a later segment may evict an earlier one's rows only after
         their gather.  One ``feature_gather_cached`` launch per segment,
-        its length padded to a power of two with the segment's last
-        (resident) id.  Returns (sum of segment lengths, F) float32."""
+        at the segment's own length (the reference pads it to a power of
+        two for jit's static shapes).  Returns (sum of segment lengths,
+        F) float32."""
         self.check_generation(plan)
         parts = []
         for ps in plan.segments:
             self._install_segment(ps)
-            n = ps.ids.size
-            seg = pad_pow2(ps.ids, ps.ids[-1]).astype(np.int32)
             parts.append(ops.feature_gather_cached(
-                self.table, self.slot_of, _to_device(seg, self.device))[:n])
+                self.table, self.slot_of,
+                _to_device(ps.ids.astype(np.int32), self.device)))
         if not parts:
             return torch.zeros((0, self.feat_dim), dtype=torch.float32,
                                device=self.device)

@@ -7,7 +7,8 @@ hops into chunks.
 For each cache configuration the minibatches (hop ids, features, labels)
 and every per-batch ``trace.io`` counter (store, devcache, edgecache) are
 bit-equal to the reference's ``build_pipeline``, and the ids equal the
-port's own in-memory loader's.  A 4-step fp32 loss trajectory matches
+port's own in-memory loader's; the cached kernels launch at each planned
+chunk's and segment's own length, where the reference pads.  A 4-step fp32 loss trajectory matches
 within 1e-5, and the CLI trains out of core on the CPU and rejects the
 flags of later slices.
 """
@@ -38,7 +39,9 @@ from repro_torch.core import (DeviceTierSpec, GNNConfig, GraphSAGE,
                               load_dataset, train_loop)
 from repro_torch.launch import train as port_train
 from repro_torch.optim import adamw
-from repro_torch.storage import DiskStore, save_graph
+from repro_torch.kernels import ops
+from repro_torch.storage import (DeviceEdgeBlockCache, DeviceFeatureCache,
+                                 DiskStore, save_graph)
 
 BATCH, FANOUTS, SEED, CACHE_MB = 8, (3, 2), 0, 0.25
 
@@ -130,6 +133,66 @@ def test_minibatches_and_io_counters_bit_equal(graphs, tmp_path, config):
         ref.close()
         port.close()
         store.close()
+
+
+@pytest.mark.parametrize("config", ["both-lru", "both-pinned"])
+def test_cached_kernels_launch_at_the_plans_own_lengths(graphs, tmp_path,
+                                                        config, monkeypatch):
+    """Every ``neighbor_sample_cached`` launch takes its planned chunk's
+    targets and every ``feature_gather_cached`` launch its segment's ids,
+    unpadded (the reference pads both to powers of two for jit), while
+    the minibatches and every ``trace.io`` counter stay equal to the
+    reference's."""
+    planned = {"chunks": [], "segments": []}
+    launched = {"chunks": [], "segments": []}
+
+    def record_plan(fn):
+        def plan(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            planned["chunks"] += [sl.stop - sl.start for sl, _ in out]
+            return out
+        return plan
+
+    def record_rows(fn):
+        def plan_rows(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            planned["segments"] += [ps.ids.size for ps in out.segments]
+            return out
+        return plan_rows
+
+    sample, gather = ops.neighbor_sample_cached, ops.feature_gather_cached
+
+    def sample_rec(indptr, cache, block_slots, targets, rand, **kw):
+        assert rand.shape[0] == targets.shape[0]
+        launched["chunks"].append(targets.shape[0])
+        return sample(indptr, cache, block_slots, targets, rand, **kw)
+
+    def gather_rec(cache, slot_of, ids):
+        launched["segments"].append(ids.numel())
+        return gather(cache, slot_of, ids)
+
+    monkeypatch.setattr(DeviceEdgeBlockCache, "plan",
+                        record_plan(DeviceEdgeBlockCache.plan))
+    monkeypatch.setattr(DeviceFeatureCache, "plan_rows",
+                        record_rows(DeviceFeatureCache.plan_rows))
+    monkeypatch.setattr(ops, "neighbor_sample_cached", sample_rec)
+    monkeypatch.setattr(ops, "feature_gather_cached", gather_rec)
+    ref, port, store = _pipelines(graphs, tmp_path, config)
+    try:
+        for idx in range(3):
+            want, got = ref.get_batch(idx), port.get_batch(idx)
+            for g_t, w_t in zip(got.hop_ids + got.hop_feats + [got.labels],
+                                want.hop_ids + want.hop_feats
+                                + [want.labels]):
+                np.testing.assert_array_equal(g_t.numpy(), np.asarray(w_t))
+            assert got.trace.io == want.trace.io, f"batch {idx}"
+    finally:
+        ref.close()
+        port.close()
+        store.close()
+    for kind in ("chunks", "segments"):
+        assert launched[kind] == planned[kind] and len(planned[kind]) > 3
+        assert any(n & (n - 1) for n in launched[kind]), kind   # unpadded
 
 
 def test_stats_and_epoch_counters(graphs, tmp_path):

@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits nonzero:
   3. every kernel against its plain PyTorch version on the card.  The
      GNN's five at the shapes of a training step at batch 1024 and
      fanouts 25,10: on reddit ``--large-scale`` and on a reddit-sized
-     R-MAT graph (2**18 nodes, 2**23 edges drawn, 602 features); ids and
-     rows bit-equal, the mean within 1e-6.  The cached kernels read a
+     R-MAT graph (2**18 nodes, 2**23 edges drawn, 602 features); ids,
+     rows and the mean bit-equal (the mean against the plain k-order sum
+     of true divisions by a divisor tensor).  The cached kernels read a
      cache built from the batch: ``neighbor_sample_cached`` every edge
      block the batch reaches resident at a permuted slot (the others at
      -1), at every chunk that phase 8's 128-block pinned edge cache plans
@@ -25,7 +26,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      to their plain versions: sampler widths off the block size, M 1,
      fanout 1, degree-0 tail targets, an unresolved slot, slot tables at
      and above the shared-memory budget; gathers of 1, 13 and 1001 rows at
-     F 602, 100 and 7 with an unresolved id.  The LM's two: ``flash_attention_fwd`` (causal) at
+     F 602, 100 and 7 with an unresolved id.  ``neighbor_sample`` and
+     ``feature_gather_mean`` at theirs, bit-equal too: the sampler at M 1,
+     fanout 1, widths off the block size, rand over all of int32,
+     degree-0 tail targets and an edge array shorter than indptr says
+     (positions clamped to E - 1); the mean at K 1, 7, 25 and 33, F 602,
+     100 and 7, M 1 and 1001, a column of -0.0.  The LM's two:
+     ``flash_attention_fwd`` (causal) at
      qwen2-0.5b's prefill (B 8, S 2048, 14 query over 2 kv heads, D 64),
      at D 128 (B 1, 32 over 8 heads) and D 256 (B 2, S 1024, 4 over 1) and
      at a ragged S 1000, out within 2e-2 and lse within 1e-3;
@@ -342,6 +349,20 @@ def n_unique(x: torch.Tensor) -> int:
     return int(torch.unique(x).numel())
 
 
+def sample_bound(ip, targets, rand) -> tuple[float, str]:
+    """neighbor_sample's bound at (M, S): what this data needs, each
+    distinct offset and sampled entry once, plus targets and rand read and
+    the output written."""
+    M, S = rand.shape
+    t = targets.long()
+    deg = ip[t + 1] - ip[t]
+    pos = (ip[t].long()[:, None]
+           + torch.remainder(rand.long(), deg.clamp_min(1).long()[:, None]))
+    nbytes = (4 * n_unique(torch.cat([t, t + 1])) + 4 * M + 8 * M * S
+              + 4 * n_unique(pos[deg > 0]))
+    return bound_ms(nbytes, 8 * M * S)
+
+
 def sample_case(loader, timer, targets, rand):
     """neighbor_sample at (M, S): kernel == plain bit for bit, timed."""
     ip, ix = loader.indptr, loader.indices
@@ -350,18 +371,9 @@ def sample_case(loader, timer, targets, rand):
     torch.cuda.synchronize()
     check(torch.equal(got, want), f"neighbor_sample {tuple(rand.shape)} "
           "differs from its plain version")
-    M, S = rand.shape
-    t = targets.long()
-    deg = ip[t + 1] - ip[t]
-    pos = (ip[t].long()[:, None]
-           + torch.remainder(rand.long(), deg.clamp_min(1).long()[:, None]))
-    # what this data needs: each distinct offset and sampled entry once,
-    # plus targets and rand read and the output written
-    nbytes = (4 * n_unique(torch.cat([t, t + 1])) + 4 * M + 8 * M * S
-              + 4 * n_unique(pos[deg > 0]))
-    b, by = bound_ms(nbytes, 8 * M * S)
+    b, by = sample_bound(ip, targets, rand)
     return got, {
-        "shape": [M, S], "max_abs_err": 0.0,
+        "shape": list(rand.shape), "max_abs_err": 0.0,
         "ms": timer(lambda: neighbor_sample(ip, ix, targets, rand)),
         "plain_ms": timer(lambda: ref.neighbor_sample(ip, ix, targets, rand)),
         "library_ms": None, "bound_ms": b, "bound_by": by}
@@ -385,19 +397,28 @@ def rows_case(loader, timer, ids):
             "bound_ms": b, "bound_by": by}
 
 
+def mean_bound(tab, ids2d) -> tuple[float, str]:
+    """feature_gather_mean's bound at (M, K): the ids and each distinct
+    row read once, the output written; an add and a divide per element
+    read."""
+    (M, K), F = ids2d.shape, tab.shape[1]
+    return bound_ms(4 * M * K + 4 * F * (n_unique(ids2d) + M), 2 * M * K * F)
+
+
 def mean_case(loader, timer, ids2d):
-    """feature_gather_mean at (M, K): kernel vs plain within 1e-6 (the
-    plain version on the card may divide by a reciprocal multiply)."""
+    """feature_gather_mean at (M, K): kernel == plain bit for bit (the
+    plain version's k-order sum of true divisions by a divisor tensor)."""
     tab = loader.features
     got = feature_gather_mean(tab, ids2d)
     want = ref.feature_gather_mean(tab, ids2d)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
-          f"feature_gather_mean {tuple(ids2d.shape)} off by {err}")
+    check(bit_equal(got, want),
+          f"feature_gather_mean {tuple(ids2d.shape)} differs from its plain "
+          f"version (max abs {err:g})")
     (M, K), F = ids2d.shape, tab.shape[1]
     flat = ids2d.reshape(-1).long()
-    b, by = bound_ms(4 * M * K + 4 * F * (n_unique(ids2d) + M), 2 * M * K * F)
+    b, by = mean_bound(tab, ids2d)
     return {"shape": [M, K, F], "max_abs_err": err,
             "ms": timer(lambda: feature_gather_mean(tab, ids2d)),
             "plain_ms": timer(lambda: ref.feature_gather_mean(tab, ids2d)),
@@ -661,6 +682,79 @@ def cached_edge_cases(reddit_loader) -> dict:
           f"versions: neighbor_sample_cached (M, S, slot-table entries) {ns}; "
           f"feature_gather_cached (R, F) {fg}")
     return {"neighbor_sample_cached": ns, "feature_gather_cached": fg}
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """float32 tensors equal bit for bit (``torch.equal`` takes -0.0 for
+    0.0)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def inmem_edge_inputs(loader) -> tuple[list, list]:
+    """The in-memory kernels' edge cases on the card.  The sampler's, as
+    (indptr, indices, targets, rand) with rand over all of int32 (negative
+    included): on ``loader``'s graph at M 1, fanout 1 and widths that no
+    block size divides; on ``_degree0_tail_graph`` with degree-0 tail
+    targets, whole and with its edge array cut to 250 entries, so that
+    positions clamp to E - 1.  The mean's, as (table, ids): K 1, 7, 25 and
+    33 at F 602, 100 and 7 (the float2, float4 and scalar instances), M 1
+    and 1001, with column 0 of the table -0.0 (a mean of -0.0 is +0.0)."""
+    gen = torch.Generator(device="cpu").manual_seed(6)
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(DEVICE)
+
+    samples = []
+    ip, ix = loader.indptr, loader.indices
+    n = loader.g.num_nodes
+    for M, S in ((1, 1), (1, 25), (3, 25), (113, 10), (113, 1), (1000, 7),
+                 (1025, 25)):
+        samples.append((ip, ix, randint(0, n, (M,)),
+                        randint(-2**31, 2**31 - 1, (M, S))))
+    ip, ix = _degree0_tail_graph()
+    targets = torch.tensor([4, 2, 3, 0, 1, 4], dtype=torch.int32,
+                           device=DEVICE)
+    rand = randint(-2**31, 2**31 - 1, (6, 7))
+    samples += [(ip, ix, targets, rand),
+                (ip, ix[:250].contiguous(), targets, rand)]
+    means = []
+    for F in (602, 100, 7):
+        table = torch.randn((200, F), generator=gen)
+        table[:, 0] = -0.0
+        table = table.to(DEVICE)
+        for K in (1, 7, 25, 33):
+            for M in (1, 1001):
+                means.append((table, randint(0, 200, (M, K))))
+    return samples, means
+
+
+def inmem_edge_cases(loader) -> dict:
+    """``neighbor_sample`` and ``feature_gather_mean`` at
+    ``inmem_edge_inputs``, bit-equal to their plain versions."""
+    samples, means = inmem_edge_inputs(loader)
+    ns, fm = [], []
+    for ip, ix, targets, rand in samples:
+        got = neighbor_sample(ip, ix, targets, rand)
+        want = ref.neighbor_sample(ip, ix, targets, rand)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"neighbor_sample edge case "
+              f"{tuple(rand.shape)}, E {ix.numel()} differs from its plain "
+              "version")
+        ns.append([*rand.shape, ix.numel()])
+    for table, ids in means:
+        got = feature_gather_mean(table, ids)
+        want = ref.feature_gather_mean(table, ids)
+        torch.cuda.synchronize()
+        check(bit_equal(got, want), f"feature_gather_mean edge case "
+              f"{tuple(ids.shape)}, F {table.shape[1]} differs from its "
+              "plain version")
+        fm.append([*ids.shape, table.shape[1]])
+    print(f"[smoke]   in-memory kernels' edge cases bit-equal to their plain "
+          f"versions: neighbor_sample (M, S, E) {ns}; feature_gather_mean "
+          f"(M, K, F) {fm}")
+    return {"neighbor_sample": ns, "feature_gather_mean": fm}
 
 
 def batch0(loader):
@@ -1691,8 +1785,11 @@ def main() -> int:
                                               chunks=True),
                  "rmat-2^18": kernel_phase("rmat-2^18", synth, timer,
                                            chunks=False)}
-    edge_cases = cached_edge_cases(PallasSubgraphLoader(
-        reddit, batch_size=BATCH, fanouts=FANOUTS, seed=0, device=DEVICE))
+    edge_loader = PallasSubgraphLoader(reddit, batch_size=BATCH,
+                                       fanouts=FANOUTS, seed=0, device=DEVICE)
+    edge_cases = {**cached_edge_cases(edge_loader),
+                  **inmem_edge_cases(edge_loader)}
+    del edge_loader
     del synth
     torch.cuda.empty_cache()
     lm_cases = lm_kernel_phase(timer)
@@ -1879,7 +1976,7 @@ def main() -> int:
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "kernels": table,
                "launch_floor_ms": floor_ms, "per_graph": per_graph,
-               "cached_edge_cases": edge_cases,
+               "edge_cases": edge_cases,
                "train": {"argv": argv, "losses": losses,
                          "steps_per_s": stats.steps_per_s,
                          "idle_fraction": stats.idle_fraction,

@@ -6,21 +6,48 @@
 // K > 1: out[m] = sum_k table[ids[m, k]] / K, accumulated in float32 in k
 // order as `_kernel` does, `out += row / K`).  float32 tables.
 //
-// What bounds it on this card: memory bandwidth.  Each output row reads K
-// table rows at data-dependent places and writes one row; there is one add
-// and one divide per element read, far below what the card can do per byte.
+// The row gather.  What bounds it: memory bandwidth; each output row reads
+// one table row at a data-dependent place and writes it.  The design: one
+// warp per output row, its 32 lanes walking the row with vector loads, so
+// each row is read as whole 32-byte sectors by neighbouring lanes and the
+// many independent rows of the grid keep enough loads in flight to cover
+// the latency of the random row starts.  The vector width is the widest
+// that the row length and the pointers allow (a 602-float row is 8-byte
+// aligned: float2, no tail).  The TPU kernel's per-row DMA into a VMEM tile,
+// its semaphore, and its padding of the row count to TILE_M are not carried
+// over: a warp reads its rows straight from device memory and the ragged
+// edge is masked.
 //
-// What the design does about it: one warp per output row, its 32 lanes
-// walking the row with vector loads, so each row is read as whole 32-byte
-// sectors by neighbouring lanes and the many independent rows of the grid
-// keep enough loads in flight to cover the latency of the random row
-// starts.  The vector width is the widest that the row length and the
-// pointers allow (a 602-float row is 8-byte aligned: float2, no tail).
-// The TPU kernel's per-row DMA into a VMEM tile, its semaphore, and its
-// padding of the row count to TILE_M are not carried over: a warp reads its
-// rows straight from device memory and the ragged edge is masked.  For
-// K = 1 the kernel is a plain copy (x / 1 == x exactly); for K > 1 the sum
-// stays in registers, so no (M, K, F) intermediate is written.
+// The fanout mean.  What bounds it at (25,600, 10, 602), hop 2 of the
+// in-memory step on a reddit-sized R-MAT graph: bytes, and how many of them
+// L2 serves.  It requests 616 MB of table rows, but they are ~49,300
+// distinct rows (119 MB) read five times each on average, so its bound
+// (each distinct row read once, the 61.6 MB output written once) is reached
+// only if every repeat comes from the 50 MB L2.  Measured on the card
+// (PERF.md): the same kernel over as many distinct rows reads them at ~92 %
+// of a contiguous copy's rate, so what is left is the repeats L2 misses.
+// What the design does about it:
+// - one warp per output row reads each of its K source rows whole (2,408
+//   bytes at F = 602: ten float2 loads a lane, all in flight at once), one
+//   row after another in k order, adding it into the output row's sums,
+//   which stay in registers; rows longer than 32 x kMeanFloats floats go in
+//   segments of that length;
+// - the row's K ids are loaded once, coalesced (lane k holds id k), and
+//   passed to the lanes by __shfl_sync (ids past 32 a run of 32 at a time);
+// - the sum is `acc += v / K` in k order, in float32, with IEEE division
+//   (no reciprocal, no fast math): the reference's `_kernel` order, bit
+//   for bit; for K = 1 too (0 + x / 1 is +0.0 where x is -0.0, which a
+//   row copy would not give);
+// - the output goes out by streaming stores (st.global.cs, evict first), so
+//   that it pushes fewer table rows out of L2 (0.5 % faster on the card).
+// Designs measured on the card and dropped (PERF.md; times against this
+// one's at (25,600, 10, 602)): all K loads of each 32-vector chunk of the
+// output row in flight before its adds (2.3x: a warp touches each source
+// row once per chunk, and ~320 distinct rows are in flight per SM); the
+// next row's loads issued before the current row's adds (96 registers,
+// half the warps: +24 %; with loads that skip L1 +33 %); rows in pairs (88
+// registers: +32 %); segments of 10 floats a lane (44 registers, two passes
+// over the K rows: +6 %); loads under an L2 evict_last policy (+1 %).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,6 +55,11 @@
 namespace {
 
 constexpr int kWarps = 8;  // output rows per block
+// floats of one source row a lane of the mean kernel holds: a row is read
+// in segments of 32 x kMeanFloats floats, one segment of every source row
+// in k order per output segment (kernels/feature_gather.py's
+// MEAN_LANE_FLOATS is the same number; 602 floats fit one segment)
+constexpr int kMeanFloats = 20;
 
 template <int VEC>
 struct Vec;
@@ -61,30 +93,62 @@ __device__ __forceinline__ void accum(float4& acc, float4 v, float k) {
   acc.w += v.w / k;
 }
 
-template <int VEC, bool MEAN>
+template <int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
-feature_gather_kernel(const float* __restrict__ table, int64_t vecs_per_row,
-                      const int32_t* __restrict__ ids, int64_t rows, int fanout,
-                      float* __restrict__ out) {
+feature_gather_rows_kernel(const float* __restrict__ table, int64_t vecs_per_row,
+                           const int32_t* __restrict__ ids, int64_t rows,
+                           float* __restrict__ out) {
   using T = typename Vec<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int64_t m = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (m >= rows) return;
   const T* __restrict__ src = reinterpret_cast<const T*>(table);
   T* __restrict__ dst = reinterpret_cast<T*>(out) + m * vecs_per_row;
-  if (!MEAN) {
-    const T* row = src + static_cast<int64_t>(ids[m]) * vecs_per_row;
+  const T* row = src + static_cast<int64_t>(ids[m]) * vecs_per_row;
 #pragma unroll 4
-    for (int64_t c = lane; c < vecs_per_row; c += 32) dst[c] = row[c];
-    return;
-  }
+  for (int64_t c = lane; c < vecs_per_row; c += 32) dst[c] = row[c];
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+feature_gather_mean_kernel(const float* __restrict__ table,
+                           int32_t vecs_per_row,
+                           const int32_t* __restrict__ ids, int64_t rows,
+                           int32_t fanout, float* __restrict__ out) {
+  using T = typename Vec<VEC>::T;
+  constexpr int C = kMeanFloats / VEC;  // vectors of a segment a lane holds
+  const int lane = threadIdx.x & 31;
+  const int64_t m = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (m >= rows) return;  // the whole warp: its shuffles stay full
+  const T* __restrict__ src = reinterpret_cast<const T*>(table);
+  T* __restrict__ dst = reinterpret_cast<T*>(out) + m * vecs_per_row;
   const int32_t* __restrict__ mids = ids + m * fanout;
+  // ids 0..31 of the row, lane k holding id k; ids 32.. are loaded a run of
+  // 32 at a time as the walk reaches them
+  const int32_t head = lane < fanout ? __ldg(mids + lane) : 0;
   const float k = static_cast<float>(fanout);
-  for (int64_t c = lane; c < vecs_per_row; c += 32) {
-    T acc = zero<T>();
-    for (int j = 0; j < fanout; ++j)
-      accum(acc, src[static_cast<int64_t>(mids[j]) * vecs_per_row + c], k);
-    dst[c] = acc;
+  for (int32_t s0 = 0; s0 < vecs_per_row; s0 += 32 * C) {
+    const int32_t left = vecs_per_row - s0 - lane;  // this lane's vectors
+    T acc[C], v[C];
+#pragma unroll
+    for (int u = 0; u < C; ++u) acc[u] = zero<T>();
+    int32_t held = head;
+    for (int32_t j = 0; j < fanout; ++j) {
+      if (j > 0 && (j & 31) == 0)
+        held = lane < fanout - j ? __ldg(mids + j + lane) : 0;
+      const int32_t id = __shfl_sync(0xffffffffu, held, j & 31);
+      const T* __restrict__ row = src + static_cast<int64_t>(id) * vecs_per_row + s0 + lane;
+      // the whole segment of row j in flight before its adds
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+        if (32 * u < left) v[u] = __ldg(row + 32 * u);
+#pragma unroll
+      for (int u = 0; u < C; ++u)
+        if (32 * u < left) accum(acc[u], v[u], k);
+    }
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+      if (32 * u < left) __stcs(dst + s0 + lane + 32 * u, acc[u]);
   }
 }
 
@@ -204,34 +268,41 @@ cudaError_t launch_cached(const float* cache, int64_t feat, const int32_t* slot_
 
 template <int VEC>
 cudaError_t launch(const float* table, int64_t feat, const int32_t* ids,
-                   int64_t rows, int fanout, float* out, cudaStream_t stream) {
+                   int64_t rows, int fanout, bool mean, float* out,
+                   cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((rows + kWarps - 1) / kWarps);
   const int64_t vecs = feat / VEC;
-  if (fanout == 1)
-    feature_gather_kernel<VEC, false><<<blocks, kWarps * 32, 0, stream>>>(
-        table, vecs, ids, rows, fanout, out);
+  if (mean)
+    feature_gather_mean_kernel<VEC><<<blocks, kWarps * 32, 0, stream>>>(
+        table, static_cast<int32_t>(vecs), ids, rows, fanout, out);
   else
-    feature_gather_kernel<VEC, true><<<blocks, kWarps * 32, 0, stream>>>(
-        table, vecs, ids, rows, fanout, out);
+    feature_gather_rows_kernel<VEC><<<blocks, kWarps * 32, 0, stream>>>(
+        table, vecs, ids, rows, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// ids: (rows, fanout) int32; out: (rows, feat) float32.  `vec` is 1, 2 or
-// 4 and must divide `feat`, with both pointers aligned to 4 * vec bytes.
+// ids: (rows, fanout) int32; out: (rows, feat) float32.  `mean` takes the
+// fanout mean (any fanout; 0 gives zeros), else the row copy (fanout 1).  `vec` is 1,
+// 2 or 4 and must divide `feat`, with both pointers aligned to 4 * vec
+// bytes; feat below 2**31.
 extern "C" int feature_gather_launch(const void* table, int64_t feat,
                                      const void* ids, int64_t rows, int fanout,
-                                     void* out, int vec, void* stream) {
+                                     int mean, void* out, int vec,
+                                     void* stream) {
   if (rows == 0 || feat == 0) return static_cast<int>(cudaSuccess);
+  if (feat >= (int64_t{1} << 31) || fanout < 0 || (!mean && fanout != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* t = static_cast<const float*>(table);
   const int32_t* i = static_cast<const int32_t*>(ids);
   float* o = static_cast<float*>(out);
+  const bool m = mean != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (vec) {
-    case 4: return static_cast<int>(launch<4>(t, feat, i, rows, fanout, o, s));
-    case 2: return static_cast<int>(launch<2>(t, feat, i, rows, fanout, o, s));
-    case 1: return static_cast<int>(launch<1>(t, feat, i, rows, fanout, o, s));
+    case 4: return static_cast<int>(launch<4>(t, feat, i, rows, fanout, m, o, s));
+    case 2: return static_cast<int>(launch<2>(t, feat, i, rows, fanout, m, o, s));
+    case 1: return static_cast<int>(launch<1>(t, feat, i, rows, fanout, m, o, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

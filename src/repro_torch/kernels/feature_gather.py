@@ -2,14 +2,17 @@
 row gather (``csrc/feature_gather.cu``).
 
 The counterparts of the reference's Pallas ``feature_gather_rows`` and
-``feature_gather_mean``, which share one body there and one kernel here,
+``feature_gather_mean``, which share one body there and one source here,
 and of ``feature_gather_cached``, which reads each row of the device
 feature cache through the node -> slot table: a warp per output row reads
-the gathered row straight from device memory with the widest vector load
-the row length allows (the cached kernel resolves a block's slots first
-and loads a whole row before storing it, in a grid of one wave).  The
-wrappers check
-their inputs, allocate the output and launch on the current stream; they
+the gathered rows straight from device memory with the widest vector load
+the row length allows.  The mean kernel loads a row's K ids once and
+reads the K source rows whole, one after another in k order (segments of
+``MEAN_LANE_FLOATS`` floats a lane, the next row's loads in flight while
+the current one is summed), keeping the output row's sums in registers,
+and writes it by streaming stores; the cached kernel resolves a block's slots first and loads a whole
+row before storing it, in a grid of one wave.  The wrappers check their
+inputs, allocate the output and launch on the current stream; they
 take CUDA tensors only (``kernels.ops`` sends CPU tensors to the plain
 versions in ``kernels.ref``).  Ids must lie in ``[0, N)``: checking them
 would cost a device round trip per call, and the sampler that produces
@@ -25,11 +28,14 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p)
+             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p)
 _CACHED_ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p)
+# floats of one source row a lane of the mean kernel holds (the kernel's
+# kMeanFloats): rows are read in segments of 32 lanes x this many floats
+MEAN_LANE_FLOATS = 20
 
 
 def _vec_width(table: torch.Tensor, out: torch.Tensor) -> int:
@@ -51,8 +57,8 @@ def _check_table(table: torch.Tensor, what: str) -> None:
                          f"{tuple(table.shape)} on {table.device}")
 
 
-def _gather(table: torch.Tensor, ids2d: torch.Tensor, what: str
-            ) -> torch.Tensor:
+def _gather(table: torch.Tensor, ids2d: torch.Tensor, what: str,
+            mean: bool) -> torch.Tensor:
     _check_table(table, what)
     if not (ids2d.is_cuda and ids2d.dtype == torch.int32
             and ids2d.is_contiguous()):
@@ -68,7 +74,7 @@ def _gather(table: torch.Tensor, ids2d: torch.Tensor, what: str
     fn = _build.function("feature_gather", "feature_gather_launch",
                          _ARGTYPES)
     stream = torch.cuda.current_stream(table.device).cuda_stream
-    _build.check(fn(table.data_ptr(), F, ids2d.data_ptr(), M, K,
+    _build.check(fn(table.data_ptr(), F, ids2d.data_ptr(), M, K, int(mean),
                     out.data_ptr(), _vec_width(table, out), stream), what)
     LAUNCHES[what] += 1
     return out
@@ -80,7 +86,7 @@ def feature_gather_rows(table: torch.Tensor, ids: torch.Tensor
     if ids.dim() != 1:
         raise ValueError(f"feature_gather_rows: ids must be 1-d, got "
                          f"{tuple(ids.shape)}")
-    return _gather(table, ids[:, None], "feature_gather_rows")
+    return _gather(table, ids[:, None], "feature_gather_rows", mean=False)
 
 
 def feature_gather_mean(table: torch.Tensor, ids: torch.Tensor
@@ -90,7 +96,7 @@ def feature_gather_mean(table: torch.Tensor, ids: torch.Tensor
     if ids.dim() != 2:
         raise ValueError(f"feature_gather_mean: ids must be 2-d, got "
                          f"{tuple(ids.shape)}")
-    return _gather(table, ids, "feature_gather_mean")
+    return _gather(table, ids, "feature_gather_mean", mean=True)
 
 
 def feature_gather_cached(cache: torch.Tensor, slot_of: torch.Tensor,

@@ -5,10 +5,11 @@ The counterparts of the reference's Pallas ``neighbor_sample`` and
 target's CSR offsets and the one sampled neighbour directly -- from the
 edge array, or, in the cached variant, from the ``(C, block_e)`` edge-block
 cache through the ``block_slots`` indirection -- so no edge-block staging
-and no degree limit.  The cached kernel divides by the fanout and by
-``block_e`` with multipliers from ``fast_divisor`` and stages a slot table
-of up to ``SLOT_BUDGET`` entries in shared memory (``cached_launch_params``
-picks the instance).  The wrappers check their inputs, allocate the
+and no degree limit.  Both kernels divide by the fanout (the cached one
+also by ``block_e``) with multipliers from ``fast_divisor`` and index in 32
+bits (``launch_params`` and ``cached_launch_params`` refuse what does not
+fit); the cached one stages a slot table of up to ``SLOT_BUDGET`` entries
+in shared memory (``cached_launch_params`` picks the instance).  The wrappers check their inputs, allocate the
 output and launch on the current stream; they take CUDA tensors only
 (``kernels.ops`` sends CPU tensors to the plain versions in
 ``kernels.ref``).  Targets must lie in ``[0, N)``, ``indptr`` must be a
@@ -31,7 +32,8 @@ from repro_torch.kernels import LAUNCHES, _build
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_void_p)
 _CACHED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                     ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
@@ -41,7 +43,7 @@ _CACHED_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
 # slot-table entries the cached kernel stages in shared memory (the
 # kernel's kSlotBudget); a longer table is read from global memory
 SLOT_BUDGET = 4096
-# numerators of the cached kernel's divisions lie below this
+# the kernels' numerators and indices lie below this
 _NUMERATOR_LIMIT = 1 << 31
 
 
@@ -59,15 +61,31 @@ def fast_divisor(d: int) -> tuple[int, int]:
     return -(-(1 << shift) // d), shift
 
 
+def _outputs(num_targets: int, fanout: int, name: str) -> int:
+    total = num_targets * fanout
+    if total >= _NUMERATOR_LIMIT:
+        raise ValueError(f"{name}: {num_targets} x {fanout} outputs, the "
+                         "kernel takes fewer than 2**31")
+    return total
+
+
+def launch_params(num_targets: int, fanout: int, num_edges: int) -> dict:
+    """The host-side arguments of ``neighbor_sample``'s launch: the output
+    count and the fanout divisor's (mul, shift) pair.  The kernel indexes
+    in 32 bits: fewer than 2**31 outputs and edges."""
+    total = _outputs(num_targets, fanout, "neighbor_sample")
+    if num_edges >= _NUMERATOR_LIMIT:
+        raise ValueError(f"neighbor_sample: {num_edges} edges, the kernel "
+                         "takes fewer than 2**31")
+    return {"total": total, "fanout": fast_divisor(max(fanout, 1))}
+
+
 def cached_launch_params(num_targets: int, fanout: int, num_slots: int,
                          block_e: int) -> dict:
     """The host-side arguments of the cached kernel's launch: the output
     count, the divisors' (mul, shift) pairs and whether the slot table is
     staged in shared memory (at most ``SLOT_BUDGET`` entries)."""
-    total = num_targets * fanout
-    if total >= _NUMERATOR_LIMIT:
-        raise ValueError(f"neighbor_sample_cached: {num_targets} x {fanout} "
-                         "outputs, the kernel takes fewer than 2**31")
+    total = _outputs(num_targets, fanout, "neighbor_sample_cached")
     return {"total": total, "fanout": fast_divisor(max(fanout, 1)),
             "block_e": fast_divisor(block_e),
             "staged": num_slots <= SLOT_BUDGET}
@@ -118,12 +136,13 @@ def neighbor_sample(indptr: torch.Tensor, indices: torch.Tensor,
     out = torch.empty((M, S), dtype=torch.int32, device=rand.device)
     if out.numel() == 0:
         return out
+    p = launch_params(M, S, indices.shape[0])
     fn = _build.function("neighbor_sample", "neighbor_sample_launch",
                          _ARGTYPES)
     stream = torch.cuda.current_stream(rand.device).cuda_stream
     _build.check(fn(indptr.data_ptr(), indices.data_ptr(), indices.shape[0],
                     targets.data_ptr(), rand.data_ptr(), out.data_ptr(), M, S,
-                    stream), "neighbor_sample")
+                    *p["fanout"], stream), "neighbor_sample")
     LAUNCHES["neighbor_sample"] += 1
     return out
 

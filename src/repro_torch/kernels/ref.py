@@ -36,12 +36,15 @@ def neighbor_sample(indptr, indices, targets, rand):
 def feature_gather_mean(table, ids):
     """table: (N, F); ids: (M, K) int -> (M, F) fanout mean, accumulated
     in float32 as ``acc += row_k / K`` in k order (the Pallas body's
-    order) and cast to the table's type."""
+    order) and cast to the table's type.  The divisor is a tensor on the
+    table's device: ATen divides a CUDA tensor by a Python scalar as a
+    multiply by its reciprocal, which is not the true division."""
     K = ids.shape[1]
     acc = torch.zeros(ids.shape[0], table.shape[1], dtype=torch.float32,
                       device=table.device)
+    div = torch.tensor(float(K), dtype=torch.float32, device=table.device)
     for k in range(K):
-        acc += table[ids[:, k].long()].float() / K
+        acc += table[ids[:, k].long()].float() / div
     return acc.to(table.dtype)
 
 

@@ -125,7 +125,29 @@ Phases, in order; any failure raises and the script exits nonzero:
      the counters reset just before each; finite logits; prefill ms,
      decode ms per step and tok/s;
   18. where mamba2-370m's serving time goes, as phase 12;
-  19. a JSON line of the kernels' numbers (the GNN's per launch, with
+  19. the spec files on the card: the five ``benchmarks/specs/*.json``
+     the port runs (``smoke_pallas``, ``smoke_pallas_devcache_disk``,
+     ``smoke_pallas_edgecache``, ``train_pallas_outofcore`` and
+     ``smoke_pallas_overlap``) through ``repro_torch.launch.train.main
+     --spec ... --dataset reddit --steps 4``, each on the card and with
+     ``--device cpu``, the model in float32 on both: finite losses within
+     1e-5 of the CPU's, batch 0 of ``build_pipeline(spec)`` bit-equal
+     between card and CPU, the kernels the spec implies launched (the
+     cached ones where it has a device tier, ``neighbor_sample`` only
+     without an edge tier) and a ``DiskStore`` opened where it says
+     ``disk``; ``smoke_pallas_optimal`` refused with its ROADMAP item;
+  20. the overlapped out-of-core path at full width: phase 8's command
+     with ``--io-threads 4``, once synchronously and once with
+     ``--prefetch 2 --overlap 1 --stage-depth 2 --plan-ahead 2``; batches
+     0-7 equal in hop ids, features, labels, per-batch kernel launches
+     and the ``trace.io`` counters that do not depend on how the lanes
+     interleave over the shared page cache (devcache, edgecache, faults,
+     store requests and blocks touched); equal losses; the kernels
+     launched from the lanes only; no lane restart and no degrade; then
+     3 timed runs of each mode in turns (steps/s, consumer idle, host
+     seconds per stage), again with one pread thread, and both modes'
+     device busy share over two profiled steps;
+  21. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them), the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
@@ -134,7 +156,11 @@ It needs one CUDA device and exits nonzero without one.  Details go to
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import functools
+import io
 import json
 import math
 import os
@@ -144,6 +170,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -152,10 +179,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import kernels, rng  # noqa: E402
-from repro_torch.core import (DeviceTierSpec, GNNConfig,  # noqa: E402
-                              GraphSAGE, PallasSubgraphLoader,
-                              attach_features, build_train_step,
-                              load_dataset, rmat_graph, train_loop)
+from repro_torch.core import (CacheTierSpec, GNNConfig,  # noqa: E402
+                              GraphSAGE, PallasSubgraphLoader, PipelineSpec,
+                              attach_features, build_pipeline,
+                              build_train_step, load_dataset, rmat_graph,
+                              train_loop)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.feature_gather import (  # noqa: E402
     feature_gather_cached, feature_gather_mean, feature_gather_rows)
@@ -191,6 +219,22 @@ RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
 # the out-of-core configuration: page cache (MB), device feature rows,
 # device edge blocks, device policy
 OOC_CACHE_MB, OOC_ROWS, OOC_BLOCKS, OOC_POLICY = 4, 4096, 128, "pinned"
+OOC_TIER = CacheTierSpec.device(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
+                                policy=OOC_POLICY)
+# the spec files the port runs (phase 19), the one it refuses and the
+# ROADMAP item that one waits on; the overlapped run's flags (phase 20)
+# and the timed runs of each mode
+PORTED_SPECS = ("smoke_pallas", "smoke_pallas_devcache_disk",
+                "smoke_pallas_edgecache", "train_pallas_outofcore",
+                "smoke_pallas_overlap")
+REFUSED_SPEC, REFUSED_ITEM = "smoke_pallas_optimal", 9
+SPEC_STEPS = 4
+OVERLAP_FLAGS = ["--prefetch", "2", "--overlap", "1", "--stage-depth", "2",
+                 "--plan-ahead", "2"]
+OVERLAP_RUNS = ("sync", "overlap", "overlap", "sync", "sync", "overlap")
+# the pread pool sizes timed: the checked configuration's 4, and 1 (phase
+# 8's), which separates the pool's threads from the lanes' in the timing
+PREAD_THREADS = (4, 1)
 DEVICE = "cuda"
 # LM serving: the arch, the entry point's batch, prompt and generation,
 # and the card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
@@ -535,12 +579,12 @@ def ooc_plan(g, t, flat1, uniq):
         g, indptr=np.asarray(g.indptr, np.int64),
         block_e=ops.edge_block_size(int(g.degrees().max())),
         blocks=OOC_BLOCKS, policy=OOC_POLICY,
-        pinned_fraction=DeviceTierSpec().pinned_fraction, device="cpu")
+        pinned_fraction=OOC_TIER.pinned_fraction, device="cpu")
     chunks = [(hop, sl) for hop, f in enumerate((t, flat1))
               for sl, _ in ec.plan(f.cpu().numpy())]
     dc = DeviceFeatureCache(
         g, rows=OOC_ROWS, policy=OOC_POLICY,
-        pinned_fraction=DeviceTierSpec().pinned_fraction, device="cpu")
+        pinned_fraction=OOC_TIER.pinned_fraction, device="cpu")
     plan = dc.plan_rows(pad_pow2(uniq, uniq[-1]), n_valid=uniq.size)
     return chunks, [ps.ids for ps in plan.segments]
 
@@ -969,11 +1013,10 @@ def ooc_loader(g, store_dir: str, device):
     """The out-of-core loader of the slice's main path over a fresh
     ``DiskStore`` on ``store_dir``; returns (loader, store)."""
     store = DiskStore(store_dir, cache_mb=OOC_CACHE_MB)
-    tier = DeviceTierSpec(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
-                          policy=OOC_POLICY)
     return PallasSubgraphLoader(g, batch_size=BATCH, fanouts=FANOUTS, seed=0,
                                 device=device, store=store,
-                                device_tier=tier), store
+                                device_cache=OOC_TIER,
+                                edge_cache=OOC_TIER), store
 
 
 def ooc_parity_phase(g, store_dir: str) -> dict:
@@ -1055,6 +1098,278 @@ def ooc_stage_phase(g, store_dir: str) -> dict:
           "device ops/step")
     print_profile(prof)
     return {"stage_ms_median": ms, "stage_ms": split, "profile": prof}
+
+
+def _spec_path(name: str) -> str:
+    return os.path.join(HERE, "benchmarks", "specs", f"{name}.json")
+
+
+def spec_phase() -> dict:
+    """Phase 19: the spec files the port runs, through the entry point on
+    the card and on the CPU.  The model computes in float32 on both (in
+    bf16 the two devices' sums round apart), with TF32 off."""
+    g = load_dataset("reddit")
+    out = {}
+    real_sage, tf32 = train.GraphSAGE, torch.backends.cuda.matmul.allow_tf32
+    train.GraphSAGE = functools.partial(real_sage,
+                                        compute_dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name in PORTED_SPECS:
+            path = _spec_path(name)
+            spec = PipelineSpec.load(path)
+            ids = {}
+            for dev in (DEVICE, "cpu"):
+                with build_pipeline(spec, g, device=dev) as pipe:
+                    ids[dev] = [h.cpu() for h in pipe.get_batch(0).hop_ids]
+            check(all(torch.equal(a, b)
+                      for a, b in zip(ids[DEVICE], ids["cpu"])),
+                  f"{name}: batch 0's ids differ between card and CPU")
+            runs = {}
+            for dev in (DEVICE, "cpu"):
+                kernels.reset_launches()
+                _, losses, lstats = train.main([
+                    "--arch", "graphsage", "--spec", path, "--dataset",
+                    "reddit", "--steps", str(SPEC_STEPS), "--log-every",
+                    str(SPEC_STEPS), "--device", dev])
+                runs[dev] = {"losses": losses,
+                             "launches": dict(kernels.LAUNCHES),
+                             "store": lstats.get("store", {}).get("kind"),
+                             "restarts": lstats.get("prefetch_restarts"),
+                             "degraded": lstats.get("degraded")}
+            card, cpu = runs[DEVICE], runs["cpu"]
+            check(len(card["losses"]) == SPEC_STEPS
+                  and all(math.isfinite(x) for x in card["losses"]),
+                  f"{name}: losses {card['losses']}")
+            check(np.allclose(card["losses"], cpu["losses"], rtol=1e-5,
+                              atol=1e-5), f"{name}: losses card "
+                  f"{card['losses']} vs CPU {cpu['losses']}")
+            check(not any(cpu["launches"].values()),
+                  f"{name}: the CPU run launched {cpu['launches']}")
+            n = card["launches"]
+            tier = spec.device_cache_tier()
+            feats = tier is not None and "features" in tier.arrays
+            edges = tier is not None and "topology" in tier.arrays
+            check((n["feature_gather_cached"] > 0) == feats
+                  and n["feature_gather_rows"] > 0,
+                  f"{name}: feature kernels launched {n}")
+            check((n["neighbor_sample_cached"] > 0) == edges
+                  and (n["neighbor_sample"] > 0) == (not edges),
+                  f"{name}: sampling kernels launched {n}")
+            disk = spec.store.kind == "disk" and tier is not None
+            check((card["store"] == "disk") == disk,
+                  f"{name}: store {card['store']}, spec {spec.store.kind}")
+            if spec.prefetch.overlap:
+                check(card["restarts"] == 0 and card["degraded"] is False,
+                      f"{name}: {card['restarts']} restarts, degraded "
+                      f"{card['degraded']}")
+            diff = max(abs(a - b) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+            print(f"[smoke] phase 19: {name}: losses {card['losses']} "
+                  f"(max diff to the CPU {diff:g}), launches "
+                  f"{ {k: v for k, v in n.items() if v} }, store "
+                  f"{card['store']}, batch 0 ids equal")
+            out[name] = {"runs": runs, "max_loss_diff": diff}
+    finally:
+        train.GraphSAGE = real_sage
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    path = _spec_path(REFUSED_SPEC)
+    err = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(err):
+        try:
+            train.main(["--arch", "graphsage", "--spec", path, "--device",
+                        DEVICE])
+        except SystemExit as e:
+            code = e.code
+    msg = err.getvalue().strip().splitlines()[-1]
+    check(code == 2 and f"ROADMAP item {REFUSED_ITEM}" in msg,
+          f"{REFUSED_SPEC}: exit {code}, {msg!r}")
+    print(f"[smoke] phase 19: {REFUSED_SPEC} refused: {msg}")
+    out[REFUSED_SPEC] = {"exit": code, "error": msg}
+    return out
+
+
+def _recording(build, into: list):
+    """``build_pipeline`` whose pipelines record every batch the consumer
+    takes: device copies of its hop ids, features and labels, its
+    ``trace.io`` and its kernel launches."""
+    def built(*a, **kw):
+        pipe = build(*a, **kw)
+        get = pipe.get_batch
+
+        def get_batch(idx, **kw2):
+            mb = get(idx, **kw2)
+            into.append({"idx": idx,
+                         "tensors": [t.clone() for t in
+                                     mb.hop_ids + mb.hop_feats + [mb.labels]],
+                         "io": copy.deepcopy(mb.trace.io),
+                         "launches": dict(mb.launches)})
+            return mb
+
+        pipe.get_batch = get_batch
+        return pipe
+    return built
+
+
+def _io_fixed(io_: dict) -> dict:
+    """The per-batch counters that the lanes' interleaving cannot move:
+    the two device caches' (planned serially in batch order), the fault
+    counters, the store's requests and the blocks they touched (a block
+    read hits or misses the shared page cache depending on which lane
+    reached it first, so only hits + misses is fixed)."""
+    return {"devcache": io_.get("devcache"), "edgecache": io_.get("edgecache"),
+            "faults": io_.get("faults"), "requests": io_["requests"],
+            "blocks_touched": io_["hits"] + io_["misses"]}
+
+
+def overlap_phase(g, argv_ooc: list) -> dict:
+    """Phase 20: the out-of-core entry point at full width, synchronous
+    and overlapped; equal batches, counters, launches and losses; then
+    both modes timed in turns and profiled."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-overlap-") as sdir:
+        save_graph(g, sdir)
+        def with_pool(n: int) -> list:
+            return argv_ooc + ["--io-threads", str(n), "--store-dir", sdir]
+
+        argv = with_pool(PREAD_THREADS[0])
+        real_build = train.build_pipeline
+        runs, batches = {}, {}
+        try:
+            for mode in ("sync", "overlap"):
+                rec = batches[mode] = []
+                train.build_pipeline = _recording(real_build, rec)
+                kernels.reset_launches()
+                mine = kernels.thread_launches()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    stats, losses, lstats = train.main(
+                        argv + (OVERLAP_FLAGS if mode == "overlap" else []))
+                after = kernels.thread_launches()
+                runs[mode] = {
+                    "losses": losses, "steps_per_s": stats.steps_per_s,
+                    "idle_fraction": stats.idle_fraction,
+                    "launches": dict(kernels.LAUNCHES),
+                    "consumer_launches": {k: after[k] - mine[k]
+                                          for k in after},
+                    "loader": lstats,
+                    "warnings": [str(w.message) for w in caught]}
+        finally:
+            train.build_pipeline = real_build
+        sync, over = runs["sync"], runs["overlap"]
+        for mode, rec in batches.items():
+            check([b["idx"] for b in rec] == list(range(8)),
+                  f"{mode}: batches {[b['idx'] for b in rec]}")
+        per_batch = {}
+        for a, b in zip(batches["sync"], batches["overlap"]):
+            i = a["idx"]
+            check(all(torch.equal(x, y)
+                      for x, y in zip(a["tensors"], b["tensors"])),
+                  f"batch {i}: a tensor differs between sync and overlap")
+            check(_io_fixed(a["io"]) == _io_fixed(b["io"]),
+                  f"batch {i}: counters {_io_fixed(a['io'])} sync, "
+                  f"{_io_fixed(b['io'])} overlapped")
+            check(a["launches"] == b["launches"],
+                  f"batch {i}: launches {a['launches']} sync, "
+                  f"{b['launches']} overlapped")
+            per_batch[i] = {"io_sync": a["io"], "io_overlap": b["io"],
+                            "io_equal": a["io"] == b["io"],
+                            "launches": a["launches"]}
+        summed = {}
+        for b in batches["sync"]:
+            for k, v in b["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        del batches
+        torch.cuda.empty_cache()
+        check(sync["losses"] == over["losses"],
+              f"losses {sync['losses']} sync, {over['losses']} overlapped")
+        gnn = ("neighbor_sample", "neighbor_sample_cached",
+               "feature_gather_rows", "feature_gather_cached")
+        check({k: sync["launches"][k] for k in gnn}
+              == {k: summed.get(k, 0) for k in gnn},
+              f"sync launches {sync['launches']} vs per-batch sums {summed}")
+        check(summed.get("neighbor_sample_cached", 0) > 0
+              and summed.get("feature_gather_cached", 0) > 0
+              and summed.get("feature_gather_rows", 0) > 0
+              and not summed.get("neighbor_sample"),
+              f"launches per batch {summed}")
+        check(not any(over["consumer_launches"].values()),
+              f"the consumer launched {over['consumer_launches']}")
+        check(all(over["launches"][k] >= summed.get(k, 0) for k in gnn),
+              f"overlapped launches {over['launches']} below {summed}")
+        ls = over["loader"]
+        check(ls["prefetch_restarts"] == 0 and ls["lane_stall_restarts"] == 0
+              and ls["lane_failures"] == 0 and ls["degraded"] is False,
+              f"lanes: {ls['prefetch_restarts']} restarts, "
+              f"{ls['lane_stall_restarts']} watchdog restarts, "
+              f"{ls['lane_failures']} failures, degraded {ls['degraded']}")
+        planner = [w for w in over["warnings"] if "plan_ahead" in w]
+        io_equal = sum(v["io_equal"] for v in per_batch.values())
+        print(f"[smoke] phase 20: 8 batches equal sync vs overlapped (ids, "
+              f"features, labels, launches, fixed counters; whole trace.io "
+              f"equal in {io_equal} of 8), losses equal {over['losses']}, "
+              f"launches per 8 batches {summed}, overlapped run's total "
+              f"{ {k: over['launches'][k] for k in gnn} }, none from the "
+              f"consumer; restarts 0, not degraded; planner plan_ahead "
+              f"{ls['plan_ahead']} of 2"
+              + (f" ({planner[0]})" if planner else ""))
+
+        timed = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for n, mode in ((n, m) for n in PREAD_THREADS
+                            for m in OVERLAP_RUNS):
+                stats, _, lstats = train.main(with_pool(n) + (
+                    OVERLAP_FLAGS if mode == "overlap" else []))
+                timed.setdefault(f"{mode}, io_threads {n}", []).append({
+                    "steps_per_s": stats.steps_per_s,
+                    "idle_fraction": stats.idle_fraction,
+                    "stage_mean_s": lstats["stage_mean_s"],
+                    "overlap_factor": lstats.get("overlap_factor")})
+        medians = {mode: {
+            "steps_per_s": statistics.median(r["steps_per_s"] for r in rs),
+            "idle_fraction": statistics.median(r["idle_fraction"]
+                                               for r in rs),
+            "stage_mean_s": {k: statistics.median(r["stage_mean_s"][k]
+                                                  for r in rs)
+                             for k in rs[0]["stage_mean_s"]}}
+            for mode, rs in timed.items()}
+
+        profiles = {}
+        for mode in ("sync", "overlap"):
+            spec = train.parse_args(argv + (
+                OVERLAP_FLAGS if mode == "overlap" else [])).pipeline_spec
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                pipe = build_pipeline(spec, g, device=DEVICE)
+            try:
+                cfg = GNNConfig(feat_dim=g.feat_dim, hidden=256,
+                                n_classes=int(g.labels.max()) + 1,
+                                fanouts=FANOUTS)
+                model = GraphSAGE(cfg, device=DEVICE)
+                opt = adamw(1e-3)
+                step = build_train_step(pipe, model, opt)
+                state = {"opt": opt.init(dict(model.named_parameters())),
+                         "step": 0}
+                state, _ = train_loop(pipe, step, state, steps=4)
+                profiles[mode] = device_profile(lambda: train_loop(
+                    pipe, step, state, start=4, steps=6), 2)
+            finally:
+                pipe.close()
+    for key, m in medians.items():
+        print(f"[smoke] phase 20: {key}: median of 3 runs "
+              f"{m['steps_per_s']:.4f} steps/s, consumer idle "
+              f"{m['idle_fraction']:.4f}, host s/batch by stage "
+              f"{m['stage_mean_s']}")
+    for mode, pr in profiles.items():
+        print(f"[smoke] phase 20: {mode}: profiled "
+              f"{pr['profiled_ms_per_step']:.3f} ms/step, device busy "
+              f"{pr['device_busy_ms_per_step']} ms/step (share "
+              f"{pr['device_busy_share']})")
+    return {"argv": argv, "overlap_flags": OVERLAP_FLAGS, "runs": runs,
+            "per_batch": per_batch, "launches_per_8_batches": summed,
+            "planner_warnings": planner, "timed": timed, "medians": medians,
+            "profiles": profiles}
 
 
 def _sdpa(q, k, v, **kw):
@@ -1920,6 +2235,10 @@ def main() -> int:
     ssm_parity = ssm_parity_phase()
     ssm_served = ssm_serve_phase()
     ssm_prof = serve_profile_phase("mamba2-370m", SSM_GEN["mamba2-370m"], 18)
+    torch.cuda.empty_cache()
+
+    specs = spec_phase()
+    overlap = overlap_phase(reddit, argv_ooc)
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -2008,6 +2327,7 @@ def main() -> int:
                "train_profile": train_prof,
                "ssm_parity": ssm_parity, "ssm_serve": ssm_served,
                "ssm_serve_profile": ssm_prof,
+               "specs": specs, "overlap": overlap,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

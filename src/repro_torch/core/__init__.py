@@ -1,21 +1,38 @@
-"""SmartSAGE core in PyTorch: graphs, the GraphSAGE model, the kernel
-data plane (in memory or out of core through device caches) and the
-training loop (the ``pallas`` path of the reference's ``repro.core``)."""
+"""SmartSAGE core in PyTorch: graphs, the GraphSAGE model, the
+declarative data-plane spec (``config``), the kernel data plane (in memory
+or out of core through device caches), its prefetching and overlapped
+pipelines and the training loop (the ``pallas`` path of the reference's
+``repro.core``)."""
 
+from repro_torch.core.config import (BackendSpec, CacheTierSpec, IspSpec,
+                                     ObsSpec, Pipeline, PipelineSpec,
+                                     PrefetchSpec, SamplerSpec, StoreSpec,
+                                     add_pipeline_args, build_pipeline,
+                                     check_ported,
+                                     fill_pipeline_flag_defaults,
+                                     spec_from_args)
 from repro_torch.core.gnn import GNNConfig, GraphSAGE, build_defs, gnn_loss_fn
 from repro_torch.core.graph import (CSRGraph, DATASETS, attach_features,
                                     edges_to_csr, kronecker_expand,
                                     load_dataset, read_edge_blocks,
                                     rmat_graph)
-from repro_torch.core.loader import (LOADERS, DeviceTierSpec, Minibatch,
+from repro_torch.core.loader import (LOADERS, Minibatch,
                                      PallasSubgraphLoader, RunStats,
                                      batch_targets, build_train_step,
-                                     register_loader, train_loop)
+                                     make_loader, register_loader,
+                                     train_loop)
+from repro_torch.core.pipeline import (OverlappedLoader, PipelineStats,
+                                       PrefetchingLoader)
 from repro_torch.core.sampler import SampleTrace
 
-__all__ = ["CSRGraph", "DATASETS", "DeviceTierSpec", "GNNConfig",
-           "GraphSAGE", "LOADERS", "Minibatch", "PallasSubgraphLoader",
-           "RunStats", "SampleTrace", "attach_features", "batch_targets",
-           "build_defs", "build_train_step", "edges_to_csr", "gnn_loss_fn",
-           "kronecker_expand", "load_dataset", "read_edge_blocks",
-           "register_loader", "rmat_graph", "train_loop"]
+__all__ = ["BackendSpec", "CSRGraph", "CacheTierSpec", "DATASETS",
+           "GNNConfig", "GraphSAGE", "IspSpec", "LOADERS", "Minibatch",
+           "ObsSpec", "OverlappedLoader", "PallasSubgraphLoader", "Pipeline",
+           "PipelineSpec", "PipelineStats", "PrefetchSpec",
+           "PrefetchingLoader", "RunStats", "SampleTrace", "SamplerSpec",
+           "StoreSpec", "add_pipeline_args", "attach_features",
+           "batch_targets", "build_defs", "build_pipeline",
+           "build_train_step", "check_ported", "edges_to_csr",
+           "fill_pipeline_flag_defaults", "gnn_loss_fn", "kronecker_expand",
+           "load_dataset", "make_loader", "read_edge_blocks",
+           "register_loader", "rmat_graph", "spec_from_args", "train_loop"]

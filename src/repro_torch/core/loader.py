@@ -8,13 +8,20 @@ PyTorch versions on the CPU, as the tests run it).
 
 Out of core, the graph is read through a ``GraphStore`` (``store=``,
 typically a ``DiskStore`` behind its page cache) and either array family
-can sit behind a device cache instead of a full upload
-(``DeviceTierSpec``): feature rows behind a ``DeviceFeatureCache`` read by
-``feature_gather_cached``, edge blocks behind a ``DeviceEdgeBlockCache``
-read by ``neighbor_sample_cached``.  That path is the reference's staged
-composition, sample -> resolve -> admit, run back to back; each batch's
-``Minibatch.trace.io`` holds its exact store, devcache and edgecache
-counters.
+can sit behind a device cache tier (``core.config.CacheTierSpec``)
+instead of a full upload: feature rows behind a ``DeviceFeatureCache``
+read by ``feature_gather_cached``, edge blocks behind a
+``DeviceEdgeBlockCache`` read by ``neighbor_sample_cached``.  That path
+is the reference's staged composition, sample -> resolve -> admit, run
+back to back here or on the lanes of ``core.pipeline.OverlappedLoader``;
+each batch's ``Minibatch.trace.io`` holds its exact store, devcache and
+edgecache counters, and ``Minibatch.launches`` the kernel launches its
+stages made.
+
+``_build_loader`` builds the loader a ``PipelineSpec`` describes
+(``core.config.build_pipeline`` is the entry point), wrapped in a
+``PrefetchingLoader`` or an ``OverlappedLoader`` when the spec prefetches;
+``make_loader`` is the reference's keyword shim over it.
 
 Randomness matches the reference exactly: targets of batch ``i`` come
 from ``np.random.default_rng(seed + i)``, and sampling bits from the
@@ -28,15 +35,20 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from repro_torch import rng
+from repro_torch import kernels, rng
+from repro_torch.core.config import (BackendSpec, CacheTierSpec,
+                                     PipelineSpec, PrefetchSpec, SamplerSpec,
+                                     StoreSpec)
 from repro_torch.core.gnn import gnn_loss_fn
 from repro_torch.core.graph import CSRGraph
-from repro_torch.core.sampler import SampleTrace, _io_delta, _io_snapshot
+from repro_torch.core.sampler import (DEFAULT_FANOUTS, SampleTrace,
+                                      _io_delta, _io_snapshot)
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import idle_fraction as _idle_fraction
 from repro_torch.storage import store as _store
@@ -54,6 +66,8 @@ class Minibatch:
     hop_feats: hop_feats[t] has shape (M, f1, ..., ft, F) -- their features.
     labels:    (M,) int32.
     trace:     the batch's storage-access record (out-of-core path only).
+    launches:  kernel launches the batch's preparation made, by kernel
+               (counted per thread, so exact on the overlapped lanes).
     """
 
     targets: np.ndarray
@@ -61,32 +75,7 @@ class Minibatch:
     hop_feats: list
     labels: torch.Tensor
     trace: SampleTrace | None = None
-
-
-@dataclasses.dataclass(frozen=True)
-class DeviceTierSpec:
-    """The device cache tier of the pallas backend: ``rows`` feature rows
-    behind a ``DeviceFeatureCache`` and/or ``edge_blocks`` edge blocks
-    behind a ``DeviceEdgeBlockCache`` (0 = that array is uploaded whole),
-    placed by ``policy`` (``lru``, or ``pinned`` with ``pinned_fraction``
-    of the capacity staged by degree).  The fields of the reference's
-    device ``CacheTierSpec``, until the port has ``core/config.py``."""
-
-    rows: int = 0
-    edge_blocks: int = 0
-    policy: str = "lru"
-    pinned_fraction: float = 0.5
-
-    def __post_init__(self):
-        if self.rows < 0 or self.edge_blocks < 0:
-            raise ValueError("device cache rows and edge_blocks must be "
-                             ">= 0")
-        if self.policy not in ("lru", "pinned"):
-            raise ValueError(f"device cache policy must be 'lru' or "
-                             f"'pinned', got {self.policy!r}")
-        if not 0.0 <= self.pinned_fraction <= 1.0:
-            raise ValueError("device cache pinned_fraction must be in "
-                             "[0, 1]")
+    launches: dict | None = None
 
 
 LOADERS: dict[str, type] = {}
@@ -98,6 +87,126 @@ def register_loader(name: str):
         LOADERS[name] = cls
         return cls
     return deco
+
+
+def make_loader(name: str, g: CSRGraph | None, *, batch_size: int = 64,
+                fanouts: Sequence[int] = DEFAULT_FANOUTS, seed: int = 0,
+                prefetch: int = 0, store=None, device_cache=None,
+                device="cuda"):
+    """The reference's keyword shim over the spec API: assembles the
+    ``PipelineSpec`` its arguments describe and returns the bare loader
+    (``core.config.build_pipeline`` is the entry point).
+    ``device_cache`` (a ``storage.specs.DeviceCacheSpec`` or anything
+    with its fields, ``edge_blocks`` optional) becomes a device
+    ``CacheTierSpec``; ``store`` stays a live object and the spec
+    records only its kind."""
+    if name not in LOADERS:
+        raise KeyError(f"unknown backend {name!r}; have {sorted(LOADERS)}")
+    tiers = []
+    if device_cache is not None and (
+            getattr(device_cache, "rows", 0)
+            or getattr(device_cache, "edge_blocks", 0)):
+        tiers.append(CacheTierSpec.device(
+            rows=getattr(device_cache, "rows", 0),
+            edge_blocks=getattr(device_cache, "edge_blocks", 0),
+            policy=device_cache.policy,
+            pinned_fraction=device_cache.pinned_fraction,
+            oracle_window=getattr(device_cache, "oracle_window", 0)))
+    spec = PipelineSpec(
+        backend=BackendSpec(name=name),
+        sampler=SamplerSpec(fanouts=tuple(fanouts)),
+        store=StoreSpec(kind=getattr(store, "kind", "mem")),
+        cache_tiers=tuple(tiers), prefetch=PrefetchSpec(depth=prefetch),
+        batch_size=batch_size, seed=seed)
+    return _build_loader(spec, g=g, store=store, device=device)
+
+
+def _build_loader(spec: PipelineSpec, *, g: CSRGraph | None, store=None,
+                  device="cuda"):
+    """Construct the loader a validated spec describes, on ``device``.
+
+    ``store`` selects where graph data is read from; without ``g`` the
+    graph is materialized from it, with a loud warning (that loads the
+    whole store into DRAM), leaving the feature table on disk when a
+    device feature-cache tier fetches rows on demand anyway."""
+    name = spec.backend.name
+    if name not in LOADERS:
+        raise KeyError(f"unknown backend {name!r}; have {sorted(LOADERS)}")
+    feature_cache = spec.feature_cache()
+    edge_cache = spec.topology_cache()
+    if g is None and store is not None:
+        skip_features = feature_cache is not None
+        nbytes = getattr(store, "nbytes_on_disk", lambda: 0)()
+        warnings.warn(
+            f"materializing the full graph from the {store.kind!r} store "
+            f"into DRAM for the {name!r} backend"
+            + (f" (~{nbytes / 2**20:.0f} MB on disk"
+               + (", feature table left on disk for the device cache)"
+                  if skip_features else ")") if nbytes else "")
+            + "; pass the CSRGraph directly to avoid the copy",
+            stacklevel=3)
+        if getattr(store, "kind", None) == "disk":
+            g = store.to_csr(include_features=not skip_features)
+        else:
+            g = store.to_csr()
+    loader = LOADERS[name](g, batch_size=spec.batch_size,
+                           fanouts=spec.sampler.fanouts, seed=spec.seed,
+                           device=device, store=store,
+                           device_cache=feature_cache, edge_cache=edge_cache)
+    if spec.prefetch.depth:
+        from repro_torch.core.pipeline import (OverlappedLoader,
+                                               PrefetchingLoader)
+        if spec.prefetch.overlap:
+            loader = OverlappedLoader(
+                loader, depth=spec.prefetch.depth,
+                stage_depth=spec.prefetch.stage_depth,
+                plan_ahead=_effective_plan_ahead(
+                    spec.prefetch.plan_ahead, store, spec.batch_size),
+                lane_timeout=spec.prefetch.lane_timeout_s,
+                max_lane_restarts=spec.prefetch.max_lane_restarts)
+        else:
+            loader = PrefetchingLoader(loader, depth=spec.prefetch.depth)
+    return loader
+
+
+def _effective_plan_ahead(plan_ahead: int, store, batch_size: int) -> int:
+    """Frontier-planner guard: warming ``plan_ahead`` future batches only
+    helps while the page cache can hold the planned window's working set
+    alongside the current batch.  When it cannot, the warmed blocks evict
+    each other (and the live batch's blocks) before they are consumed, so
+    the planner is disabled with a one-time warning."""
+    if not plan_ahead or store is None or not hasattr(store, "cache_blocks"):
+        return plan_ahead
+    try:
+        bb = store.block_bytes
+        row = store._dtype["features"].itemsize * store.feat_dim
+        esz = store._dtype["indices"].itemsize
+        avg_deg = store.num_edges / max(1, store.num_nodes)
+        per_target = (max(1, -(-row // bb))            # feature row blocks
+                      + max(1, int(avg_deg * esz // bb) + 1))  # edge list
+        working_set = (plan_ahead + 1) * batch_size * per_target
+    except (AttributeError, KeyError, TypeError):
+        return plan_ahead
+    if store.cache_blocks >= working_set:
+        return plan_ahead
+    warnings.warn(
+        f"plan_ahead={plan_ahead} disabled: the page cache holds "
+        f"{store.cache_blocks} blocks but the planned window's working "
+        f"set is ~{working_set} blocks ({plan_ahead + 1} batches x "
+        f"{batch_size} targets); warming would thrash the cache it is "
+        "trying to fill — grow cache_mb or lower plan_ahead to re-enable",
+        stacklevel=3)
+    return 0
+
+
+def _launches_since(before: dict, into: dict | None = None) -> dict:
+    """The calling thread's kernel launches since ``before`` (a
+    ``kernels.thread_launches()`` snapshot), added to ``into``."""
+    out = dict(into or {})
+    for k, v in kernels.thread_launches().items():
+        if v != before[k]:
+            out[k] = out.get(k, 0) + v - before[k]
+    return out
 
 
 def batch_targets(g, idx: int, batch_size: int, seed: int = 0) -> np.ndarray:
@@ -114,26 +223,30 @@ class PallasSubgraphLoader:
     Without a device tier, the graph's CSR arrays, features and labels
     are uploaded once, and each batch runs the ``neighbor_sample`` kernel
     once per hop and the ``feature_gather_rows`` kernel once per hop
-    tensor.  With ``device_tier`` the arrays it names stay behind device
-    caches over ``store``:
+    tensor.  The device cache tiers (``CacheTierSpec``, as the reference's
+    ``_build_loader`` passes them) keep the arrays they name behind
+    device caches over ``store``:
 
-    * ``edge_blocks``: sampling runs one ``neighbor_sample_cached`` launch
-      per planned chunk of each hop's frontier, after the chunk's edge
-      blocks are admitted;
-    * ``rows``: the batch's unique ids are resolved against the feature
-      cache (misses fetched through the store), gathered by one
-      ``feature_gather_cached`` launch per segment, and the hop tensors
-      are gathered from those rows by ``feature_gather_rows``.
+    * ``edge_cache`` (``edge_blocks``): sampling runs one
+      ``neighbor_sample_cached`` launch per planned chunk of each hop's
+      frontier, after the chunk's edge blocks are admitted;
+    * ``device_cache`` (``rows``): the batch's unique ids are resolved
+      against the feature cache (misses fetched through the store),
+      gathered by one ``feature_gather_cached`` launch per segment, and
+      the hop tensors are gathered from those rows by
+      ``feature_gather_rows``.
 
     ``indptr`` and the labels stay on the device.  ``dispatches`` counts
     the cached launches the plans call for (``edge_chunks``,
-    ``feature_segments``)."""
+    ``feature_segments``); ``stats()['stage_s']`` the host seconds of each
+    stage when they run back to back here."""
 
     backend = "pallas"
 
     def __init__(self, g: CSRGraph, *, batch_size: int,
                  fanouts: Sequence[int], seed: int = 0, device="cuda",
-                 store=None, device_tier: DeviceTierSpec | None = None):
+                 store=None, device_cache: CacheTierSpec | None = None,
+                 edge_cache: CacheTierSpec | None = None):
         self.g = g
         self.store = store if store is not None else g
         self.batch_size = batch_size
@@ -151,30 +264,36 @@ class PallasSubgraphLoader:
         self.max_degree = int(g.degrees().max()) if g.num_edges else 1
         self._key = rng.key(seed)
         self.dispatches = {"edge_chunks": 0, "feature_segments": 0}
-        tier = device_tier
-        if tier is not None and tier.edge_blocks:
+        if edge_cache is not None and getattr(edge_cache, "edge_blocks", 0):
             self.indices = None         # topology stays off the device
             self.edgecache = DeviceEdgeBlockCache(
                 self.store, indptr=np.asarray(g.indptr, np.int64),
                 block_e=ops.edge_block_size(self.max_degree),
-                blocks=tier.edge_blocks, policy=tier.policy,
-                pinned_fraction=tier.pinned_fraction, device=self.device)
+                blocks=edge_cache.edge_blocks, policy=edge_cache.policy,
+                pinned_fraction=edge_cache.pinned_fraction,
+                device=self.device)
         else:
             self.indices = torch.as_tensor(np.asarray(g.indices, np.int32),
                                            device=self.device)
-        if tier is not None and tier.rows:
+        if device_cache is not None and getattr(device_cache, "rows", 0):
             self.features = None        # no full-table upload
             self.devcache = DeviceFeatureCache(
-                self.store, rows=tier.rows, policy=tier.policy,
-                pinned_fraction=tier.pinned_fraction, device=self.device)
+                self.store, rows=device_cache.rows,
+                policy=device_cache.policy,
+                pinned_fraction=device_cache.pinned_fraction,
+                device=self.device)
         else:
             self.features = torch.as_tensor(
                 np.asarray(g.features, np.float32), device=self.device)
+        stages = self.pipeline_stages() or ()
+        self._stage_s = {name: 0.0 for name, _ in stages}
+        self._stage_n = {name: 0 for name, _ in stages}
 
     def get_batch(self, idx: int) -> Minibatch:
         if self.devcache is None and self.edgecache is None:
+            l0 = kernels.thread_launches()
             targets = self.targets(idx)
-            t = torch.as_tensor(targets, device=self.device)
+            t = _to_device(targets, self.device)
             hops = ops.sample_khop_kernel(self.indptr, self.indices, t,
                                           self.fanouts,
                                           key=rng.fold_in(self._key, idx),
@@ -183,8 +302,17 @@ class PallasSubgraphLoader:
                          for h in hops]
             return Minibatch(targets=targets, hop_ids=hops,
                              hop_feats=hop_feats,
-                             labels=self.labels[t.long()])
-        return self._stage_admit(self._stage_resolve(self._stage_sample(idx)))
+                             labels=self.labels[t.long()],
+                             launches=_launches_since(l0))
+        # the same three stages the OverlappedLoader runs on its lanes,
+        # back to back
+        payload = idx
+        for name, fn in self.pipeline_stages():
+            t0 = time.perf_counter()
+            payload = fn(payload)
+            self._stage_s[name] += time.perf_counter() - t0
+            self._stage_n[name] += 1
+        return payload
 
     # -- the staged cached data plane ----------------------------------------
     # Stage 0 maps a batch index to a payload, later stages map it
@@ -213,6 +341,7 @@ class PallasSubgraphLoader:
         """Sample the k hops, through the edge-block cache when there is
         one, else over the device-resident edge array.  The edge cache's
         counter delta here is the batch's exact edge traffic."""
+        l0 = kernels.thread_launches()
         targets = self.targets(idx)
         key = rng.fold_in(self._key, idx)
         make_ctx = getattr(self.store, "make_io_context", None)
@@ -220,7 +349,7 @@ class PallasSubgraphLoader:
         io0 = _io_snapshot(self.store) if ctx is None else None
         edge0 = (self.edgecache.counters()
                  if self.edgecache is not None else None)
-        t = torch.as_tensor(targets, device=self.device)
+        t = _to_device(targets, self.device)
         with self._attr(ctx):
             if self.edgecache is not None:
                 hops, hop_ids = self._sample_khop_edgecached(targets, key)
@@ -235,10 +364,14 @@ class PallasSubgraphLoader:
             edge_io = {k: e1[k] - edge0[k] for k in e1}
         return dict(idx=idx, targets=targets, hops=hops, hop_ids=hop_ids,
                     labels=self.labels[t.long()], ctx=ctx, io0=io0,
-                    edge_io=edge_io)
+                    edge_io=edge_io, launches=_launches_since(l0))
 
     def reset_staged_state(self) -> None:
-        """Discard cache-mirror state staged by abandoned plans."""
+        """Discard cache-mirror state staged by abandoned plans.  On a GPU
+        the device is synchronized first: an abandoned lane's installs
+        and gathers must be done before the slot tables are cleared."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         if self.devcache is not None:
             self.devcache.reset()
         if self.edgecache is not None:
@@ -265,6 +398,7 @@ class PallasSubgraphLoader:
         """Install the fetched rows, gather them on the device, gather
         the hop tensors from them (one ``feature_gather_rows`` launch per
         hop), and assemble the Minibatch with the batch's I/O bill."""
+        l0 = kernels.thread_launches()
         hop_ids, uniq = s["hop_ids"], s["uniq"]
         plan = s.get("plan")
         if self.devcache is not None:
@@ -293,7 +427,8 @@ class PallasSubgraphLoader:
                             hops=hop_ids, subgraph_nodes=uniq, io=io)
         return Minibatch(targets=s["targets"], hop_ids=list(s["hops"]),
                          hop_feats=hop_feats, labels=s["labels"],
-                         trace=trace)
+                         trace=trace,
+                         launches=_launches_since(l0, s["launches"]))
 
     def _sample_khop_edgecached(self, targets, key):
         """K-hop sampling through the edge-block cache.  The rand bits are
@@ -302,7 +437,7 @@ class PallasSubgraphLoader:
         their blocks admitted before each launch.  Returns the hops on the
         device and on the host."""
         frontier = np.asarray(targets, np.int32)
-        hops = [torch.as_tensor(frontier, device=self.device)]
+        hops = [_to_device(frontier, self.device)]
         host = [frontier]
         for i, f in enumerate(self.fanouts):
             rand = rng.randint(rng.fold_in(key, i), frontier.shape + (f,),
@@ -337,6 +472,17 @@ class PallasSubgraphLoader:
     def targets(self, idx: int) -> np.ndarray:
         return batch_targets(self.store, idx, self.batch_size, self.seed)
 
+    def warm_batch(self, idx: int) -> int:
+        """Frontier planner hook: pre-pull batch ``idx``'s probable byte
+        ranges (its targets' neighbour lists and feature rows) through
+        the store's page cache on the pread pool.  Advisory: warms only
+        the host page cache, never device or cache-mirror state."""
+        warm = getattr(self.store, "warm_nodes", None)
+        if warm is None:
+            return 0
+        return warm(self.targets(idx), features=self.devcache is not None,
+                    edges=self.edgecache is not None)
+
     def _counter_sources(self) -> dict:
         src = {}
         io = getattr(self.store, "io_counters", None)
@@ -357,6 +503,10 @@ class PallasSubgraphLoader:
     def stats(self) -> dict:
         s = {"backend": self.backend, "sampler": "khop",
              "dispatches": dict(self.dispatches)}
+        if self._stage_s:
+            s["stage_s"] = dict(self._stage_s)
+            s["stage_mean_s"] = {k: v / max(self._stage_n[k], 1)
+                                 for k, v in self._stage_s.items()}
         store_stats = getattr(self.store, "stats", None)
         if store_stats is not None:
             s["store"] = store_stats()
@@ -417,10 +567,12 @@ class RunStats:
 
 
 def _block_until_ready(metrics: dict) -> None:
-    """Wait for the device that computed ``metrics``, if it is a GPU."""
+    """Wait for the stream that computed ``metrics``, if on a GPU (not the
+    whole device: the overlapped pipeline's lanes keep their own streams
+    busy meanwhile)."""
     for v in metrics.values():
         if isinstance(v, torch.Tensor) and v.is_cuda:
-            torch.cuda.synchronize(v.device)
+            torch.cuda.current_stream(v.device).synchronize()
             return
 
 

@@ -1,0 +1,565 @@
+"""Asynchronous data preparation: prefetch and the overlapped pipeline.
+
+The port's copy of ``PipelineStats``, ``PrefetchingLoader`` and
+``OverlappedLoader`` from the reference's ``core/pipeline.py``.  A
+background thread (prefetch) or one thread per stage (overlap) prepares
+batches ahead of the consumer, which trains on batch ``t`` meanwhile;
+batches are pure functions of their index and every lane runs them in
+index order, so the results are bit-equal to the synchronous path.
+
+On a GPU, which the reference (one JAX dispatch queue) never needed,
+every lane that launches device work does so on a ``torch.cuda.Stream``
+of its own, and what passes between lanes goes with a CUDA event:
+
+* each lane's stream first waits on an event recorded on the consumer's
+  stream when the lanes start, so the loader's uploads, cache preloads
+  and resets are done before a lane reads them;
+* after each stage the lane records an event on its stream and sends it
+  with the payload; the receiving lane (and the consumer, in
+  ``get_batch``) makes its own stream wait on that event before it runs,
+  and marks every tensor of the payload as used on its stream
+  (``record_stream``), so the allocator does not hand their memory out
+  again while that stream may still read it;
+* host-to-device copies go through pinned staging buffers on the lane's
+  stream (``storage.devcache.PinnedStaging``).
+
+A lane's error, a CUDA error included, is recorded and raised at the
+consumer, as the reference raises a lane's exception.  A CPU run takes
+none of these paths.
+
+Not ported yet: ``stall_inject`` (the scheduled sample-lane stall, from
+``FaultSpec.lane_stall``) comes with fault injection (ROADMAP item 8),
+and the lanes' trace spans with telemetry (item 10).  The host backend's
+``make_host_producer`` and ``ProducerConsumerPipeline`` come with the
+host backend (item 11).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import queue
+import threading
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from repro_torch.obs.metrics import idle_fraction as _idle_fraction
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    batches: int = 0
+    consumer_idle_s: float = 0.0
+    consumer_busy_s: float = 0.0
+    produce_times: list = dataclasses.field(default_factory=list)
+    reissued: int = 0
+    duplicates_dropped: int = 0
+
+    @property
+    def idle_fraction(self) -> float:
+        return _idle_fraction(self.consumer_idle_s, self.consumer_busy_s)
+
+
+# ---------------------------------------------------------------------------
+# CUDA hand-offs between threads
+# ---------------------------------------------------------------------------
+
+def _cuda_device(inner) -> torch.device | None:
+    """The GPU the wrapped loader prepares batches on, or None."""
+    dev = getattr(inner, "device", None)
+    if dev is None:
+        return None
+    dev = torch.device(dev)
+    return dev if dev.type == "cuda" else None
+
+
+def _tensors(obj):
+    """Every tensor inside a payload (dicts, lists, tuples and dataclass
+    instances are walked)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+def _mark(device: torch.device | None) -> "torch.cuda.Event | None":
+    """An event recorded on the calling thread's current stream: the work
+    it queued so far (None on the CPU)."""
+    if device is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _receive(payload, event, device: torch.device | None) -> None:
+    """Make the calling thread's current stream wait for ``event`` (the
+    producer's work on ``payload``) and keep the payload's device
+    tensors allocated until that stream is done with them."""
+    if event is None:
+        return
+    stream = torch.cuda.current_stream(device)
+    stream.wait_event(event)
+    for t in _tensors(payload):
+        if t.is_cuda:
+            t.record_stream(stream)
+
+
+def _lane_stream(device: torch.device | None, start):
+    """Context for a lane thread: on a GPU, a new stream of its own that
+    first waits for ``start``; on the CPU, nothing."""
+    if device is None:
+        return contextlib.nullcontext()
+    stream = torch.cuda.Stream(device)
+    stream.wait_event(start)
+    return torch.cuda.stream(stream)
+
+
+class PrefetchingLoader:
+    """Asynchronous prefetch: overlap data preparation with training.
+
+    Wraps any loader: one background worker thread runs
+    ``inner.get_batch(i+1)`` (kernel launches included, on its own
+    stream on a GPU) while the consumer trains on batch ``i``.  ``depth``
+    is the bounded-queue capacity (``depth=2`` is double buffering).
+    Production is single-worker and strictly ordered, so prefetched
+    batches are bit-identical to synchronous ``get_batch`` calls.  A
+    non-sequential request restarts the worker at the new index instead
+    of draining through the gap."""
+
+    def __init__(self, inner, depth: int = 2):
+        self.inner = inner
+        self.backend = getattr(inner, "backend", "?")
+        self.fanouts = tuple(inner.fanouts)
+        self.depth = max(1, int(depth))
+        self._device = _cuda_device(inner)
+        self._queue: queue.Queue = queue.Queue(maxsize=self.depth)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._expect: int | None = None
+        self._prefetched = 0
+        self._produce_times: list[float] = []
+        self._restarts = 0
+
+    # -- producer side -------------------------------------------------------
+    def _worker(self, start: int, q: queue.Queue, stop: threading.Event,
+                ready):
+        # q/stop are captured per worker generation: a worker that outlives
+        # a restart (join timeout mid-production) drains into its own dead
+        # queue instead of corrupting the replacement's ordering
+        idx = start
+        with _lane_stream(self._device, ready):
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    batch = self.inner.get_batch(idx)
+                    item = (idx, batch, None, _mark(self._device))
+                except BaseException as e:      # surfaced on the consumer
+                    item = (idx, None, e, None)
+                self._produce_times.append(time.perf_counter() - t0)
+                while not stop.is_set():        # backpressure, abortable
+                    try:
+                        q.put(item, timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+                if item[2] is not None:
+                    return
+                idx += 1
+
+    def _restart(self, start: int):
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=5.0)
+            self._restarts += 1
+        # always a fresh queue: close() joins the worker but leaves its
+        # prefetched items behind, and they must not leak into a restart
+        self._queue = queue.Queue(maxsize=self.depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._worker,
+            args=(start, self._queue, self._stop, _mark(self._device)),
+            daemon=True, name="prefetch")
+        self._thread.start()
+        self._expect = start
+
+    # -- consumer side -------------------------------------------------------
+    def get_batch(self, idx: int, timeout: float = 60.0):
+        if self._thread is None or idx != self._expect:
+            self._restart(idx)
+        t0 = time.perf_counter()
+        while True:
+            try:
+                got, batch, err, event = self._queue.get(timeout=0.05)
+                break
+            except queue.Empty:
+                if time.perf_counter() - t0 > timeout:
+                    raise TimeoutError(f"batch {idx} not prefetched")
+        if err is not None:
+            self._expect = None                 # force a clean restart
+            raise err
+        if got != idx:
+            raise RuntimeError(f"prefetch order violated: {got} != {idx}")
+        _receive(batch, event, self._device)
+        self._expect = idx + 1
+        self._prefetched += 1
+        return batch
+
+    def start_epoch(self) -> None:
+        """Forward the epoch boundary to the inner loader.  The worker may
+        be up to ``depth`` batches ahead, so per-epoch counters include
+        what it has already prefetched."""
+        mark = getattr(self.inner, "start_epoch", None)
+        if mark is not None:
+            mark()
+
+    def stats(self) -> dict:
+        times = self._produce_times
+        return dict(self.inner.stats(),
+                    prefetch_depth=self.depth,
+                    prefetched=self._prefetched,
+                    prefetch_restarts=self._restarts,
+                    mean_prefetch_s=(float(np.mean(times)) if times else 0.0))
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        self.inner.close()
+
+
+class OverlappedLoader:
+    """Multi-stage overlapped out-of-core pipeline: compute, cache
+    maintenance and I/O draining concurrently.
+
+    Wraps a loader that exposes ``pipeline_stages()``: an ordered list of
+    ``(name, fn)`` stages where stage 0 maps a batch index to a payload
+    and each later stage maps the previous payload forward (the pallas
+    out-of-core loader splits into sample -> resolve -> admit).  Each
+    stage runs on its own thread with a bounded queue of ``stage_depth``
+    between stages and ``depth`` at the output, so while the consumer
+    trains on batch t, the admit lane uploads batch t+1's misses, the
+    resolve lane reads batch t+2's misses from storage, and the sample
+    lane draws batch t+3.  Loaders without ``pipeline_stages()`` run as a
+    single produce stage (a ``PrefetchingLoader``).
+
+    Bit-identity: every lane processes batches strictly in index order,
+    cache plans are made serially in batch order, and device mutations
+    replay in plan order on the admit lane, so values, cache counters and
+    loss trajectories match the synchronous path.  (The host page cache
+    is shared by the lanes: which batch's read of a block misses can
+    change with their interleaving, never a value.)
+
+    ``plan_ahead > 0`` runs the frontier planner in the sample lane:
+    before drawing batch t, it calls ``inner.warm_batch(i)`` for every
+    unwarmed index up to ``t + plan_ahead``.  Warms only populate the
+    host page cache, so they cannot perturb bit-identity.
+
+    Lane supervision: every lane keeps a heartbeat, refreshed at each
+    loop turn, including while blocked on a bounded-queue put or get, so
+    a stale beat means stuck inside a stage function.  A lane exception
+    is recorded in a shared slot as well as forwarded through the
+    queues, and the consumer checks the slot on every empty poll: a dead
+    lane raises at the consumer within one poll tick.  When the consumer
+    is starved and a heartbeat is older than ``lane_timeout`` seconds,
+    the watchdog restarts the pipeline from the batch being waited on;
+    stalls beyond ``max_lane_restarts`` degrade the loader permanently to
+    synchronous composition (``inner.get_batch``) with a loud warning.
+    Restarts and degradation call ``inner.reset_staged_state()`` so
+    abandoned plans leave no ghost residency; a lane that survives a
+    restart drains into its dead generation's queues, and its stale
+    plans fail at install (``StaleAdmissionPlan``)."""
+
+    def __init__(self, inner, *, depth: int = 2, stage_depth: int = 2,
+                 plan_ahead: int = 0, lane_timeout: float = 30.0,
+                 max_lane_restarts: int = 3):
+        self.inner = inner
+        self.backend = getattr(inner, "backend", "?")
+        self.fanouts = tuple(inner.fanouts)
+        self.depth = max(1, int(depth))
+        self.stage_depth = max(1, int(stage_depth))
+        self.plan_ahead = max(0, int(plan_ahead))
+        self.lane_timeout = float(lane_timeout)
+        self.max_lane_restarts = int(max_lane_restarts)
+        self._device = _cuda_device(inner)
+        get_stages = getattr(inner, "pipeline_stages", None)
+        stages = get_stages() if get_stages is not None else None
+        if not stages:
+            stages = [("produce", inner.get_batch)]
+        self._stages = list(stages)
+        self.stage_names = [name for name, _ in self._stages]
+        self._warm = getattr(inner, "warm_batch", None)
+        self._stage_s = {name: 0.0 for name in self.stage_names}
+        self._stage_n = {name: 0 for name in self.stage_names}
+        self._queues: list[queue.Queue] = []
+        self._threads: list[threading.Thread] = []
+        self._stop = threading.Event()
+        self._expect: int | None = None
+        self._prefetched = 0
+        self._restarts = 0
+        self._warmed = 0
+        self._t_started: float | None = None
+        self._t_stopped: float | None = None
+        # supervision state
+        self._gen = 0                      # lane generation (guards beats
+        self._beat: dict[str, float] = {}  # ...and error reports from
+        self._lane_error = None            # ...orphaned old lanes)
+        self._lane_failures = 0
+        self._lane_stall_restarts = 0
+        self._degraded = False
+
+    # -- lanes ---------------------------------------------------------------
+    def _beat_tick(self, gen: int, name: str) -> None:
+        if gen == self._gen:
+            self._beat[name] = time.perf_counter()
+
+    def _note_error(self, gen: int, idx: int, e: BaseException) -> None:
+        if gen == self._gen and self._lane_error is None:
+            self._lane_error = (idx, e)
+
+    def _put(self, q: queue.Queue, item, stop: threading.Event,
+             gen: int, name: str) -> bool:
+        while not stop.is_set():                # backpressure, abortable
+            self._beat_tick(gen, name)          # blocked on put = healthy
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _source(self, start: int, qout: queue.Queue, stop: threading.Event,
+                gen: int, ready):
+        """Stage-0 lane: batch index -> first payload, plus the planner
+        (page-cache warming for the plan-ahead window)."""
+        name, fn = self._stages[0]
+        idx = start
+        warmed_to = start                       # warm [start, idx+1+W)
+        with _lane_stream(self._device, ready):
+            while not stop.is_set():
+                self._beat_tick(gen, name)
+                if self._warm is not None and self.plan_ahead:
+                    while warmed_to < idx + 1 + self.plan_ahead:
+                        try:
+                            self._warmed += self._warm(warmed_to)
+                        except Exception:       # advisory: never kill a lane
+                            pass
+                        warmed_to += 1
+                t0 = time.perf_counter()
+                try:
+                    payload = fn(idx)
+                    item = (idx, payload, None, _mark(self._device))
+                except BaseException as e:      # surfaced on the consumer
+                    item = (idx, None, e, None)
+                    self._note_error(gen, idx, e)
+                self._stage_s[name] += time.perf_counter() - t0
+                self._stage_n[name] += 1
+                if not self._put(qout, item, stop, gen, name) \
+                        or item[2] is not None:
+                    return
+                idx += 1
+
+    def _lane(self, k: int, qin: queue.Queue, qout: queue.Queue,
+              stop: threading.Event, gen: int, ready):
+        """Stage-k lane (k >= 1): previous payload -> next payload."""
+        name, fn = self._stages[k]
+        with _lane_stream(self._device, ready):
+            while not stop.is_set():
+                self._beat_tick(gen, name)
+                try:
+                    idx, payload, err, event = qin.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                if err is None:
+                    t0 = time.perf_counter()
+                    try:
+                        _receive(payload, event, self._device)
+                        payload = fn(payload)
+                        event = _mark(self._device)
+                    except BaseException as e:
+                        payload, err, event = None, e, None
+                        self._note_error(gen, idx, e)
+                    self._stage_s[name] += time.perf_counter() - t0
+                    self._stage_n[name] += 1
+                if not self._put(qout, (idx, payload, err, event), stop,
+                                 gen, name) or err is not None:
+                    return
+
+    def _reset_inner(self) -> None:
+        """Drop the inner loader's staged cache state: plans abandoned by
+        the dying generation reserved cache-mirror slots whose device
+        rows will never install (ghost residency)."""
+        reset = getattr(self.inner, "reset_staged_state", None)
+        if reset is None:
+            return
+        try:
+            reset()
+        except Exception as e:                  # pragma: no cover
+            warnings.warn(f"overlapped pipeline: reset_staged_state failed "
+                          f"({e!r}); continuing with possibly-cold caches",
+                          stacklevel=2)
+
+    def _restart(self, start: int):
+        if self._threads:
+            self._stop.set()
+            self._gen += 1          # orphans' beats/errors no longer count
+            self._lane_error = None
+            for t in self._threads:
+                t.join(timeout=5.0)
+            self._restarts += 1
+            self._reset_inner()
+        # fresh queues per generation: a lane that outlives a restart
+        # (join timeout mid-production) drains into its own dead queues
+        # instead of corrupting the replacement's ordering
+        n = len(self._stages)
+        self._queues = [queue.Queue(maxsize=self.stage_depth)
+                        for _ in range(n - 1)]
+        self._queues.append(queue.Queue(maxsize=self.depth))
+        self._stop = threading.Event()
+        gen = self._gen
+        ready = _mark(self._device)     # the consumer's work so far
+        now = time.perf_counter()
+        self._beat = {name: now for name in self.stage_names}
+        self._threads = [threading.Thread(
+            target=self._source,
+            args=(start, self._queues[0], self._stop, gen, ready),
+            daemon=True, name="overlap-" + self.stage_names[0])]
+        for k in range(1, n):
+            self._threads.append(threading.Thread(
+                target=self._lane,
+                args=(k, self._queues[k - 1], self._queues[k], self._stop,
+                      gen, ready),
+                daemon=True, name="overlap-" + self.stage_names[k]))
+        for t in self._threads:
+            t.start()
+        self._expect = start
+        if self._t_started is None:
+            self._t_started = time.perf_counter()
+
+    def _degrade(self) -> None:
+        """Permanent fallback to synchronous composition: stop feeding the
+        lanes and serve every future batch via ``inner.get_batch`` on the
+        consumer thread.  Values are unaffected (the sync path composes
+        the same stage functions); only the overlap is lost."""
+        warnings.warn(
+            f"overlapped pipeline: lanes stalled beyond the restart budget "
+            f"(max_lane_restarts={self.max_lane_restarts}); degrading "
+            "permanently to synchronous composition; training continues "
+            "without overlap", stacklevel=3)
+        self._degraded = True
+        self._gen += 1
+        self._lane_error = None
+        self._stop.set()                # orphans are daemons; let them die
+        self._threads = []
+        self._reset_inner()
+        if self._t_started is not None and self._t_stopped is None:
+            self._t_stopped = time.perf_counter()
+
+    # -- consumer side -------------------------------------------------------
+    def get_batch(self, idx: int, timeout: float = 60.0):
+        if self._degraded:
+            return self.inner.get_batch(idx)
+        if not self._threads or idx != self._expect:
+            self._restart(idx)
+        t0 = time.perf_counter()
+        out = self._queues[-1]
+        while True:
+            try:
+                got, batch, err, event = out.get(timeout=0.05)
+                break
+            except queue.Empty:
+                le = self._lane_error
+                if le is not None and le[0] <= idx:
+                    # the lane died at or before the batch waited for, and
+                    # its poison item may be stuck behind a full queue:
+                    # raise from the shared slot now; the next request's
+                    # restart discards the dead generation's queues
+                    self._lane_error = None
+                    self._expect = None
+                    self._lane_failures += 1
+                    raise le[1]
+                now = time.perf_counter()
+                stalled = [name for name, b in self._beat.items()
+                           if now - b > self.lane_timeout]
+                if stalled:
+                    self._lane_stall_restarts += 1
+                    if self._lane_stall_restarts > self.max_lane_restarts:
+                        self._degrade()
+                        return self.inner.get_batch(idx)
+                    warnings.warn(
+                        f"overlapped pipeline: lane(s) {stalled} missed "
+                        f"their heartbeat for > {self.lane_timeout}s; "
+                        f"restarting from batch {idx} (deterministic "
+                        "replay)", stacklevel=2)
+                    self._restart(idx)
+                    out = self._queues[-1]
+                    t0 = time.perf_counter()
+                    continue
+                if now - t0 > timeout:
+                    raise TimeoutError(f"batch {idx} not produced by the "
+                                       "overlapped pipeline")
+        if err is not None:
+            self._lane_error = None
+            self._expect = None                 # force a clean restart
+            self._lane_failures += 1
+            raise err
+        if got != idx:
+            raise RuntimeError(f"overlap order violated: {got} != {idx}")
+        _receive(batch, event, self._device)
+        self._expect = idx + 1
+        self._prefetched += 1
+        return batch
+
+    def start_epoch(self) -> None:
+        """Forward the epoch boundary (same pipeline-depth caveat as
+        ``PrefetchingLoader.start_epoch``)."""
+        mark = getattr(self.inner, "start_epoch", None)
+        if mark is not None:
+            mark()
+
+    def stats(self) -> dict:
+        wall = 0.0
+        if self._t_started is not None:
+            end = self._t_stopped if self._t_stopped is not None \
+                else time.perf_counter()
+            wall = end - self._t_started
+        stage_s = dict(self._stage_s)
+        busy = sum(stage_s.values())
+        return dict(self.inner.stats(),
+                    prefetch_depth=self.depth,
+                    stage_depth=self.stage_depth,
+                    plan_ahead=self.plan_ahead,
+                    prefetched=self._prefetched,
+                    prefetch_restarts=self._restarts,
+                    stages=list(self.stage_names),
+                    stage_s=stage_s,
+                    stage_mean_s={k: v / max(self._stage_n[k], 1)
+                                  for k, v in stage_s.items()},
+                    planner_warm_ranges=self._warmed,
+                    pipeline_wall_s=wall,
+                    # > 1.0 iff the lanes actually ran concurrently
+                    overlap_factor=(busy / wall if wall > 0 else 0.0),
+                    lane_timeout=self.lane_timeout,
+                    lane_failures=self._lane_failures,
+                    lane_stall_restarts=self._lane_stall_restarts,
+                    degraded=self._degraded)
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        self._threads = []
+        if self._t_started is not None and self._t_stopped is None:
+            self._t_stopped = time.perf_counter()
+        self.inner.close()

@@ -1,9 +1,9 @@
 """The per-batch storage-access record and its I/O-counter deltas.
 
-The port's copy of ``SampleTrace``, ``_io_snapshot`` and ``_io_delta``
-from the reference's ``core/sampler.py``: the out-of-core loader fills a
-``SampleTrace`` per batch whose ``io`` holds the batch's measured store,
-device-cache and edge-cache counters.  The host samplers are not part of
+The port's copy of ``SampleTrace``, ``_io_snapshot``, ``_io_delta`` and
+``DEFAULT_FANOUTS`` from the reference's ``core/sampler.py``: the
+out-of-core loader fills a ``SampleTrace`` per batch whose ``io`` holds
+the batch's measured store, device-cache and edge-cache counters.  The host samplers are not part of
 the port yet.
 """
 
@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+DEFAULT_FANOUTS = (25, 10)   # paper default: 25 then 10 per layer
 
 
 @dataclasses.dataclass

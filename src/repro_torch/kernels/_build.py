@@ -6,7 +6,11 @@ seconds).  Libraries are built at first use into ``csrc/build/`` (listed in
 ``.gitignore``), all missing ones at once in parallel, and are named by a
 digest of the source, the shared headers and the flags, so an edited
 source or header is rebuilt.
-Nothing here runs when the module is imported.
+Nothing here runs when the module is imported.  One module lock covers
+the build and each entry point's first load: threads that launch their
+first kernel at the same time (the lanes of the overlapped pipeline)
+start one ``nvcc`` per source between them, never two into one
+temporary file.
 
 Every entry point takes ``c_void_p`` for each pointer and for the stream,
 launches on that stream and returns ``cudaGetLastError()``; ``check``
@@ -21,6 +25,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _FUNCS: dict[tuple[str, str], object] = {}
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -59,6 +65,11 @@ def build(names=SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is missing, one ``nvcc``
     per source, all started together.  Returns the compiler output of
     each library built (ptxas's register and spill report)."""
+    with _LOCK:
+        return _build_missing(names)
+
+
+def _build_missing(names) -> dict[str, str]:
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
@@ -134,12 +145,16 @@ def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, built and
     loaded at first use, with its ``argtypes`` and ``restype`` set."""
     fn = _FUNCS.get((name, symbol))
-    if fn is None:
-        build()
-        fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        _FUNCS[(name, symbol)] = fn
+    if fn is not None:
+        return fn
+    with _LOCK:
+        fn = _FUNCS.get((name, symbol))
+        if fn is None:
+            build()
+            fn = getattr(ctypes.CDLL(str(lib_path(name))), symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+            _FUNCS[(name, symbol)] = fn
     return fn
 
 

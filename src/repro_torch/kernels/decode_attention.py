@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 from repro_torch.kernels.flash_attention import check_bshd, check_head_dim
 
 _STRIDES = ctypes.c_int64 * 3
@@ -125,5 +125,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      work.data_ptr(), tickets.data_ptr(), B, Hq, Hkv, D,
                      _STRIDES(*k.stride()[:3]), _STRIDES(*v.stride()[:3]),
                      lo, hi, split_len, nsplit, 1.0 / D ** 0.5, stream), what)
-    LAUNCHES[what] += 1
+    count_launch(what)
     return out

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -76,7 +76,7 @@ def _gather(table: torch.Tensor, ids2d: torch.Tensor, what: str,
     stream = torch.cuda.current_stream(table.device).cuda_stream
     _build.check(fn(table.data_ptr(), F, ids2d.data_ptr(), M, K, int(mean),
                     out.data_ptr(), _vec_width(table, out), stream), what)
-    LAUNCHES[what] += 1
+    count_launch(what)
     return out
 
 
@@ -123,5 +123,5 @@ def feature_gather_cached(cache: torch.Tensor, slot_of: torch.Tensor,
     stream = torch.cuda.current_stream(cache.device).cuda_stream
     _build.check(fn(cache.data_ptr(), F, slot_of.data_ptr(), ids.data_ptr(),
                     R, out.data_ptr(), _vec_width(cache, out), stream), name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out

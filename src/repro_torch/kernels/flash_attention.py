@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 
 _STRIDES = ctypes.c_int64 * 3
 
@@ -112,7 +112,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), B, S, Hq, Hkv, D, *strides,
                     1.0 / D ** 0.5, int(causal), stream), what)
-    LAUNCHES[what] += 1
+    count_launch(what)
     return out, lse
 
 
@@ -136,7 +136,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal: bool = True):
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), B, S, Hq, Hkv, D, *strides, 1.0 / D ** 0.5,
                     int(causal), stream), what)
-    LAUNCHES[what] += 1
+    count_launch(what)
     return dq, delta
 
 
@@ -160,7 +160,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), B, S, Hq, Hkv, D, *strides, 1.0 / D ** 0.5,
                     int(causal), stream), what)
-    LAUNCHES[what] += 1
+    count_launch(what)
     return dk, dv
 
 

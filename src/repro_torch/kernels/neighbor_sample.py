@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -143,7 +143,7 @@ def neighbor_sample(indptr: torch.Tensor, indices: torch.Tensor,
     _build.check(fn(indptr.data_ptr(), indices.data_ptr(), indices.shape[0],
                     targets.data_ptr(), rand.data_ptr(), out.data_ptr(), M, S,
                     *p["fanout"], stream), "neighbor_sample")
-    LAUNCHES["neighbor_sample"] += 1
+    count_launch("neighbor_sample")
     return out
 
 
@@ -201,5 +201,5 @@ def neighbor_sample_cached(indptr: torch.Tensor, block_slots: torch.Tensor,
                     *p["block_e"], targets.data_ptr(), rand.data_ptr(),
                     out.data_ptr(), M, S, *p["fanout"], int(p["staged"]),
                     stream), name)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return out

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import _build, count_launch
 
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 MAX_CHUNK = 256      # the chunk's prefix sum is one scan over a block
@@ -67,5 +67,5 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                     C.data_ptr(), y.data_ptr(), state.data_ptr(),
                     prev.data_ptr(), b, s, h, p, g, n, chunk, stream),
                  what)
-    LAUNCHES[what] += 1
+    count_launch(what)
     return y, state

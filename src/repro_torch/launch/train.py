@@ -13,6 +13,15 @@ device caches:
       --device-cache-rows 4096 --edge-cache-blocks 128 \\
       --device-cache-policy pinned --steps 8
 
+Out of core and overlapped, the same with ``--io-threads 4 --prefetch 2
+--overlap 1 --stage-depth 2 --plan-ahead 2`` runs the sample, resolve
+and admit stages on lanes of their own (``core.pipeline``), each on its
+own CUDA stream.  A whole data-plane configuration loads from a spec
+file, flags overriding its fields:
+
+  python -m repro_torch.launch.train --arch graphsage \\
+      --spec benchmarks/specs/smoke_pallas_overlap.json --steps 4
+
 An LM of the dense family (qwen2-0.5b at full width, 4 x 4096 tokens a
 step), attention through the flash forward and backward kernels:
 
@@ -22,73 +31,65 @@ step), attention through the flash forward and backward kernels:
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 CUDA kernels, or on the CPU through their plain PyTorch versions with
 ``--device cpu``.  Without a GPU and without ``--device cpu`` it stops
-with an error.  Flags take the reference launcher's names and defaults.
-``--graph-store disk`` writes the graph to ``--store-dir`` (or a temp
-directory the run owns and removes) and reads it through a ``DiskStore``;
-without a device cache tier the pallas backend never reads through the
-store and proceeds in memory, as the reference does.  The reference's
-``--spec``, prefetch and overlap, fault injection, direct I/O, ISP mode,
-the ``optimal`` policies, telemetry and checkpoints (``--ckpt-dir``,
-``--resume``, for the GNN and the LM alike) are not part of the port yet,
-and their flags are rejected.  The LM branch is the reference's
-``run_lm``: weights from seed 0, ``TokenPipeline`` batches, AdamW on
-``warmup_cosine(lr, 10, steps)``; ``--reduced`` trains the small
-same-family config, ``--attn-impl`` picks the flash kernels (default) or
-the chunked plain path; archs outside the dense family raise
-``NotImplementedError``.
+with an error.  The data-plane flags are generated from the spec's field
+table (``core.config.FLAG_TABLE``, ``add_pipeline_args``) and have the
+reference's names and defaults, with one exception: ``--backend``
+defaults to ``pallas``, where the reference's launcher sets ``isp``, the
+mesh backend that the port does not have yet (ROADMAP item 14); until
+then ``pallas`` is the port's only backend.  The table holds only the
+flags of what the port runs: the flags of fault injection, direct I/O,
+ISP mode, the ``optimal`` policies, storage engines, telemetry and
+checkpoints (``--ckpt-dir``, ``--resume``, for the GNN and the LM alike)
+are unknown to it, and a ``--spec`` file that asks for one of these
+features is refused with the ROADMAP item that brings it.  Every run goes
+through ``core.config.build_pipeline``: ``--graph-store disk`` writes the
+graph to ``--store-dir`` (or a temp directory the run owns and removes)
+and reads it through a ``DiskStore``; without a device cache tier the
+pallas backend never reads through the store and proceeds in memory, as
+the reference does.  The LM branch is the reference's ``run_lm``: weights
+from seed 0, ``TokenPipeline`` batches (``--batch`` through
+``fill_pipeline_flag_defaults``), AdamW on ``warmup_cosine(lr, 10,
+steps)``; ``--reduced`` trains the small same-family config,
+``--attn-impl`` picks the flash kernels (default) or the chunked plain
+path; archs outside the dense family raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import shutil
-import tempfile
 import time
 
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import (DATASETS, LOADERS, DeviceTierSpec, GNNConfig,
-                              GraphSAGE, build_train_step, load_dataset,
-                              train_loop)
+from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE,
+                              add_pipeline_args, build_pipeline,
+                              build_train_step, check_ported,
+                              fill_pipeline_flag_defaults, load_dataset,
+                              spec_from_args, train_loop)
 from repro_torch.data import TokenPipeline
 from repro_torch.models.params import count_params, init_params, tree_map
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import LM, build_defs
 from repro_torch.optim import adamw, warmup_cosine
-from repro_torch.storage import DEFAULT, RetrySpec, open_store
 from repro_torch.train import steps as lm_steps
-
-POLICIES = ("lru", "pinned")
-
-
-def _fanouts(s: str) -> tuple[int, ...]:
-    try:
-        f = tuple(int(x) for x in s.split(","))
-    except ValueError:
-        raise argparse.ArgumentTypeError(f"bad fanouts {s!r}") from None
-    if not f or min(f) < 1:
-        raise argparse.ArgumentTypeError(f"fanouts must be positive: {s!r}")
-    return f
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="graphsage",
                     choices=("graphsage",) + ARCH_IDS)
-    ap.add_argument("--backend", default="pallas", choices=tuple(LOADERS),
-                    help="data-preparation backend (the CUDA kernels)")
+    # the data-plane flags (--backend, --fanouts, --batch, --seed,
+    # --prefetch, --overlap, --graph-store, --cache-*, --device-cache-*,
+    # --edge-cache-blocks, --spec, ...) are generated from the spec's
+    # field table; --backend defaults to pallas (see the module docstring)
+    add_pipeline_args(ap, overrides={"backend": "pallas"})
     ap.add_argument("--dataset", default="reddit", choices=tuple(DATASETS))
     ap.add_argument("--large-scale", action="store_true")
-    ap.add_argument("--batch", type=int, default=64, help="minibatch size")
-    ap.add_argument("--fanouts", type=_fanouts, default=(10, 5),
-                    metavar="F1,F2,...", help="per-hop fanouts")
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--seed", type=int, default=0,
-                    help="per-batch target/sampling seed")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     # the LM's flags, with the reference's names and defaults
@@ -100,107 +101,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("chunked", "flash"),
                     help="LM attention: the flash kernels or the chunked "
                          "plain path (sets ModelConfig.attn_impl)")
-    # the store and cache-tier flags, with the reference's names and
-    # defaults (core/config.py FLAG_TABLE and _spec_defaults)
-    ap.add_argument("--graph-store", default="mem", choices=("mem", "disk"),
-                    help="where the graph data lives: 'mem' = DRAM arrays, "
-                         "'disk' = out-of-core DiskStore (block-aligned "
-                         "on-disk layout + live page cache)")
-    ap.add_argument("--store-dir", default=None,
-                    help="directory for the on-disk graph layout (default: "
-                         "a fresh temp dir; reused if it holds a manifest)")
-    ap.add_argument("--cache-mb", type=float, default=None,
-                    help="host tier: disk-store page-cache budget in MB "
-                         f"(default {DEFAULT.diskstore.cache_mb})")
-    ap.add_argument("--cache-policy", default=DEFAULT.diskstore.policy,
-                    choices=POLICIES, help="host tier placement")
-    ap.add_argument("--lock-shards", type=int, default=None,
-                    help="disk-store page-cache lock shards (default "
-                         f"{DEFAULT.diskstore.lock_shards})")
-    ap.add_argument("--io-threads", type=int, default=None,
-                    help="disk-store pread pool size (default "
-                         f"{DEFAULT.diskstore.io_threads}: serial reads)")
-    ap.add_argument("--verify-blocks", type=int, default=0, choices=(0, 1),
-                    metavar="0|1",
-                    help="1 = verify each block read's CRC32C")
-    ap.add_argument("--io-retries", type=int,
-                    default=RetrySpec.max_attempts,
-                    help="total attempts per block read before failing")
-    ap.add_argument("--io-retry-backoff", type=float,
-                    default=RetrySpec.backoff_s,
-                    help="sleep before the first retry, doubled per retry")
-    ap.add_argument("--io-deadline", type=float,
-                    default=RetrySpec.deadline_s,
-                    help="per-attempt wall-clock budget in seconds")
-    ap.add_argument("--device-cache-rows", type=int, default=0,
-                    help="device tier: feature-cache capacity in rows "
-                         "(0 = full-table upload)")
-    ap.add_argument("--edge-cache-blocks", type=int, default=0,
-                    help="device tier: edge-block cache capacity in "
-                         "BLOCK_E-wide blocks (0 = full edge-array upload)")
-    ap.add_argument("--device-cache-policy", default=DEFAULT.devcache.policy,
-                    choices=POLICIES, help="device tier placement")
-    ap.add_argument("--device-cache-pinned-fraction", type=float,
-                    default=DEFAULT.devcache.pinned_fraction,
-                    help="device tier: fraction of the capacity staged "
-                         "permanently under the pinned policy")
     args = ap.parse_args(argv)
+    args.pipeline_spec = None
+    if args.arch == "graphsage":
+        try:
+            args.pipeline_spec = spec_from_args(args)
+            check_ported(args.pipeline_spec)
+        except (ValueError, NotImplementedError, OSError) as e:
+            ap.error(str(e))
+    # resolve the "not given" sentinels for code that reads flags directly
+    # (the LM's --batch); after the spec is assembled
+    fill_pipeline_flag_defaults(args)
+    args.device_tier = (args.pipeline_spec.device_cache_tier()
+                        if args.pipeline_spec is not None else None)
     if args.batch < 1 or args.steps < 0 or args.log_every < 1:
         ap.error("--batch and --log-every must be >= 1, --steps >= 0")
     if args.seq_len < 1 or args.microbatches < 1 \
             or args.batch % args.microbatches:
         ap.error("--seq-len and --microbatches must be >= 1, and "
                  "--microbatches must divide --batch")
-    for flag in ("lock_shards", "io_threads"):
-        v = getattr(args, flag)
-        if v is not None and v < 1:
-            ap.error(f"--{flag.replace('_', '-')} must be >= 1")
-    if args.cache_mb is not None and args.cache_mb <= 0:
-        ap.error("--cache-mb must be > 0")
-    try:
-        args.retry = RetrySpec(max_attempts=args.io_retries,
-                               backoff_s=args.io_retry_backoff,
-                               deadline_s=args.io_deadline)
-        args.device_tier = None
-        if args.device_cache_rows or args.edge_cache_blocks:
-            args.device_tier = DeviceTierSpec(
-                rows=args.device_cache_rows,
-                edge_blocks=args.edge_cache_blocks,
-                policy=args.device_cache_policy,
-                pinned_fraction=args.device_cache_pinned_fraction)
-    except ValueError as e:
-        ap.error(str(e))
     return args
-
-
-def _open_store(args, g):
-    """The store the flags ask for, as the reference's ``build_pipeline``
-    opens it: ``(store, temp_dir_owned, note)``."""
-    if args.graph_store != "disk":
-        return None, None, None
-    if args.device_tier is None:
-        return None, None, ("pallas without a device cache tier never reads "
-                            "through the store; proceeding in-memory "
-                            "(full-table upload)")
-    path = args.store_dir
-    tmpdir = None
-    if path is None:
-        path = tmpdir = tempfile.mkdtemp(prefix=f"graphstore-{g.name}-")
-    kw = {}
-    if args.lock_shards is not None:
-        kw["lock_shards"] = args.lock_shards
-    if args.io_threads is not None:
-        kw["io_threads"] = args.io_threads
-    try:
-        store = open_store("disk", g=g, path=path, cache_mb=args.cache_mb,
-                           policy=args.cache_policy,
-                           verify=bool(args.verify_blocks),
-                           retry=args.retry, **kw)
-    except BaseException:
-        if tmpdir is not None:
-            shutil.rmtree(tmpdir, ignore_errors=True)
-        raise
-    return store, tmpdir, None
 
 
 def _device(args) -> torch.device:
@@ -212,37 +132,36 @@ def _device(args) -> torch.device:
 
 
 def run_gnn(args) -> tuple[object, list[float], dict]:
-    """Train; returns the loop's ``RunStats``, the per-step losses and the
-    loader's final ``stats()``."""
+    """Train through ``build_pipeline(args.pipeline_spec)``; returns the
+    loop's ``RunStats``, the per-step losses and the pipeline's final
+    ``stats()``."""
     device = _device(args)
+    spec = args.pipeline_spec
     g = load_dataset(args.dataset, large_scale=args.large_scale)
-    store, tmpdir, note = _open_store(args, g)
-    loader = None
+    pipe = build_pipeline(spec, g, device=device)
     try:
-        if note:
+        for note in pipe.notes:
             print(f"[train] note: {note}")
-        loader = LOADERS[args.backend](
-            g, batch_size=args.batch, fanouts=args.fanouts, seed=args.seed,
-            device=device, store=store,
-            device_tier=args.device_tier if store is not None else None)
         where = (torch.cuda.get_device_name(device)
                  if device.type == "cuda" else "cpu")
         print(f"[train] {g.name}: {g.num_nodes} nodes {g.num_edges} edges, "
-              f"backend={args.backend} batch={args.batch} "
-              f"fanouts={args.fanouts} store={args.graph_store} on {where}")
+              f"{pipe.describe()}, batch={spec.batch_size} "
+              f"fanouts={spec.sampler.fanouts} on {where}")
+        store = pipe.store
         if store is not None:
             print(f"[train] graph store: disk at {store.path} "
                   f"({store.nbytes_on_disk() / 2**20:.1f} MB on disk, "
                   f"page cache {store.cache_blocks} x {store.block_bytes} B "
                   f"= {store.cache_blocks * store.block_bytes / 2**20:.1f} "
                   f"MB, policy={store.policy}, "
-                  f"lock_shards={store.lock_shards})")
+                  f"lock_shards={store.lock_shards}, "
+                  f"io_threads={store.io_threads})")
         cfg = GNNConfig(feat_dim=g.feat_dim, hidden=args.hidden,
                         n_classes=int(g.labels.max()) + 1,
-                        fanouts=args.fanouts)
+                        fanouts=spec.effective_fanouts)
         gnn = GraphSAGE(cfg, device=device)
         opt = adamw(args.lr)
-        step_fn = build_train_step(loader, gnn, opt)
+        step_fn = build_train_step(pipe, gnn, opt)
         state = {"opt": opt.init(dict(gnn.named_parameters())), "step": 0}
         losses = []
 
@@ -253,13 +172,22 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                 print(f"  step {i+1:5d} loss={m['loss']:.4f} "
                       f"acc={m['acc']:.3f} |g|={m['grad_norm']:.3f}")
 
-        _, stats = train_loop(loader, step_fn, state, steps=args.steps,
+        _, stats = train_loop(pipe, step_fn, state, steps=args.steps,
                               on_step=on_step)
-        loader_stats = loader.stats()
+        loader_stats = pipe.stats()
         print(f"[train] {stats.steps} steps in {stats.wall_s:.1f}s "
               f"({stats.steps_per_s:.2f} steps/s, consumer idle "
               f"{stats.idle_fraction:.1%}) loader={loader_stats}")
         print(f"[train] kernel launches: {dict(kernels.LAUNCHES)}")
+        if spec.prefetch.depth:
+            ls = loader_stats
+            print(f"[train] lanes: stages {ls.get('stages', ['produce'])}, "
+                  f"seconds {ls.get('stage_s')}, restarts "
+                  f"{ls['prefetch_restarts']} (watchdog "
+                  f"{ls.get('lane_stall_restarts', 0)}), degraded "
+                  f"{ls.get('degraded', False)}, plan_ahead "
+                  f"{ls.get('plan_ahead', 0)}, warmed ranges "
+                  f"{ls.get('planner_warm_ranges', 0)}")
         for kind, noun in (("devcache", "rows"), ("edgecache", "blocks")):
             dc = loader_stats.get(kind)
             if dc:
@@ -277,14 +205,9 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                   f"evictions={io['evictions']}")
         return stats, [float(x) for x in losses], loader_stats
     finally:
-        # a failed or interrupted run must not leak fds or the temp copy
-        # of the graph
-        if loader is not None:
-            loader.close()
-        if store is not None:
-            store.close()
-        if tmpdir is not None:
-            shutil.rmtree(tmpdir, ignore_errors=True)
+        # a failed or interrupted run must not leak fds, lanes or the temp
+        # copy of the graph
+        pipe.close()
 
 
 def run_lm(args) -> dict:

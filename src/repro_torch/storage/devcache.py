@@ -28,8 +28,11 @@ per-batch counters.  The gathers themselves launch at each segment's own
 length: the reference's padding of a launch to a power of two (jit's
 static shapes) changes no row and no counter.  The reference's jitted ``_update`` becomes in-place
 tensor scatters on the cache's device (``_push``), issued on the current
-stream between the gathers, in plan order.  The ``optimal`` (Belady)
-policy is not part of the port yet.
+stream between the gathers, in plan order; on a GPU their host-to-device
+copies go through the calling thread's ring of pinned buffers
+(``PinnedStaging``), so an overlapped pipeline's lane copies on its own
+stream without blocking.  The ``optimal`` (Belady) policy is not part of
+the port yet.
 """
 
 from __future__ import annotations
@@ -58,10 +61,61 @@ def pad_pow2(arr: np.ndarray, fill) -> np.ndarray:
     return np.concatenate([arr, pad])
 
 
+class PinnedStaging:
+    """Host-to-device copies through a ring of pinned host buffers.
+
+    ``copy(src, device)`` writes ``src`` into the next buffer of the ring
+    and copies it to ``device`` with ``non_blocking=True`` on the calling
+    thread's current stream, then records an event there.  A buffer is
+    written again only after the event of its previous copy has
+    completed, so a copy in flight never has its source overwritten, and
+    the copy queues behind no other stream's work (a pageable copy would
+    block the calling thread until it is done)."""
+
+    def __init__(self, depth: int = 8):
+        self._bufs: list[torch.Tensor | None] = [None] * depth
+        self._events: list[torch.cuda.Event | None] = [None] * depth
+        self._next = 0
+
+    def copy(self, src: torch.Tensor, device) -> torch.Tensor:
+        out = torch.empty(src.shape, dtype=src.dtype, device=device)
+        nbytes = src.numel() * src.element_size()
+        if nbytes == 0:
+            return out
+        k = self._next
+        self._next = (k + 1) % len(self._bufs)
+        event = self._events[k]
+        if event is not None:
+            event.synchronize()         # the buffer's last copy is done
+        else:
+            event = self._events[k] = torch.cuda.Event()
+        buf = self._bufs[k]
+        if buf is None or buf.numel() < nbytes:
+            buf = self._bufs[k] = torch.empty(max(nbytes, 1 << 16),
+                                              dtype=torch.uint8,
+                                              pin_memory=True)
+        staged = buf[:nbytes].view(src.dtype).view(src.shape)
+        staged.copy_(src)
+        out.copy_(staged, non_blocking=True)
+        event.record(torch.cuda.current_stream(out.device))
+        return out
+
+
+_STAGING = threading.local()
+
+
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """A host array on ``device`` with unchanged bits (plain H2D copy)."""
-    return torch.from_numpy(np.require(arr, requirements=("C", "W"))
-                            ).to(device)
+    """A host array on ``device`` with unchanged bits.  To a GPU the copy
+    goes through the calling thread's ``PinnedStaging`` ring, on its
+    current stream; on the CPU it is a view."""
+    src = torch.from_numpy(np.require(arr, requirements=("C", "W")))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return src.to(device)
+    staging = getattr(_STAGING, "ring", None)
+    if staging is None:
+        staging = _STAGING.ring = PinnedStaging()
+    return staging.copy(src, device)
 
 
 @dataclasses.dataclass

@@ -19,9 +19,14 @@ so a batch's I/O counters are exact.  The layout, the counters and the
 bytes read are the reference's: a store either package writes, the other
 reads.
 
+``DiskStore.warm_nodes`` is the overlapped pipeline's frontier planner:
+it pulls a future batch's probable byte ranges through the page cache on
+the pread pool, billed to the store's own planner context
+(``stats()["planner"]``) and never to a batch.
+
 Not part of the port yet, and refused by ``DiskStore``: fault injection
 (``faults=``), ``direct_io``, the ``optimal`` (Belady) policy with its
-oracle hooks, the ``warm_nodes`` planner and the trace spans.
+oracle hooks and the trace spans.
 """
 
 from __future__ import annotations
@@ -371,6 +376,8 @@ class DiskStore:
         self._pool = (ThreadPoolExecutor(max_workers=io_threads,
                                          thread_name_prefix="diskstore-io")
                       if io_threads > 1 else None)
+        self._planner_ctx = IOContext()
+        self._warmed_nodes = 0
         if self._pinned:
             self._preload_pinned()
 
@@ -715,6 +722,54 @@ class DiskStore:
                                    else fallback(lo, hi))
         return read_edge_blocks(read, blocks_a, block_e, self.num_edges)
 
+    # -- planner hook --------------------------------------------------------
+    def warm_nodes(self, nodes, *, features: bool = True,
+                   edges: bool = True) -> int:
+        """Planner pre-admission: pull the given nodes' neighbour-list and
+        feature-row byte ranges through the page cache on the pread pool,
+        ahead of the batch that will read them.  Fire-and-forget: the
+        payloads are dropped; the value is the cache residency when the
+        real read arrives.  Billed to the store's planner context
+        (``stats()['planner']``), never to a batch.  Returns the number of
+        ranges submitted (0 without a pool: warming synchronously would
+        only move the stall)."""
+        if self._pool is None:
+            return 0
+        nodes = np.unique(np.asarray(nodes, np.int64).reshape(-1))
+        if nodes.size == 0:
+            return 0
+        jobs = []
+        if edges:
+            isz = self._dtype["indices"].itemsize
+            lo = self.indptr[nodes] * isz
+            hi = self.indptr[nodes + 1] * isz
+            nz = hi > lo
+            jobs.append(("indices", lo[nz], hi[nz]))
+        if features and "features" in self._arrays:
+            row = self._dtype["features"].itemsize * self.feat_dim
+            lo = nodes * row
+            jobs.append(("features", lo, lo + row))
+        n = 0
+        prev = getattr(self._tls, "ctx", None)
+        self._tls.ctx = self._planner_ctx     # bind submissions to planner
+        try:
+            for key, lo, hi in jobs:
+                if lo.size == 0:
+                    continue
+                groups = self._block_disjoint_groups(
+                    np.asarray(lo, np.int64), np.asarray(hi, np.int64),
+                    self.io_threads)
+                if groups is None:
+                    continue
+                for g in groups:
+                    self._submit(self._read_group, key, lo, hi, g)
+                    n += len(g)
+        finally:
+            self._tls.ctx = prev
+        with self._stat_lock:
+            self._warmed_nodes += int(nodes.size)
+        return n
+
     # -- accounting ----------------------------------------------------------
     def io_counters(self) -> dict:
         hits = misses = evictions = 0
@@ -744,6 +799,8 @@ class DiskStore:
                 "verify": self.verify,
                 "direct_io": self.direct_io,
                 "nbytes_on_disk": self.nbytes_on_disk(),
+                "planner": dict(self._planner_ctx.counters(),
+                                warmed_nodes=self._warmed_nodes),
                 **self.io_counters()}
 
     def to_csr(self, include_features: bool = True) -> CSRGraph:

@@ -34,9 +34,9 @@ from repro.core import load_dataset as jload_dataset
 from repro.core import train_loop as jtrain_loop
 from repro.optim import adamw as jadamw
 from repro_torch.convert import params_from_jax
-from repro_torch.core import (DeviceTierSpec, GNNConfig, GraphSAGE,
-                              PallasSubgraphLoader, build_train_step,
-                              load_dataset, train_loop)
+from repro_torch.core import (GNNConfig, GraphSAGE, PallasSubgraphLoader,
+                              build_train_step, load_dataset, train_loop)
+from repro_torch.core import config as port_config
 from repro_torch.launch import train as port_train
 from repro_torch.optim import adamw
 from repro_torch.kernels import ops
@@ -82,10 +82,11 @@ def _pipelines(graphs, tmp_path, config):
         warnings.simplefilter("ignore")
         ref = build_pipeline(spec, jg)
     store = DiskStore(port_dir, cache_mb=CACHE_MB, policy=host_policy)
+    tier = port_config.CacheTierSpec.device(rows=rows, edge_blocks=blocks,
+                                            policy=policy)
     port = PallasSubgraphLoader(
         g, batch_size=BATCH, fanouts=FANOUTS, seed=SEED, device="cpu",
-        store=store, device_tier=DeviceTierSpec(rows=rows, edge_blocks=blocks,
-                                                policy=policy))
+        store=store, device_cache=tier, edge_cache=tier)
     return ref, port, store
 
 
@@ -286,8 +287,9 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
     assert not (tmp_path / "s").exists()
 
 
-@pytest.mark.parametrize("flags", [["--spec", "x.json"], ["--prefetch", "2"],
-                                   ["--overlap", "1"],
+@pytest.mark.parametrize("flags", [["--overlap", "1"],
+                                   ["--prefetch", "-1"],
+                                   ["--spec", "optimal.json"],
                                    ["--fault-eio", "0.1"],
                                    ["--direct-io", "1"],
                                    ["--store-mode", "isp"],
@@ -297,12 +299,27 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
                                    ["--trace-out", "t.json"],
                                    ["--device-cache-pinned-fraction", "2"],
                                    ["--io-retries", "0"]])
-def test_cli_rejects_deferred_and_invalid_flags(flags, capsys):
+def test_cli_rejects_deferred_and_invalid_flags(flags, capsys, tmp_path):
+    """Flags of later items are unknown, invalid values fail validation
+    (``--overlap 1`` needs ``--prefetch``), and a spec file that names a
+    later feature is refused with its item."""
+    if flags[0] == "--spec":
+        spec = tmp_path / flags[1]
+        spec.write_text(port_config.PipelineSpec(
+            backend=port_config.BackendSpec(name="pallas"),
+            store=port_config.StoreSpec(kind="disk"),
+            cache_tiers=(port_config.CacheTierSpec(
+                tier="host", policy="optimal", oracle_window=8,
+                arrays=()),)).to_json())
+        flags = ["--spec", str(spec)]
     with pytest.raises(SystemExit) as e:
         port_train.parse_args(["--device", "cpu", "--graph-store", "disk",
                                "--device-cache-rows", "8", *flags])
     assert e.value.code == 2
-    assert "error:" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "error:" in err
+    if flags[0] == "--spec":
+        assert "ROADMAP item 9" in err
 
 
 def test_cli_defaults_are_the_references():

@@ -125,10 +125,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      the counters reset just before each; finite logits; prefill ms,
      decode ms per step and tok/s;
   18. where mamba2-370m's serving time goes, as phase 12;
-  19. the spec files on the card: the five ``benchmarks/specs/*.json``
+  19. the spec files on the card: the six ``benchmarks/specs/*.json``
      the port runs (``smoke_pallas``, ``smoke_pallas_devcache_disk``,
-     ``smoke_pallas_edgecache``, ``train_pallas_outofcore`` and
-     ``smoke_pallas_overlap``) through ``repro_torch.launch.train.main
+     ``smoke_pallas_edgecache``, ``train_pallas_outofcore``,
+     ``smoke_pallas_overlap`` and ``smoke_pallas_overlap_faults``, the
+     last with ``--steps 8``) through ``repro_torch.launch.train.main
      --spec ... --dataset reddit --steps 4``, each on the card and with
      ``--device cpu``, the model in float32 on both: finite losses within
      1e-5 of the CPU's, batch 0 of ``build_pipeline(spec)`` bit-equal
@@ -147,7 +148,31 @@ Phases, in order; any failure raises and the script exits nonzero:
      3 timed runs of each mode in turns (steps/s, consumer idle, host
      seconds per stage), again with one pread thread, and both modes'
      device busy share over two profiled steps;
-  21. a JSON line of the kernels' numbers (the GNN's per launch, with
+  21. faults: ``smoke_pallas_overlap_faults.json`` (EIO, short reads,
+     bit flips, stalls, verify, and a 2.5 s sample-lane stall at batch 4
+     against a 1 s lane timeout) against its fault-free twin
+     ``smoke_pallas_overlap.json``, 8 steps each: batches 0-7 equal (ids,
+     features, labels), losses equal, at least one watchdog restart, not
+     degraded, no lane failure, EIO, short-read and corrupt-block counts
+     above 0; phase 8's command with ``--verify-blocks 1 --fault-seed 7
+     --fault-eio 0.08 --fault-short-read 0.04 --fault-bitflip 0.04
+     --io-retry-backoff 0``: losses and launches equal phase 8's, its
+     steps/s beside phase 8's; phase 8's command with the feature-cache
+     fetch forced to fail from batch 3 on: the bypass's one warning, no
+     ``feature_gather_cached`` launch and 3 ``feature_gather_rows``
+     launches in each batch after it, losses equal phase 8's;
+  22. direct I/O: phase 8's command with ``--direct-io 1``: the mode the
+     store's filesystem gave (``O_DIRECT``, or buffered with the store's
+     warning), losses and launches equal phase 8's;
+  23. resume: phase 5's command, and the chaos spec overlapped (resumed
+     without ``--spec``, from the manifest's ``pipeline_spec``), 8 steps
+     straight against 4 steps and ``--resume``: the logged losses of
+     steps 5-8 equal; the step-8 checkpoint written on the card restored
+     with ``device="cpu"`` bit-equal to the card's parameters; qwen2-0.5b
+     ``--reduced --batch 4 --seq-len 128``, 8 steps against 4 and a
+     resume: the final loss within 1e-3 (the reference's tolerance), and
+     whether steps 5-8 are repr-equal;
+  24. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them), the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
@@ -178,6 +203,9 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import checkpoint as ckpt  # noqa: E402
+from repro_torch.checkpoint.store import \
+    _flatten as flatten_state  # noqa: E402  (the files' key layout)
 from repro_torch import kernels, rng  # noqa: E402
 from repro_torch.core import (CacheTierSpec, GNNConfig,  # noqa: E402
                               GraphSAGE, PallasSubgraphLoader, PipelineSpec,
@@ -211,8 +239,8 @@ from repro_torch.train.steps import \
     build_train_step as build_lm_train_step  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
 from repro_torch.storage import (DeviceEdgeBlockCache,  # noqa: E402
-                                 DeviceFeatureCache, DiskStore, pad_pow2,
-                                 save_graph)
+                                 DeviceFeatureCache, DiskStore,
+                                 StoreReadError, pad_pow2, save_graph)
 
 BATCH, FANOUTS = 1024, (25, 10)
 RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
@@ -226,9 +254,32 @@ OOC_TIER = CacheTierSpec.device(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
 # and the timed runs of each mode
 PORTED_SPECS = ("smoke_pallas", "smoke_pallas_devcache_disk",
                 "smoke_pallas_edgecache", "train_pallas_outofcore",
-                "smoke_pallas_overlap")
+                "smoke_pallas_overlap", "smoke_pallas_overlap_faults")
 REFUSED_SPEC, REFUSED_ITEM = "smoke_pallas_optimal", 9
 SPEC_STEPS = 4
+# the chaos spec (faults, verify, a 2.5 s sample-lane stall at batch 4
+# against a 1 s lane timeout) and its fault-free twin, 8 steps each
+# (phases 19, 21, 23: the stall needs batch 4)
+CHAOS_SPEC, CHAOS_TWIN, CHAOS_STEPS = ("smoke_pallas_overlap_faults",
+                                       "smoke_pallas_overlap", 8)
+# phase 21: the chaos spec's EIO, short-read and bit-flip mix on phase 8's
+# command (no stalls: ~10,000 edge-block preads a step at a 0.01 stall
+# rate would stall ~12 s a step), and the bypass run's healthy fetches
+# before the forced failure
+FAULT_FLAGS = ["--verify-blocks", "1", "--fault-seed", "7", "--fault-eio",
+               "0.08", "--fault-short-read", "0.04", "--fault-bitflip",
+               "0.04", "--io-retry-backoff", "0"]
+BYPASS_AFTER = 3
+FAULT_COUNTERS = ("io_errors", "short_reads", "corrupt_blocks", "retries",
+                  "timeouts")
+# phase 23: resume at step 4 of 8, and the reduced LM's batch and sequence
+# (the flash kernels are deterministic, so its resumed steps are held
+# repr-equal, as the GNN's)
+RESUME_AT, RESUME_STEPS = 4, 8
+LM_RESUME_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "4",
+                  "--seq-len", "128", "--log-every", "1"]
+GNN_KERNELS = ("neighbor_sample", "neighbor_sample_cached",
+               "feature_gather_rows", "feature_gather_cached")
 OVERLAP_FLAGS = ["--prefetch", "2", "--overlap", "1", "--stage-depth", "2",
                  "--plan-ahead", "2"]
 OVERLAP_RUNS = ("sync", "overlap", "overlap", "sync", "sync", "overlap")
@@ -1126,19 +1177,23 @@ def spec_phase() -> dict:
                       for a, b in zip(ids[DEVICE], ids["cpu"])),
                   f"{name}: batch 0's ids differ between card and CPU")
             runs = {}
+            steps = CHAOS_STEPS if name == CHAOS_SPEC else SPEC_STEPS
             for dev in (DEVICE, "cpu"):
                 kernels.reset_launches()
-                _, losses, lstats = train.main([
-                    "--arch", "graphsage", "--spec", path, "--dataset",
-                    "reddit", "--steps", str(SPEC_STEPS), "--log-every",
-                    str(SPEC_STEPS), "--device", dev])
+                with warnings.catch_warnings():
+                    # the chaos spec's watchdog restart warns
+                    warnings.simplefilter("ignore")
+                    _, losses, lstats = train.main([
+                        "--arch", "graphsage", "--spec", path, "--dataset",
+                        "reddit", "--steps", str(steps), "--log-every",
+                        str(steps), "--device", dev])
                 runs[dev] = {"losses": losses,
                              "launches": dict(kernels.LAUNCHES),
                              "store": lstats.get("store", {}).get("kind"),
                              "restarts": lstats.get("prefetch_restarts"),
                              "degraded": lstats.get("degraded")}
             card, cpu = runs[DEVICE], runs["cpu"]
-            check(len(card["losses"]) == SPEC_STEPS
+            check(len(card["losses"]) == steps
                   and all(math.isfinite(x) for x in card["losses"]),
                   f"{name}: losses {card['losses']}")
             check(np.allclose(card["losses"], cpu["losses"], rtol=1e-5,
@@ -1160,7 +1215,10 @@ def spec_phase() -> dict:
             check((card["store"] == "disk") == disk,
                   f"{name}: store {card['store']}, spec {spec.store.kind}")
             if spec.prefetch.overlap:
-                check(card["restarts"] == 0 and card["degraded"] is False,
+                # the chaos spec's scheduled stall restarts its lanes
+                # (phase 21 checks that); no other spec may restart
+                check((card["restarts"] == 0 or name == CHAOS_SPEC)
+                      and card["degraded"] is False,
                       f"{name}: {card['restarts']} restarts, degraded "
                       f"{card['degraded']}")
             diff = max(abs(a - b) for a, b in zip(card["losses"],
@@ -1283,8 +1341,7 @@ def overlap_phase(g, argv_ooc: list) -> dict:
         torch.cuda.empty_cache()
         check(sync["losses"] == over["losses"],
               f"losses {sync['losses']} sync, {over['losses']} overlapped")
-        gnn = ("neighbor_sample", "neighbor_sample_cached",
-               "feature_gather_rows", "feature_gather_cached")
+        gnn = GNN_KERNELS
         check({k: sync["launches"][k] for k in gnn}
               == {k: summed.get(k, 0) for k in gnn},
               f"sync launches {sync['launches']} vs per-batch sums {summed}")
@@ -1370,6 +1427,366 @@ def overlap_phase(g, argv_ooc: list) -> dict:
             "per_batch": per_batch, "launches_per_8_batches": summed,
             "planner_warnings": planner, "timed": timed, "medians": medians,
             "profiles": profiles}
+
+
+def _gnn(launches: dict) -> dict:
+    return {k: launches.get(k, 0) for k in GNN_KERNELS}
+
+
+def _fs_type(path: str) -> str:
+    """The filesystem type of the mount holding ``path`` (/proc/mounts)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/self/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, kind = mnt, parts[2]
+    return kind
+
+
+def _train_recorded(argv: list, build, record: list | None = None):
+    """``train.main(argv)`` with ``train.build_pipeline`` replaced by
+    ``build`` (recording each batch the consumer takes into ``record``),
+    the launch counters reset just before; returns the run's stats,
+    losses, loader stats, launches and warnings."""
+    real = train.build_pipeline
+    train.build_pipeline = (_recording(build, record) if record is not None
+                            else build)
+    kernels.reset_launches()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            stats, losses, lstats = train.main(argv)
+    finally:
+        train.build_pipeline = real
+    return {"stats": stats, "losses": losses, "loader": lstats,
+            "launches": dict(kernels.LAUNCHES),
+            "warnings": [str(w.message) for w in caught]}
+
+
+def _spec_argv(name: str, steps: int, *extra) -> list:
+    return ["--arch", "graphsage", "--spec", _spec_path(name), "--dataset",
+            "reddit", "--steps", str(steps), "--log-every", "1", "--device",
+            DEVICE, *extra]
+
+
+def _failing_build(after: int):
+    """``build_pipeline`` whose loader's feature-cache fetch fails past
+    the retry policy from its ``after + 1``-th call on."""
+    def built(*a, **kw):
+        pipe = build_pipeline(*a, **kw)
+        dc = pipe.loader.devcache
+        fetch, calls = dc.fetch_plan, [0]
+
+        def fetch_plan(plan):
+            calls[0] += 1
+            if calls[0] > after:
+                raise StoreReadError("forced feature-fetch failure "
+                                     "(chip_smoke phase 21)")
+            return fetch(plan)
+
+        dc.fetch_plan = fetch_plan
+        return pipe
+    return built
+
+
+def faults_phase(argv_ooc: list, sdir: str, ooc: dict) -> dict:
+    """Phase 21: the chaos spec against its fault-free twin on the card;
+    phase 8's command under the fault mix, and with the feature fetch
+    forced to fail (the device-cache bypass)."""
+    t0 = time.perf_counter()
+    batches, runs = {}, {}
+    for name in (CHAOS_TWIN, CHAOS_SPEC):
+        batches[name] = []
+        runs[name] = _train_recorded(_spec_argv(name, CHAOS_STEPS),
+                                     build_pipeline, batches[name])
+    twin, chaos = runs[CHAOS_TWIN], runs[CHAOS_SPEC]
+    for name, rec in batches.items():
+        check([b["idx"] for b in rec] == list(range(CHAOS_STEPS)),
+              f"{name}: batches {[b['idx'] for b in rec]}")
+    for a, b in zip(batches[CHAOS_TWIN], batches[CHAOS_SPEC]):
+        check(all(torch.equal(x, y)
+                  for x, y in zip(a["tensors"], b["tensors"])),
+              f"chaos batch {a['idx']}: a tensor differs from the twin's")
+    del batches
+    check(chaos["losses"] == twin["losses"],
+          f"chaos losses {chaos['losses']} vs twin {twin['losses']}")
+    ls = chaos["loader"]
+    check(ls["lane_stall_restarts"] >= 1 and ls["degraded"] is False
+          and ls["lane_failures"] == 0,
+          f"chaos lanes: {ls['lane_stall_restarts']} watchdog restarts, "
+          f"{ls['lane_failures']} failures, degraded {ls['degraded']}")
+    chaos_faults = {k: ls["store"][k] for k in FAULT_COUNTERS}
+    check(all(chaos_faults[k] > 0
+              for k in ("io_errors", "short_reads", "corrupt_blocks")),
+          f"chaos fault counters {chaos_faults}")
+    chaos_s = time.perf_counter() - t0
+    print(f"[smoke] phase 21: {CHAOS_SPEC}: 8 batches and losses equal "
+          f"{CHAOS_TWIN}'s ({chaos['losses']}), watchdog restarts "
+          f"{ls['lane_stall_restarts']}, not degraded, store faults "
+          f"{chaos_faults}, launches {_gnn(chaos['launches'])} ({chaos_s:.1f} s)")
+
+    t0 = time.perf_counter()
+    argv_f = argv_ooc + ["--store-dir", sdir] + FAULT_FLAGS
+    print(f"[smoke] phase 21: train {' '.join(argv_f)}")
+    faulty = _train_recorded(argv_f, build_pipeline)
+    check(faulty["losses"] == ooc["losses"],
+          f"faulty losses {faulty['losses']} vs phase 8's {ooc['losses']}")
+    check(_gnn(faulty["launches"]) == _gnn(ooc["launches"]),
+          f"faulty launches {faulty['launches']} vs phase 8's "
+          f"{ooc['launches']}")
+    faults = {k: faulty["loader"]["store"][k] for k in FAULT_COUNTERS}
+    check(all(faults[k] > 0 for k in ("io_errors", "short_reads",
+                                      "corrupt_blocks", "retries")),
+          f"faulty run's fault counters {faults}")
+    faulty_s = time.perf_counter() - t0
+    sps = faulty["stats"].steps_per_s
+    print(f"[smoke] phase 21: under faults {sps:.4f} steps/s (phase 8 "
+          f"{ooc['steps_per_s']:.4f}), losses and launches equal phase "
+          f"8's, store faults {faults}, blocks fetched "
+          f"{faulty['loader']['store']['block_fetches']} ({faulty_s:.1f} s)")
+
+    t0 = time.perf_counter()
+    rec = []
+    bypass = _train_recorded(argv_ooc + ["--store-dir", sdir],
+                             _failing_build(BYPASS_AFTER), rec)
+    warned = [w for w in bypass["warnings"] if "bypassing the cache" in w]
+    check(len(warned) == 1, f"bypass warnings {bypass['warnings']}")
+    check(bypass["losses"] == ooc["losses"],
+          f"bypassed losses {bypass['losses']} vs phase 8's "
+          f"{ooc['losses']}")
+    per_batch = []
+    for b in rec:
+        n = b["launches"]
+        after = b["idx"] >= BYPASS_AFTER
+        per_batch.append({"idx": b["idx"], "launches": n,
+                          "bypass": bool(b["io"].get("devcache_bypass"))})
+        check((n.get("feature_gather_cached", 0) == 0) == after
+              and n.get("feature_gather_rows", 0) == 3
+              and per_batch[-1]["bypass"] == after,
+              f"batch {b['idx']}: launches {n}, io {b['io'].keys()}")
+    check(bypass["loader"]["devcache_bypass_events"] == 1,
+          f"bypass events {bypass['loader']['devcache_bypass_events']}")
+    bypass_s = time.perf_counter() - t0
+    print(f"[smoke] phase 21: bypass: {warned[0]!r}; batches "
+          f"{BYPASS_AFTER}-7 launched no feature_gather_cached and 3 "
+          f"feature_gather_rows each, losses equal phase 8's, "
+          f"{bypass['stats'].steps_per_s:.4f} steps/s ({bypass_s:.1f} s)")
+    return {"chaos": {k: v for k, v in chaos.items() if k != "stats"},
+            "twin_losses": twin["losses"], "chaos_faults": chaos_faults,
+            "chaos_s": chaos_s,
+            "faulty": {"argv": argv_f, "losses": faulty["losses"],
+                       "launches": faulty["launches"], "faults": faults,
+                       "steps_per_s": sps,
+                       "phase8_steps_per_s": ooc["steps_per_s"],
+                       "store": faulty["loader"]["store"],
+                       "seconds": faulty_s},
+            "bypass": {"warning": warned[0], "per_batch": per_batch,
+                       "launches": bypass["launches"],
+                       "steps_per_s": bypass["stats"].steps_per_s,
+                       "seconds": bypass_s}}
+
+
+def direct_io_phase(argv_ooc: list, sdir: str, ooc: dict) -> dict:
+    """Phase 22: phase 8's command with ``--direct-io 1``."""
+    t0 = time.perf_counter()
+    argv = argv_ooc + ["--store-dir", sdir, "--direct-io", "1"]
+    print(f"[smoke] phase 22: train {' '.join(argv)}")
+    run = _train_recorded(argv, build_pipeline)
+    mode = run["loader"]["store"]["direct_io"]
+    fell_back = [w for w in run["warnings"] if "direct_io" in w]
+    check(mode or fell_back, "direct_io off without a warning")
+    check(run["losses"] == ooc["losses"],
+          f"direct-I/O losses {run['losses']} vs phase 8's {ooc['losses']}")
+    check(_gnn(run["launches"]) == _gnn(ooc["launches"]),
+          f"direct-I/O launches {run['launches']} vs {ooc['launches']}")
+    fs = _fs_type(sdir)
+    seconds = time.perf_counter() - t0
+    print(f"[smoke] phase 22: the store at {sdir} ({fs}) reads "
+          + ("O_DIRECT" if mode else f"buffered: {fell_back[0]}")
+          + f"; {run['stats'].steps_per_s:.4f} steps/s (phase 8 "
+          f"{ooc['steps_per_s']:.4f}), losses equal phase 8's "
+          f"({seconds:.1f} s)")
+    return {"argv": argv, "direct_io": mode, "fs": fs,
+            "warnings": fell_back, "losses": run["losses"],
+            "steps_per_s": run["stats"].steps_per_s, "seconds": seconds}
+
+
+def _steps(argv: list, n: int) -> list:
+    out = list(argv)
+    out[out.index("--steps") + 1] = str(n)
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().view(torch.int32)
+
+
+def _same_bits(a, b) -> bool:
+    if not isinstance(a, torch.Tensor):
+        return b.dim() == 0 and int(b) == a
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.detach().cpu().reshape(-1).view(torch.uint8),
+        b.reshape(-1).view(torch.uint8))
+
+
+def lm_full_ckpt_case(ckpt_dir: str) -> dict:
+    """LM_ARCH's full-width training state (float32 parameters and AdamW
+    moments after one step on TRAIN_PARITY_BATCH x TRAIN_PARITY_SEQ
+    tokens) through the launcher's ``AsyncSaver``, then ``restore`` on
+    the CPU: every leaf bit-equal to the card's.  Times the snapshot
+    (``save_async``'s device-to-host copy, which the trainer waits for),
+    the whole save (to ``wait``'s return) and the restore."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    model = LM(cfg, tree_map(lambda t: t.to(DEVICE),
+                             init_params(build_defs(cfg), seed=0)),
+               trainable=True)
+    opt = adamw(warmup_cosine(1e-3, 10, 50))
+    state = init_train_state(model, opt)
+    batch = TokenPipeline(vocab_size=cfg.vocab_size,
+                          seq_len=TRAIN_PARITY_SEQ,
+                          global_batch=TRAIN_PARITY_BATCH).torch_batch(
+                              0, DEVICE)
+    state, _ = build_lm_train_step(model, opt)(state, batch)
+    torch.cuda.synchronize()
+    saver = ckpt.AsyncSaver(ckpt_dir)
+    t0 = time.perf_counter()
+    saver.save_async(1, state)
+    t1 = time.perf_counter()
+    saver.wait()
+    t2 = time.perf_counter()
+    restored, step = ckpt.restore(ckpt_dir, device="cpu")
+    t3 = time.perf_counter()
+    live, back = flatten_state(state), flatten_state(restored)
+    nbytes = sum(v.numel() * v.element_size() for v in live.values()
+                 if isinstance(v, torch.Tensor))
+    check(step == 1 and sorted(back) == sorted(live)
+          and all(_same_bits(v, back[k]) for k, v in live.items())
+          and all(t.device.type == "cpu" for t in back.values()),
+          f"{LM_ARCH}'s full-width checkpoint restored on the CPU differs "
+          "from the card's state")
+    out = {"leaves": len(live), "bytes": nbytes,
+           "file_bytes": os.path.getsize(saver.last_path),
+           "snapshot_s": t1 - t0, "save_s": t2 - t0, "restore_s": t3 - t2}
+    del state, restored, live, back, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def resume_phase(argv: list, chaos_losses: list) -> dict:
+    """Phase 23: 8 steps straight against 4 steps and a resume, for phase
+    5's command, the chaos spec overlapped and the reduced LM; a
+    checkpoint written on the card restored on the CPU, for the GNN and
+    for LM_ARCH's full-width state."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as cdir:
+        def d(name):
+            return os.path.join(cdir, name)
+
+        models = []
+        real_sage = train.GraphSAGE
+
+        def kept(*a, **kw):
+            models.append(real_sage(*a, **kw))
+            return models[-1]
+
+        train.GraphSAGE = kept
+        kernels.reset_launches()
+        try:
+            _, full, _ = train.main(argv)
+            train.main(_steps(argv, RESUME_AT) + ["--ckpt-dir", d("b")])
+            _, resumed, _ = train.main(argv + ["--ckpt-dir", d("b"),
+                                               "--resume"])
+        finally:
+            train.GraphSAGE = real_sage
+        launches = dict(kernels.LAUNCHES)
+        check(resumed == full[RESUME_AT:],
+              f"in memory: resumed {resumed} vs {full[RESUME_AT:]}")
+        check(ckpt.list_steps(d("b")) == [RESUME_AT, RESUME_STEPS],
+              f"checkpoints {ckpt.list_steps(d('b'))}")
+        restored, step = ckpt.restore(d("b"), device="cpu")
+        live = dict(models[-1].named_parameters())
+        check(step == RESUME_STEPS and sorted(restored["params"])
+              == sorted(live) and all(
+                  torch.equal(_bits(restored["params"][k]), _bits(v))
+                  for k, v in live.items())
+              and all(t.device.type == "cpu"
+                      for t in restored["params"].values()),
+              "the card's checkpoint restored on the CPU differs from the "
+              "card's parameters")
+        out["inmem"] = {"full": full, "resumed": resumed,
+                        "launches": launches}
+        print(f"[smoke] phase 23: in memory, steps 5-8 resumed {resumed} "
+              f"equal the straight run's; step 8's checkpoint restored on "
+              f"the CPU bit-equal to the card's {len(live)} parameters; "
+              f"launches {_gnn(launches)}")
+
+        kernels.reset_launches()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            train.main(_spec_argv(CHAOS_SPEC, RESUME_AT, "--ckpt-dir",
+                                  d("c")))
+            # without --spec: the data plane from the manifest
+            _, chaos_resumed, lstats = train.main([
+                "--arch", "graphsage", "--dataset", "reddit", "--steps",
+                str(RESUME_STEPS), "--log-every", "1", "--device", DEVICE,
+                "--ckpt-dir", d("c"), "--resume"])
+        launches = dict(kernels.LAUNCHES)
+        check(lstats.get("stages") == ["sample", "resolve", "admit"]
+              and lstats["degraded"] is False,
+              f"the resumed chaos run's loader {lstats.get('stages')}, "
+              f"degraded {lstats.get('degraded')}")
+        check(chaos_resumed == chaos_losses[RESUME_AT:],
+              f"chaos: resumed {chaos_resumed} vs "
+              f"{chaos_losses[RESUME_AT:]}")
+        out["chaos"] = {"resumed": chaos_resumed, "launches": launches,
+                        "watchdog_restarts": lstats["lane_stall_restarts"]}
+        print(f"[smoke] phase 23: {CHAOS_SPEC}, overlapped, resumed from "
+              f"its manifest: steps 5-8 {chaos_resumed} equal phase 21's; "
+              f"watchdog restarts {lstats['lane_stall_restarts']}; "
+              f"launches {_gnn(launches)}")
+
+        lm = LM_RESUME_ARGV + ["--device", DEVICE]
+        kernels.reset_launches()
+        full = train.main(lm + ["--steps", str(RESUME_STEPS)])
+        train.main(lm + ["--steps", str(RESUME_AT), "--ckpt-dir", d("lm")])
+        resumed = train.main(lm + ["--steps", str(RESUME_STEPS),
+                                   "--ckpt-dir", d("lm")])
+        launches = dict(kernels.LAUNCHES)
+        check(resumed["losses"] == full["losses"][RESUME_AT:],
+              f"LM: resumed {resumed['losses']} vs "
+              f"{full['losses'][RESUME_AT:]}")
+        check(launches["flash_attention_fwd"] > 0
+              and launches["flash_attention_bwd_dq"] > 0
+              and launches["flash_attention_bwd_dkv"] > 0,
+              f"LM launches {launches}")
+        out["lm"] = {"full": full["losses"], "resumed": resumed["losses"],
+                     "launches": launches}
+        print(f"[smoke] phase 23: {' '.join(lm)}: steps 5-8 resumed "
+              f"{resumed['losses']} repr-equal to the straight run's; "
+              f"launches { {k: v for k, v in launches.items() if v} }")
+
+        t1 = time.perf_counter()
+        lm_full = lm_full_ckpt_case(d("lm-full"))
+        lm_full["seconds"] = time.perf_counter() - t1
+        out["lm_full"] = lm_full
+        gb = lm_full["bytes"] / 1e9
+        print(f"[smoke] phase 23: {LM_ARCH} full width, parameters and "
+              f"AdamW moments ({lm_full['leaves']} leaves, {gb:.3f} GB, "
+              f"file {lm_full['file_bytes'] / 1e9:.3f} GB) saved through "
+              f"AsyncSaver and restored on the CPU bit-equal: snapshot "
+              f"{lm_full['snapshot_s']:.3f} s, save "
+              f"{lm_full['save_s']:.3f} s "
+              f"({gb / lm_full['save_s']:.3f} GB/s), restore "
+              f"{lm_full['restore_s']:.3f} s; "
+              f"{lm_full['seconds']:.1f} s with its training step")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[smoke] phase 23: {out['seconds']:.1f} s")
+    return out
 
 
 def _sdpa(q, k, v, **kw):
@@ -2240,6 +2657,14 @@ def main() -> int:
     specs = spec_phase()
     overlap = overlap_phase(reddit, argv_ooc)
 
+    ooc = {"losses": ooc_losses, "launches": ooc_launches,
+           "steps_per_s": ooc_stats.steps_per_s}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-faults-") as sdir:
+        save_graph(reddit, sdir)
+        fault_run = faults_phase(argv_ooc, sdir, ooc)
+        dio = direct_io_phase(argv_ooc, sdir, ooc)
+    resumed = resume_phase(argv, fault_run["chaos"]["losses"])
+
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
     # fit in L2; the widths are the graph's batch and fanouts either way),
@@ -2327,7 +2752,8 @@ def main() -> int:
                "train_profile": train_prof,
                "ssm_parity": ssm_parity, "ssm_serve": ssm_served,
                "ssm_serve_profile": ssm_prof,
-               "specs": specs, "overlap": overlap,
+               "specs": specs, "overlap": overlap, "faults": fault_run,
+               "direct_io": dio, "resume": resumed,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

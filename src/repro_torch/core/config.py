@@ -488,10 +488,6 @@ def check_ported(spec: PipelineSpec) -> None:
         missing.append("sampler.family 'saint' (ROADMAP item 11)")
     if spec.store.mode == "isp":
         missing.append("store.mode 'isp' (ROADMAP item 12)")
-    if spec.store.faults is not None:
-        missing.append("store.faults (ROADMAP item 8)")
-    if spec.store.direct_io:
-        missing.append("store.direct_io (ROADMAP item 8)")
     if any(t.policy == "optimal" for t in spec.cache_tiers):
         missing.append("cache policy 'optimal' (ROADMAP item 9)")
     if spec.engine != "none":
@@ -549,8 +545,12 @@ class Pipeline:
         s = self.spec
         bits = [f"backend={s.backend.name}", f"sampler={s.sampler.family}",
                 f"store={s.store.kind}"]
+        if s.store.direct_io:
+            bits.append("direct_io")
         if s.store.verify:
             bits.append("verify=crc32c")
+        if s.store.faults is not None:
+            bits.append("faults=injected")
         if s.prefetch.depth:
             bits.append(f"prefetch={s.prefetch.depth}")
         if s.prefetch.overlap:
@@ -648,8 +648,9 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
                     block_bytes=spec.store.block_bytes,
                     cache_mb=None if host is None else host.capacity_mb,
                     policy=None if host is None else host.policy,
-                    verify=spec.store.verify, retry=spec.store.retry,
-                    **store_kw)
+                    verify=spec.store.verify,
+                    direct_io=spec.store.direct_io, retry=spec.store.retry,
+                    faults=spec.store.faults, **store_kw)
             except BaseException:
                 if tmpdir is not None:
                     shutil.rmtree(tmpdir, ignore_errors=True)
@@ -722,6 +723,12 @@ FLAG_TABLE = {
     "--store-dir": ("store.path", dict(
         help="directory for the on-disk graph layout (default: a fresh "
              "temp dir; reused if it already holds a manifest)")),
+    "--direct-io": ("store.direct_io", dict(
+        type=int, choices=(0, 1), metavar="0|1",
+        help="1 = open the disk store's backing files O_DIRECT (bypass "
+             "the OS page cache; aligned preads into a pooled buffer), "
+             "falling back to buffered reads where the filesystem "
+             "refuses")),
     "--lock-shards": ("store.lock_shards", dict(
         type=int,
         help="disk-store page-cache lock shards (default: storage spec; "
@@ -756,6 +763,25 @@ FLAG_TABLE = {
         type=int,
         help="overlapped pipeline: watchdog restarts before degrading "
              "permanently to synchronous composition")),
+    "--fault-seed": ("store.faults.seed", dict(
+        type=int,
+        help="fault injection: deterministic schedule seed")),
+    "--fault-eio": ("store.faults.eio_rate", dict(
+        type=float,
+        help="fault injection: per-(block, first attempt) probability "
+             "of a transient EIO (0 = off)")),
+    "--fault-short-read": ("store.faults.short_read_rate", dict(
+        type=float,
+        help="fault injection: probability of a truncated pread")),
+    "--fault-bitflip": ("store.faults.bitflip_rate", dict(
+        type=float,
+        help="fault injection: probability of a flipped payload bit "
+             "(needs --verify-blocks 1 to be detectable)")),
+    "--fault-stall": ("store.faults.stall_rate", dict(
+        type=float,
+        help="fault injection: probability of a stalled pread")),
+    "--fault-stall-s": ("store.faults.stall_s", dict(
+        type=float, help="fault injection: stalled-pread duration")),
     "--cache-mb": ("cache.capacity_mb", dict(
         type=float,
         help="host tier: disk-store page-cache budget in MB (default: "
@@ -803,6 +829,9 @@ def _spec_defaults() -> dict:
         rows=0, edge_blocks=0,
         pinned_fraction=DEFAULT.devcache.pinned_fraction,
         arrays=("features",), oracle_window=0)
+    # faults is None in the canonical spec; the flag paths need a scratch
+    # dict to write through (all-zero normalizes back to None)
+    d["store"]["faults"] = dataclasses.asdict(FaultSpec())
     return d
 
 
@@ -876,6 +905,10 @@ def spec_from_args(args) -> PipelineSpec:
         base = PipelineSpec.load(spec_path)
 
     tree = base.to_dict() if base is not None else PipelineSpec().to_dict()
+    # the faults flags need a dict to write through even when the base
+    # spec carries none (StoreSpec normalizes all-inactive faults to None)
+    if tree["store"].get("faults") is None:
+        tree["store"]["faults"] = dict(defaults["store"]["faults"])
     # scratch dicts for the two tiers, seeded from the base spec's tiers
     cache = dict(defaults["cache"])
     devcache = dict(defaults["devcache"])

@@ -16,7 +16,10 @@ is the reference's staged composition, sample -> resolve -> admit, run
 back to back here or on the lanes of ``core.pipeline.OverlappedLoader``;
 each batch's ``Minibatch.trace.io`` holds its exact store, devcache and
 edgecache counters, and ``Minibatch.launches`` the kernel launches its
-stages made.
+stages made.  A feature-cache fetch that fails past the store's retry
+policy trips the reference's one-strike bypass: from then on each
+batch's unique rows are read straight from the store, uploaded once and
+gathered by ``feature_gather_rows``, with unchanged values.
 
 ``_build_loader`` builds the loader a ``PipelineSpec`` describes
 (``core.config.build_pipeline`` is the entry point), wrapped in a
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 import warnings
 from typing import Sequence
@@ -163,7 +167,9 @@ def _build_loader(spec: PipelineSpec, *, g: CSRGraph | None, store=None,
                 plan_ahead=_effective_plan_ahead(
                     spec.prefetch.plan_ahead, store, spec.batch_size),
                 lane_timeout=spec.prefetch.lane_timeout_s,
-                max_lane_restarts=spec.prefetch.max_lane_restarts)
+                max_lane_restarts=spec.prefetch.max_lane_restarts,
+                stall_inject=(spec.store.faults.lane_stall
+                              if spec.store.faults is not None else None))
         else:
             loader = PrefetchingLoader(loader, depth=spec.prefetch.depth)
     return loader
@@ -264,6 +270,11 @@ class PallasSubgraphLoader:
         self.max_degree = int(g.degrees().max()) if g.num_edges else 1
         self._key = rng.key(seed)
         self.dispatches = {"edge_chunks": 0, "feature_segments": 0}
+        self._devcache_bypass = False   # permanent once tripped
+        self._bypass_events = 0
+        # orders a bypass's cache reset against the admit stage's use of
+        # the cache (they run on different lanes when overlapped)
+        self._admit_lock = threading.Lock()
         if edge_cache is not None and getattr(edge_cache, "edge_blocks", 0):
             self.indices = None         # topology stays off the device
             self.edgecache = DeviceEdgeBlockCache(
@@ -367,15 +378,36 @@ class PallasSubgraphLoader:
                     edge_io=edge_io, launches=_launches_since(l0))
 
     def reset_staged_state(self) -> None:
-        """Discard cache-mirror state staged by abandoned plans.  On a GPU
-        the device is synchronized first: an abandoned lane's installs
-        and gathers must be done before the slot tables are cleared."""
+        """Discard cache-mirror state staged by abandoned plans (a
+        bypassed feature cache is left alone).  On a GPU the device is
+        synchronized first: an abandoned lane's installs and gathers must
+        be done before the slot tables are cleared."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        if self.devcache is not None:
+        if self.devcache is not None and not self._devcache_bypass:
             self.devcache.reset()
         if self.edgecache is not None:
             self.edgecache.reset()
+
+    def _note_devcache_failure(self, exc: BaseException) -> None:
+        """Degrade policy: a feature-cache fetch that failed past the
+        store's retry policy means the cached path cannot make progress,
+        so it is bypassed for good (a direct ``gather_features`` per
+        batch) instead of failing training.  The cache is reset after the
+        device has finished the installs already queued.  The reference
+        ignores any error of that reset; here it is a device fault, and
+        it raises."""
+        with self._admit_lock:
+            self._devcache_bypass = True
+            self._bypass_events += 1
+            warnings.warn(
+                f"device feature cache fetch failed past the retry policy "
+                f"({exc}); bypassing the cache permanently — features now "
+                f"fetched directly from the store each batch (slower, "
+                f"bit-identical)", stacklevel=2)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.devcache.reset(preload=False)
 
     def _stage_resolve(self, s: dict) -> dict:
         """Plan and fetch the batch's feature-cache misses.  The unique
@@ -386,24 +418,42 @@ class PallasSubgraphLoader:
             hop_ids = [h.cpu().numpy() for h in s["hops"]]
         uniq = np.unique(np.concatenate([h.reshape(-1) for h in hop_ids]))
         s["hop_ids"], s["uniq"] = hop_ids, uniq
-        if self.devcache is not None:
-            with self._attr(s["ctx"]):
-                plan = self.devcache.plan_rows(pad_pow2(uniq, uniq[-1]),
-                                               n_valid=uniq.size)
-                self.devcache.fetch_plan(plan)
-            s["plan"] = plan
+        if self.devcache is not None and not self._devcache_bypass:
+            try:
+                with self._attr(s["ctx"]):
+                    plan = self.devcache.plan_rows(
+                        pad_pow2(uniq, uniq[-1]), n_valid=uniq.size)
+                    self.devcache.fetch_plan(plan)
+                s["plan"] = plan
+            except _store.StoreReadError as e:
+                self._note_devcache_failure(e)
+                s["plan"] = None
         return s
 
     def _stage_admit(self, s: dict) -> Minibatch:
         """Install the fetched rows, gather them on the device, gather
         the hop tensors from them (one ``feature_gather_rows`` launch per
-        hop), and assemble the Minibatch with the batch's I/O bill."""
+        hop), and assemble the Minibatch with the batch's I/O bill.  With
+        the feature cache bypassed, the batch's unique rows come straight
+        from the store in one upload instead: the same rows in the same
+        order, so only the transfers and counters differ.  (Overlapped,
+        a plan made before the bypass tripped is not installed.)"""
         l0 = kernels.thread_launches()
         hop_ids, uniq = s["hop_ids"], s["uniq"]
         plan = s.get("plan")
         if self.devcache is not None:
-            rows = self.devcache.execute_plan(plan)
-            self.dispatches["feature_segments"] += len(plan.segments)
+            with self._admit_lock:
+                if self._devcache_bypass:
+                    plan = None
+                else:
+                    rows = self.devcache.execute_plan(plan)
+                    self.dispatches["feature_segments"] += len(
+                        plan.segments)
+            if plan is None:
+                with self._attr(s["ctx"]):
+                    rows = _to_device(np.ascontiguousarray(
+                        self.store.gather_features(uniq), np.float32),
+                        self.device)
             F = self.devcache.feat_dim
             hop_feats = []
             for h in hop_ids:
@@ -420,7 +470,10 @@ class PallasSubgraphLoader:
             io = _io_delta(self.store, s["io0"]) or {}
         io = _store.nest_fault_counters(io)
         if self.devcache is not None:
-            io["devcache"] = dict(plan.counters)
+            if plan is not None:
+                io["devcache"] = dict(plan.counters)
+            else:
+                io["devcache_bypass"] = True
         if s["edge_io"] is not None:
             io["edgecache"] = s["edge_io"]
         trace = SampleTrace(touched_nodes=np.empty(0, np.int64),
@@ -502,7 +555,9 @@ class PallasSubgraphLoader:
 
     def stats(self) -> dict:
         s = {"backend": self.backend, "sampler": "khop",
-             "dispatches": dict(self.dispatches)}
+             "dispatches": dict(self.dispatches),
+             "devcache_bypass": self._devcache_bypass,
+             "devcache_bypass_events": self._bypass_events}
         if self._stage_s:
             s["stage_s"] = dict(self._stage_s)
             s["stage_mean_s"] = {k: v / max(self._stage_n[k], 1)

@@ -27,9 +27,11 @@ A lane's error, a CUDA error included, is recorded and raised at the
 consumer, as the reference raises a lane's exception.  A CPU run takes
 none of these paths.
 
-Not ported yet: ``stall_inject`` (the scheduled sample-lane stall, from
-``FaultSpec.lane_stall``) comes with fault injection (ROADMAP item 8),
-and the lanes' trace spans with telemetry (item 10).  The host backend's
+``OverlappedLoader(stall_inject=)`` schedules one sample-lane stall
+(``FaultSpec.lane_stall``), which drives the watchdog's restart; after
+it the lanes' new streams replay the batches in order, and an orphaned
+lane's work lands in its dead generation.  Not ported yet: the lanes'
+trace spans come with telemetry (ROADMAP item 10).  The host backend's
 ``make_host_producer`` and ``ProducerConsumerPipeline`` come with the
 host backend (item 11).
 """
@@ -279,11 +281,15 @@ class OverlappedLoader:
     Restarts and degradation call ``inner.reset_staged_state()`` so
     abandoned plans leave no ghost residency; a lane that survives a
     restart drains into its dead generation's queues, and its stale
-    plans fail at install (``StaleAdmissionPlan``)."""
+    plans fail at install (``StaleAdmissionPlan``).
+
+    ``stall_inject=(batch, seconds)`` schedules one deterministic
+    sample-lane stall (chaos testing, from ``FaultSpec.lane_stall``)."""
 
     def __init__(self, inner, *, depth: int = 2, stage_depth: int = 2,
                  plan_ahead: int = 0, lane_timeout: float = 30.0,
-                 max_lane_restarts: int = 3):
+                 max_lane_restarts: int = 3,
+                 stall_inject: tuple[int, float] | None = None):
         self.inner = inner
         self.backend = getattr(inner, "backend", "?")
         self.fanouts = tuple(inner.fanouts)
@@ -318,6 +324,8 @@ class OverlappedLoader:
         self._lane_failures = 0
         self._lane_stall_restarts = 0
         self._degraded = False
+        self._stall_inject = stall_inject
+        self._stall_done = False
 
     # -- lanes ---------------------------------------------------------------
     def _beat_tick(self, gen: int, name: str) -> None:
@@ -349,6 +357,11 @@ class OverlappedLoader:
         with _lane_stream(self._device, ready):
             while not stop.is_set():
                 self._beat_tick(gen, name)
+                si = self._stall_inject
+                if si is not None and idx == si[0] and not self._stall_done:
+                    # flag first: the restart's replay must not stall again
+                    self._stall_done = True
+                    time.sleep(si[1])
                 if self._warm is not None and self.plan_ahead:
                     while warmed_to < idx + 1 + self.plan_ahead:
                         try:
@@ -399,16 +412,12 @@ class OverlappedLoader:
     def _reset_inner(self) -> None:
         """Drop the inner loader's staged cache state: plans abandoned by
         the dying generation reserved cache-mirror slots whose device
-        rows will never install (ghost residency)."""
+        rows will never install (ghost residency).  The reset
+        synchronizes the device, so any error of it raises at the
+        consumer, on every device (the reference warns and goes on)."""
         reset = getattr(self.inner, "reset_staged_state", None)
-        if reset is None:
-            return
-        try:
+        if reset is not None:
             reset()
-        except Exception as e:                  # pragma: no cover
-            warnings.warn(f"overlapped pipeline: reset_staged_state failed "
-                          f"({e!r}); continuing with possibly-cold caches",
-                          stacklevel=2)
 
     def _restart(self, start: int):
         if self._threads:

@@ -37,12 +37,12 @@ reference's names and defaults, with one exception: ``--backend``
 defaults to ``pallas``, where the reference's launcher sets ``isp``, the
 mesh backend that the port does not have yet (ROADMAP item 14); until
 then ``pallas`` is the port's only backend.  The table holds only the
-flags of what the port runs: the flags of fault injection, direct I/O,
-ISP mode, the ``optimal`` policies, storage engines, telemetry and
-checkpoints (``--ckpt-dir``, ``--resume``, for the GNN and the LM alike)
-are unknown to it, and a ``--spec`` file that asks for one of these
-features is refused with the ROADMAP item that brings it.  Every run goes
-through ``core.config.build_pipeline``: ``--graph-store disk`` writes the
+flags of what the port runs, fault injection (``--fault-*``) and
+``--direct-io`` included: the flags of ISP mode, the ``optimal``
+policies, storage engines and telemetry are unknown to it, and a
+``--spec`` file that asks for one of these features is refused with the
+ROADMAP item that brings it.  Every run goes through
+``core.config.build_pipeline``: ``--graph-store disk`` writes the
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
 and reads it through a ``DiskStore``; without a device cache tier the
 pallas backend never reads through the store and proceeds in memory, as
@@ -52,6 +52,21 @@ from seed 0, ``TokenPipeline`` batches (``--batch`` through
 steps)``; ``--reduced`` trains the small same-family config,
 ``--attn-impl`` picks the flash kernels (default) or the chunked plain
 path; archs outside the dense family raise ``NotImplementedError``.
+
+Checkpoints, for the GNN and the LM alike, as the reference's launcher
+writes them (``repro_torch.checkpoint``, the reference's format):
+``--ckpt-dir DIR`` saves every ``--ckpt-every`` steps (default 25) and
+at the end, on a background writer, and a run whose ``DIR`` already
+holds a checkpoint resumes from its latest step (``resumed from step
+N``).  ``--resume`` demands one (an empty ``DIR`` stops with "no
+checkpoints") and, without ``--spec``, rebuilds the GNN's data plane from
+the checkpoint manifest's ``pipeline_spec``.  Batches are pure functions
+of the step, so a resumed run logs the uninterrupted run's losses:
+
+  python -m repro_torch.launch.train --arch graphsage --steps 4 \
+      --ckpt-dir /tmp/ck --ckpt-every 2
+  python -m repro_torch.launch.train --arch graphsage --steps 8 \
+      --ckpt-dir /tmp/ck --resume
 """
 
 from __future__ import annotations
@@ -62,8 +77,9 @@ import time
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import kernels
-from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE,
+from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE, PipelineSpec,
                               add_pipeline_args, build_pipeline,
                               build_train_step, check_ported,
                               fill_pipeline_flag_defaults, load_dataset,
@@ -101,7 +117,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("chunked", "flash"),
                     help="LM attention: the flash kernels or the chunked "
                          "plain path (sets ModelConfig.attn_impl)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir "
+                         "(error if none exists); without --spec, the data "
+                         "plane is rebuilt from the pipeline_spec embedded "
+                         "in the checkpoint manifest, so the resumed run's "
+                         "batches are bit-identical to the original's")
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir (where would the checkpoint "
+                 "come from?)")
     args.pipeline_spec = None
     if args.arch == "graphsage":
         try:
@@ -114,8 +141,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     fill_pipeline_flag_defaults(args)
     args.device_tier = (args.pipeline_spec.device_cache_tier()
                         if args.pipeline_spec is not None else None)
-    if args.batch < 1 or args.steps < 0 or args.log_every < 1:
-        ap.error("--batch and --log-every must be >= 1, --steps >= 0")
+    if args.batch < 1 or args.steps < 0 or args.log_every < 1 \
+            or args.ckpt_every < 1:
+        ap.error("--batch, --log-every and --ckpt-every must be >= 1, "
+                 "--steps >= 0")
     if args.seq_len < 1 or args.microbatches < 1 \
             or args.batch % args.microbatches:
         ap.error("--seq-len and --microbatches must be >= 1, and "
@@ -131,12 +160,59 @@ def _device(args) -> torch.device:
     return torch.device(args.device)
 
 
+def _check_resume(args) -> None:
+    if args.resume and ckpt.latest_step(args.ckpt_dir) is None:
+        raise SystemExit(
+            f"[train] --resume: no checkpoints in {args.ckpt_dir}")
+
+
+@torch.no_grad()
+def _copy_into(dst: dict, src: dict, where: str = "") -> None:
+    """Copy a restored tree's leaves into the live tensors of ``dst`` in
+    place (parameters a module or the optimizer updates in place)."""
+    if set(dst) != set(src):
+        raise ValueError(f"checkpoint tree {where or '/'} has keys "
+                         f"{sorted(src)}, the run {sorted(dst)}")
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k], f"{where}/{k}")
+        else:
+            if v.shape != src[k].shape:
+                raise ValueError(f"checkpoint leaf {where}/{k} has shape "
+                                 f"{tuple(src[k].shape)}, the run "
+                                 f"{tuple(v.shape)}")
+            v.copy_(src[k])
+
+
+def _restore_latest(args, state: dict, device) -> int:
+    """Restore the latest checkpoint of ``--ckpt-dir`` into ``state`` (its
+    ``params`` and ``opt`` trees in place) and return its step, or 0
+    when there is none."""
+    if not args.ckpt_dir or ckpt.latest_step(args.ckpt_dir) is None:
+        return 0
+    restored, start = ckpt.restore(args.ckpt_dir, device=device)
+    _copy_into(state["params"], restored["params"], "/params")
+    _copy_into(state["opt"], restored["opt"], "/opt")
+    state["step"] = int(restored["step"])
+    print(f"[train] resumed from step {start}")
+    return int(start)
+
+
 def run_gnn(args) -> tuple[object, list[float], dict]:
-    """Train through ``build_pipeline(args.pipeline_spec)``; returns the
-    loop's ``RunStats``, the per-step losses and the pipeline's final
-    ``stats()``."""
+    """Train through ``build_pipeline(args.pipeline_spec)`` (or, resuming
+    without ``--spec``, the checkpoint manifest's ``pipeline_spec``);
+    returns the loop's ``RunStats``, the per-step losses of the steps run
+    and the pipeline's final ``stats()``."""
     device = _device(args)
     spec = args.pipeline_spec
+    if args.resume:
+        _check_resume(args)
+        if not args.spec:
+            manifest = ckpt.read_manifest(args.ckpt_dir)
+            if "pipeline_spec" in manifest:
+                spec = PipelineSpec.from_dict(manifest["pipeline_spec"])
+                print("[train] --resume: data plane restored from the "
+                      "checkpoint manifest's pipeline_spec")
     g = load_dataset(args.dataset, large_scale=args.large_scale)
     pipe = build_pipeline(spec, g, device=device)
     try:
@@ -162,7 +238,19 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
         gnn = GraphSAGE(cfg, device=device)
         opt = adamw(args.lr)
         step_fn = build_train_step(pipe, gnn, opt)
-        state = {"opt": opt.init(dict(gnn.named_parameters())), "step": 0}
+        params = dict(gnn.named_parameters())
+        state = {"opt": opt.init(params), "step": 0}
+        saver = None
+        start = 0
+        if args.ckpt_dir:
+            # every checkpoint manifest records the data-plane spec that
+            # produced it
+            saver = ckpt.AsyncSaver(
+                args.ckpt_dir,
+                manifest_extra={"pipeline_spec": spec.to_dict()})
+            full = {"params": params, **state}
+            start = _restore_latest(args, full, device)
+            state["step"] = full["step"]
         losses = []
 
         def on_step(i, state, metrics):
@@ -171,9 +259,14 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f"  step {i+1:5d} loss={m['loss']:.4f} "
                       f"acc={m['acc']:.3f} |g|={m['grad_norm']:.3f}")
+            if saver and (i + 1) % args.ckpt_every == 0:
+                saver.save_async(i + 1, {"params": params, **state})
 
-        _, stats = train_loop(pipe, step_fn, state, steps=args.steps,
-                              on_step=on_step)
+        state, stats = train_loop(pipe, step_fn, state, steps=args.steps,
+                                  start=start, on_step=on_step)
+        if saver:
+            saver.save_async(args.steps, {"params": params, **state})
+            saver.wait()
         loader_stats = pipe.stats()
         print(f"[train] {stats.steps} steps in {stats.wall_s:.1f}s "
               f"({stats.steps_per_s:.2f} steps/s, consumer idle "
@@ -216,6 +309,7 @@ def run_lm(args) -> dict:
     in a device synchronize), tok/s over the run, and the peak device
     memory on the card."""
     device = _device(args)
+    _check_resume(args)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -231,6 +325,11 @@ def run_lm(args) -> dict:
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                          global_batch=args.batch)
     state = lm_steps.init_train_state(model, opt)
+    saver = None
+    start = 0
+    if args.ckpt_dir:
+        saver = ckpt.AsyncSaver(args.ckpt_dir)
+        start = _restore_latest(args, state, device)
 
     def sync():
         if device.type == "cuda":
@@ -241,7 +340,7 @@ def run_lm(args) -> dict:
     out = {"losses": [], "grad_norms": [], "step_ms": []}
     sync()
     t0 = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         t1 = time.perf_counter()
         state, metrics = step_fn(state, pipe.torch_batch(i, device))
         sync()
@@ -252,14 +351,19 @@ def run_lm(args) -> dict:
             m = {k: float(v) for k, v in metrics.items()}
             print(f"  step {i+1:5d} loss={m['loss']:.4f} "
                   f"|g|={m['grad_norm']:.3f} lr={m['lr']:.2e}")
+        if saver and (i + 1) % args.ckpt_every == 0:
+            saver.save_async(i + 1, state)
+    if saver:
+        saver.save_async(args.steps, state)
+        saver.wait()
     dt = time.perf_counter() - t0
-    tokens = args.steps * args.batch * args.seq_len
+    tokens = (args.steps - start) * args.batch * args.seq_len
     out.update(losses=[float(x) for x in out["losses"]],
                grad_norms=[float(x) for x in out["grad_norms"]],
                wall_s=dt, tok_per_s=tokens / max(dt, 1e-9),
                peak_bytes=(torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None))
-    print(f"[train] {args.steps} steps in {dt:.1f}s "
+    print(f"[train] {args.steps - start} steps in {dt:.1f}s "
           f"({out['tok_per_s']:.0f} tok/s)"
           + (f", peak device memory {out['peak_bytes'] / 2**30:.2f} GiB"
              if out["peak_bytes"] is not None else ""))

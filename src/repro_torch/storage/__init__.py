@@ -1,13 +1,14 @@
 """The out-of-core storage tiers of the port: the ``GraphStore`` layer
 with its on-disk ``DiskStore`` and page cache (``store``, ``blockdev``,
-``integrity``, ``specs``), and the device caches in front of it
-(``devcache``)."""
+``integrity``, ``specs``), its fault injection (``faults``), and the
+device caches in front of it (``devcache``)."""
 
 from repro_torch.storage.blockdev import LRUCache, select_pinned_blocks
 from repro_torch.storage.devcache import (AdmissionPlan, DeviceArrayCache,
                                           DeviceEdgeBlockCache,
                                           DeviceFeatureCache,
                                           StaleAdmissionPlan, pad_pow2)
+from repro_torch.storage.faults import FaultInjector, FaultSpec
 from repro_torch.storage.integrity import block_checksums, crc32c
 from repro_torch.storage.specs import (DEFAULT, DeviceCacheSpec, RetrySpec,
                                        SystemSpec)
@@ -18,7 +19,7 @@ from repro_torch.storage.store import (DiskStore, GraphStore, InMemoryStore,
 
 __all__ = ["AdmissionPlan", "DEFAULT", "DeviceArrayCache",
            "DeviceCacheSpec", "DeviceEdgeBlockCache", "DeviceFeatureCache",
-           "DiskStore", "GraphStore", "IOContext", "InMemoryStore",
+           "DiskStore", "FaultInjector", "FaultSpec", "GraphStore", "IOContext", "InMemoryStore",
            "LRUCache", "RetrySpec", "StaleAdmissionPlan", "StoreReadError",
            "SystemSpec", "block_checksums", "crc32c", "nest_fault_counters",
            "open_store", "pad_pow2", "save_graph", "select_pinned_blocks"]

@@ -24,15 +24,22 @@ it pulls a future batch's probable byte ranges through the page cache on
 the pread pool, billed to the store's own planner context
 (``stats()["planner"]``) and never to a batch.
 
-Not part of the port yet, and refused by ``DiskStore``: fault injection
-(``faults=``), ``direct_io``, the ``optimal`` (Belady) policy with its
-oracle hooks and the trace spans.
+``faults=`` reads every block through a ``FaultInjector`` (the
+reference's deterministic schedule), below the retry and verify policy;
+``direct_io=True`` opens the backing files ``O_DIRECT`` where the
+platform and filesystem allow it, and otherwise warns and reads buffered,
+as the reference does.
+
+Not part of the port yet, and refused by ``DiskStore``: the ``optimal``
+(Belady) policy with its oracle hooks, and the trace spans.
 """
 
 from __future__ import annotations
 
 import contextlib
+import errno
 import json
+import mmap
 import os
 import threading
 import time
@@ -45,6 +52,7 @@ import numpy as np
 from repro_torch.core.graph import CSRGraph, read_edge_blocks
 from repro_torch.obs import names as obs_names
 from repro_torch.storage.blockdev import LRUCache, select_pinned_blocks
+from repro_torch.storage.faults import FaultInjector, FaultSpec
 from repro_torch.storage.integrity import block_checksums, crc32c
 from repro_torch.storage.specs import DEFAULT, RetrySpec, SystemSpec
 
@@ -54,6 +62,8 @@ FORMAT = "smartsage-graphstore"
 # budget (and a single pinning policy) spans all arrays
 _NS_STRIDE = 1 << 40
 _ARRAY_ORDER = ("indptr", "indices", "features", "labels")
+# O_DIRECT's alignment contract for offsets and lengths (logical block)
+_DIRECT_IO_ALIGN = 512
 
 
 @runtime_checkable
@@ -267,7 +277,11 @@ class DiskStore:
     fetched by exactly one task, and every pool read bills the context of
     the thread that submitted it.  ``verify`` checks each block read
     against the manifest's CRC32C; a failed attempt is retried under
-    ``retry`` and raises ``StoreReadError`` past it."""
+    ``retry`` and raises ``StoreReadError`` past it.  ``faults`` injects
+    the ``FaultSpec``'s scheduled failures below that policy (bit flips
+    need ``verify``); ``direct_io`` reads ``O_DIRECT`` into a per-thread
+    page-aligned buffer, or warns and reads buffered where it cannot
+    (``stats()["direct_io"]`` says which)."""
 
     kind = "disk"
 
@@ -278,16 +292,8 @@ class DiskStore:
                  verify: bool = False,
                  direct_io: bool = False,
                  retry: RetrySpec | None = None,
-                 faults=None,
+                 faults: FaultSpec | None = None,
                  spec: SystemSpec = DEFAULT):
-        if faults is not None:
-            raise NotImplementedError(
-                "DiskStore: fault injection (faults=) is not part of the "
-                "port yet; it comes with the fault-tolerance slice")
-        if direct_io:
-            raise NotImplementedError(
-                "DiskStore: direct_io is not part of the port yet; it "
-                "comes with the fault-tolerance slice")
         self.path = path
         with open(os.path.join(path, MANIFEST)) as f:
             self.manifest = json.load(f)
@@ -296,8 +302,14 @@ class DiskStore:
         self.name = self.manifest["name"]
         self.block_bytes = int(self.manifest["block_bytes"])
         self.verify = bool(verify)
-        self.direct_io = False
         self.retry = RetrySpec() if retry is None else retry
+        if faults is not None and faults.bitflip_rate > 0 and not self.verify:
+            raise ValueError(
+                "faults.bitflip_rate > 0 without verify=True would corrupt "
+                "training data silently; open the store with verify=True")
+        self._injector = (FaultInjector(faults)
+                          if faults is not None and faults.storage_active
+                          else None)
         self._crc: dict[str, np.ndarray] | None = None
         if self.verify:
             missing = [k for k, a in self.manifest["arrays"].items()
@@ -328,8 +340,9 @@ class DiskStore:
         self._dtype = {k: np.dtype(a["dtype"])
                        for k, a in self._arrays.items()}
         self._tls = threading.local()
-        self._fd = {k: os.open(os.path.join(path, a["file"]), os.O_RDONLY)
-                    for k, a in self._arrays.items()}
+        self._stat_lock = threading.Lock()
+        self._retired_fds: list[int] = []   # see _degrade_direct
+        self._open_backing_files(direct_io)
 
         # the CSR row index stays resident: it is the index structure
         n = int(self.manifest["num_nodes"])
@@ -341,7 +354,6 @@ class DiskStore:
             cache_blocks = max(4, int(self.cache_mb * (1 << 20))
                                // self.block_bytes)
         self.cache_blocks = int(cache_blocks)
-        self._stat_lock = threading.Lock()
         self._requests = 0
         self._block_fetches = 0
         self._bytes_fetched = 0
@@ -418,6 +430,92 @@ class DiskStore:
         return (int(self.indptr[u]) * eb, int(self.indptr[u + 1]) * eb)
 
     # -- paged read path -----------------------------------------------------
+    def _open_backing_files(self, direct_io: bool) -> None:
+        """Open one fd per array, ``O_DIRECT`` when asked: the kernel page
+        cache then stops double-buffering the store's own, and every miss
+        is a device read.  Falls back to buffered reads, with one
+        warning, when the platform has no ``O_DIRECT``, the block size
+        breaks the 512-byte alignment, or the filesystem refuses the open
+        or a probe read (tmpfs does)."""
+
+        def open_all(extra_flags: int) -> dict:
+            return {k: os.open(os.path.join(self.path, a["file"]),
+                               os.O_RDONLY | extra_flags)
+                    for k, a in self._arrays.items()}
+
+        self.direct_io = False
+        reason = None
+        if direct_io:
+            o_direct = getattr(os, "O_DIRECT", None)
+            if o_direct is None:
+                reason = "platform has no O_DIRECT"
+            elif self.block_bytes % _DIRECT_IO_ALIGN:
+                reason = (f"block_bytes={self.block_bytes} is not "
+                          f"{_DIRECT_IO_ALIGN}-byte aligned")
+            else:
+                fds = None
+                try:
+                    fds = open_all(o_direct)
+                    self._fd = fds
+                    self.direct_io = True
+                    # some filesystems accept the open and refuse the
+                    # first aligned read
+                    self._read_block_direct(next(iter(fds)), 0)
+                except OSError as e:
+                    reason = str(e)
+                    self.direct_io = False
+                    for fd in (fds or {}).values():
+                        os.close(fd)
+            if reason is not None:
+                warnings.warn(
+                    f"direct_io requested but unavailable ({reason}); "
+                    "falling back to buffered preads", stacklevel=3)
+        if not self.direct_io:
+            self._fd = open_all(0)
+
+    def _aligned_buf(self) -> mmap.mmap:
+        """This thread's page-aligned read buffer (``O_DIRECT`` refuses
+        unaligned user memory; the pread pool reads in parallel, so each
+        thread has its own)."""
+        buf = getattr(self._tls, "dio_buf", None)
+        if buf is None:
+            buf = mmap.mmap(-1, self.block_bytes)
+            self._tls.dio_buf = buf
+        return buf
+
+    def _read_block_direct(self, key: str, block: int) -> bytes:
+        buf = self._aligned_buf()
+        n = os.preadv(self._fd[key], [buf], block * self.block_bytes)
+        return buf[:n]
+
+    def _degrade_direct(self, reason: str) -> None:
+        """Fall back to buffered preads for good, mid-run (a filesystem
+        that passed the probe may still refuse a later read).  The old
+        fds stay open until ``close()``: a pool thread may still be
+        reading one, and a closed fd number could be reused by a later
+        open (the reference closes them here)."""
+        with self._stat_lock:
+            if not self.direct_io:
+                return
+            self.direct_io = False
+            self._retired_fds.extend(self._fd.values())
+            self._fd = {k: os.open(os.path.join(self.path, a["file"]),
+                                   os.O_RDONLY)
+                        for k, a in self._arrays.items()}
+        warnings.warn(f"direct_io read refused mid-run ({reason}); "
+                      "falling back to buffered preads", stacklevel=4)
+
+    def _read_block_raw(self, key: str, block: int) -> bytes:
+        if self.direct_io:
+            try:
+                return self._read_block_direct(key, block)
+            except OSError as e:
+                if e.errno != errno.EINVAL:
+                    raise
+                self._degrade_direct(str(e))
+        return os.pread(self._fd[key], self.block_bytes,
+                        block * self.block_bytes)
+
     def _verify_block(self, key: str, block: int, data: bytes) -> bool:
         if self._crc is None:
             return True
@@ -431,12 +529,13 @@ class DiskStore:
 
     def _fetch(self, key: str, block: int) -> bytes:
         """One block read under the retry policy; every path into disk
-        funnels here.  An attempt fails on OSError, a short return, a
-        checksum mismatch (``verify``) or by running past
-        ``retry.deadline_s``; failures are retried with deterministic
-        backoff up to ``retry.max_attempts`` tries, then raise
-        ``StoreReadError``.  Fault counters bill the caller's
-        ``IOContext`` plus the store totals."""
+        funnels here, through the fault injector when there is one.  An
+        attempt fails on OSError, a short return, a checksum mismatch
+        (``verify``) or by running past ``retry.deadline_s``; failures
+        are retried with deterministic backoff up to
+        ``retry.max_attempts`` tries, then raise ``StoreReadError``.
+        Fault counters bill the caller's ``IOContext`` plus the store
+        totals."""
         r = self.retry
         faults: dict[str, int] = {}
         last: Exception | None = None
@@ -448,8 +547,12 @@ class DiskStore:
             t0 = time.perf_counter()
             data = None
             try:
-                data = os.pread(self._fd[key], self.block_bytes,
-                                block * self.block_bytes)
+                if self._injector is not None:
+                    data = self._injector.read(
+                        lambda: self._read_block_raw(key, block),
+                        key, block, attempt)
+                else:
+                    data = self._read_block_raw(key, block)
             except OSError as e:
                 last = e
                 note("io_errors")
@@ -824,9 +927,9 @@ class DiskStore:
             # drain before the fds go away
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
-        for fd in self._fd.values():
+        for fd in [*self._fd.values(), *self._retired_fds]:
             os.close(fd)
-        self._fd = {}
+        self._fd, self._retired_fds = {}, []
 
     def __enter__(self):
         return self

@@ -42,7 +42,8 @@ PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
                 "repro_torch.data", "repro_torch.data.tokens",
                 "repro_torch.optim", "repro_torch.optim.adamw",
                 "repro_torch.optim.schedules", "repro_torch.core.config",
-                "repro_torch.core.pipeline", "repro_torch.storage.faults")
+                "repro_torch.core.pipeline", "repro_torch.storage.faults",
+                "repro_torch.checkpoint", "repro_torch.checkpoint.store")
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -115,5 +116,5 @@ def test_cli_rejects_flags_of_later_slices():
                 "--backend", "host"])
     assert out.returncode == 2 and "invalid choice" in out.stderr
     out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-                "--graph-store", "disk", "--ckpt-dir", "x"])
+                "--graph-store", "disk", "--trace-out", "x"])
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr

@@ -290,8 +290,8 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
 @pytest.mark.parametrize("flags", [["--overlap", "1"],
                                    ["--prefetch", "-1"],
                                    ["--spec", "optimal.json"],
-                                   ["--fault-eio", "0.1"],
-                                   ["--direct-io", "1"],
+                                   ["--fault-eio", "1.5"],
+                                   ["--storage-engine", "mmap"],
                                    ["--store-mode", "isp"],
                                    ["--cache-policy", "optimal"],
                                    ["--device-cache-policy", "optimal"],

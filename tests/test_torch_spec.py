@@ -7,7 +7,7 @@ manifest's ``pipeline_spec`` load to equal dicts in both packages;
 generated flags build equal specs from a table of argvs, with and without
 ``--spec``; the four specs the port runs without overlap give hop ids,
 features, labels and every per-batch ``trace.io`` counter bit-equal to the
-reference's ``build_pipeline`` over the same spec on reddit; the seven it
+reference's ``build_pipeline`` over the same spec on reddit; the six it
 does not run yet are refused, before anything is opened, with the ROADMAP
 item each waits on.
 """
@@ -38,11 +38,11 @@ GOLDEN = ROOT / "tests" / "data" / "golden_pipeline_spec.json"
 SPEC_FILES = sorted(Path(p).stem for p in glob.glob(str(SPEC_DIR / "*.json")))
 PORTED = ("smoke_pallas", "smoke_pallas_devcache_disk",
           "smoke_pallas_edgecache", "train_pallas_outofcore",
-          "smoke_pallas_overlap")
+          "smoke_pallas_overlap", "smoke_pallas_overlap_faults")
 #: spec file -> the ROADMAP item it waits on
 REFUSED = {"smoke_host": 11, "smoke_disk_host": 11, "smoke_isp": 14,
            "smoke_pallas_isp": 12, "smoke_pallas_optimal": 9,
-           "smoke_pallas_overlap_faults": 8, "smoke_pallas_overlap_obs": 10}
+           "smoke_pallas_overlap_obs": 10}
 
 
 def _path(name: str) -> str:
@@ -218,10 +218,8 @@ def test_flag_table_is_the_references_for_the_ported_fields():
     later = set(ref) - set(port_config.FLAG_TABLE)
     assert later == {
         "--sampler", "--walk-length", "--storage-engine", "--store-mode",
-        "--direct-io", "--isp-transport", "--isp-address", "--isp-window",
-        "--isp-server-cache", "--fault-seed", "--fault-eio",
-        "--fault-short-read", "--fault-bitflip", "--fault-stall",
-        "--fault-stall-s", "--cache-oracle-window",
+        "--isp-transport", "--isp-address", "--isp-window",
+        "--isp-server-cache", "--cache-oracle-window",
         "--device-cache-oracle-window", "--trace-out", "--metrics-out",
         "--metrics-interval"}
 
@@ -260,6 +258,14 @@ ARGVS = {
                      "pallas", "--graph-store", "mem"],
     "spec-to-disk": ["--spec", _path("smoke_pallas"), "--graph-store",
                      "disk", "--device-cache-rows", "24"],
+    "faults-direct-io": ["--graph-store", "disk", "--verify-blocks", "1",
+                         "--direct-io", "1", "--fault-seed", "7",
+                         "--fault-eio", "0.08", "--fault-short-read", "0.04",
+                         "--fault-bitflip", "0.04", "--fault-stall", "0.01",
+                         "--fault-stall-s", "0.12"],
+    "spec-faults-off": ["--spec", _path("smoke_pallas_overlap_faults"),
+                        "--fault-eio", "0", "--fault-short-read", "0",
+                        "--fault-bitflip", "0", "--fault-stall", "0"],
 }
 
 

@@ -28,6 +28,7 @@ from repro_torch.storage import (DiskStore, InMemoryStore, LRUCache,
                                  RetrySpec, StoreReadError, block_checksums,
                                  crc32c, open_store, save_graph)
 from repro_torch.storage.store import MANIFEST
+from repro_torch.storage.faults import FaultSpec
 
 BLOCK_E = 512
 
@@ -197,13 +198,13 @@ def test_verify_turns_a_corrupt_block_into_store_read_error(ref_dir,
 
 
 def test_deferred_options_are_refused(ref_dir):
-    for kw, what in ((dict(policy="optimal"), "optimal"),
-                     (dict(direct_io=True), "direct_io"),
-                     (dict(faults=object()), "fault injection")):
-        with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match="optimal"):
+        DiskStore(ref_dir, policy="optimal")
+    for kw, what in ((dict(policy="mru"), "unknown cache policy"),
+                     (dict(faults=FaultSpec(bitflip_rate=0.1)), "verify"),
+                     (dict(io_threads=0), "io_threads must be >= 1")):
+        with pytest.raises(ValueError, match=what):
             DiskStore(ref_dir, **kw)
-    with pytest.raises(ValueError, match="unknown cache policy"):
-        DiskStore(ref_dir, policy="mru")
 
 
 def test_open_store_and_in_memory_store(graphs, tmp_path):

@@ -135,5 +135,5 @@ def test_lm_cli_refuses_other_families_and_checkpoints():
     out = _run(["--device", "cpu", "--arch", "mamba2-370m", "--reduced",
                 "--steps", "1"])
     assert out.returncode != 0 and "NotImplementedError" in out.stderr
-    out = _run(["--device", "cpu", "--arch", ARCH, "--ckpt-dir", "ckpt"])
+    out = _run(["--device", "cpu", "--arch", ARCH, "--mesh", "4x1"])
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr

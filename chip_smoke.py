@@ -125,18 +125,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      the counters reset just before each; finite logits; prefill ms,
      decode ms per step and tok/s;
   18. where mamba2-370m's serving time goes, as phase 12;
-  19. the spec files on the card: the six ``benchmarks/specs/*.json``
+  19. the spec files on the card: the nine ``benchmarks/specs/*.json``
      the port runs (``smoke_pallas``, ``smoke_pallas_devcache_disk``,
      ``smoke_pallas_edgecache``, ``train_pallas_outofcore``,
-     ``smoke_pallas_overlap`` and ``smoke_pallas_overlap_faults``, the
-     last with ``--steps 8``) through ``repro_torch.launch.train.main
+     ``smoke_pallas_overlap``, ``smoke_pallas_overlap_faults`` with
+     ``--steps 8``, ``smoke_pallas_optimal``, ``smoke_host`` and
+     ``smoke_disk_host``) through ``repro_torch.launch.train.main
      --spec ... --dataset reddit --steps 4``, each on the card and with
      ``--device cpu``, the model in float32 on both: finite losses within
      1e-5 of the CPU's, batch 0 of ``build_pipeline(spec)`` bit-equal
      between card and CPU, the kernels the spec implies launched (the
      cached ones where it has a device tier, ``neighbor_sample`` only
-     without an edge tier) and a ``DiskStore`` opened where it says
-     ``disk``; ``smoke_pallas_optimal`` refused with its ROADMAP item;
+     without an edge tier, none on the host backend), a ``DiskStore``
+     opened where it says ``disk`` and, under ``optimal``, a replay lane
+     without errors or timeouts; ``smoke_pallas_overlap_obs`` refused
+     with its ROADMAP item;
   20. the overlapped out-of-core path at full width: phase 8's command
      with ``--io-threads 4``, once synchronously and once with
      ``--prefetch 2 --overlap 1 --stage-depth 2 --plan-ahead 2``; batches
@@ -172,7 +175,28 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``--reduced --batch 4 --seq-len 128``, 8 steps against 4 and a
      resume: the final loss within 1e-3 (the reference's tolerance), and
      whether steps 5-8 are repr-equal;
-  24. a JSON line of the kernels' numbers (the GNN's per launch, with
+  24. the Belady oracle and the host backend.  a: phase 8's command
+     with ``--cache-policy optimal --cache-oracle-window 8
+     --device-cache-policy optimal --device-cache-oracle-window 8``
+     against the same with ``--device-cache-policy lru``: losses
+     repr-equal, batches 0-7's ids equal, each tier's hits + misses
+     equal, batches 0-2's ``trace.io`` equal the CPU's run of the same
+     command, replay errors and timeouts 0; steps/s, misses, the cached
+     kernels' launches and the replay lane's seconds a window, and the
+     optimal run's steps/s again with the replay done before training.  b: the
+     R-MAT graph out of core (4 MB page cache, a device feature tier
+     sized between one batch's unique rows and the first window's union,
+     no edge tier), batch 1024, fanouts 25,10, window 4, 4 steps,
+     optimal against lru: losses equal, replay errors 0, the feature
+     tier's and the page cache's misses under optimal no more than
+     under lru.  c: the host backend at phase 5's width, 8 steps, in
+     memory, over the disk store with phase 8's page cache and with that
+     cache optimal (one producer over the disk store): no kernel
+     launched, batches 0-2's ids (and counters) equal the CPU's, losses
+     within 1e-4 of a 4-step CPU run (float32, as phase 19), lru and
+     optimal losses equal; steps/s and consumer idle beside phases 5
+     and 8 (the paper's Fig. 7 comparison);
+  25. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them), the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
@@ -249,13 +273,14 @@ RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
 OOC_CACHE_MB, OOC_ROWS, OOC_BLOCKS, OOC_POLICY = 4, 4096, 128, "pinned"
 OOC_TIER = CacheTierSpec.device(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
                                 policy=OOC_POLICY)
-# the spec files the port runs (phase 19), the one it refuses and the
+# the spec files the port runs (phase 19), one it refuses and the
 # ROADMAP item that one waits on; the overlapped run's flags (phase 20)
 # and the timed runs of each mode
 PORTED_SPECS = ("smoke_pallas", "smoke_pallas_devcache_disk",
                 "smoke_pallas_edgecache", "train_pallas_outofcore",
-                "smoke_pallas_overlap", "smoke_pallas_overlap_faults")
-REFUSED_SPEC, REFUSED_ITEM = "smoke_pallas_optimal", 9
+                "smoke_pallas_overlap", "smoke_pallas_overlap_faults",
+                "smoke_pallas_optimal", "smoke_host", "smoke_disk_host")
+REFUSED_SPEC, REFUSED_ITEM = "smoke_pallas_overlap_obs", 10
 SPEC_STEPS = 4
 # the chaos spec (faults, verify, a 2.5 s sample-lane stall at batch 4
 # against a 1 s lane timeout) and its fault-free twin, 8 steps each
@@ -286,6 +311,15 @@ OVERLAP_RUNS = ("sync", "overlap", "overlap", "sync", "sync", "overlap")
 # the pread pool sizes timed: the checked configuration's 4, and 1 (phase
 # 8's), which separates the pool's threads from the lanes' in the timing
 PREAD_THREADS = (4, 1)
+# phase 24: the Belady oracle on phase 8's command (window 8), on the
+# R-MAT graph out of core (window 4, 4 steps), and the host backend at
+# phase 5's width (8 steps on the card, 4 on the CPU; batches 0-2
+# compared)
+ORACLE_FLAGS = ["--cache-policy", "optimal", "--cache-oracle-window", "8",
+                "--device-cache-policy", "optimal",
+                "--device-cache-oracle-window", "8"]
+RMAT_WINDOW, RMAT_STEPS = 4, 4
+HOST_CPU_STEPS, HOST_COMPARED = 4, 3
 DEVICE = "cuda"
 # LM serving: the arch, the entry point's batch, prompt and generation,
 # and the card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
@@ -1191,7 +1225,8 @@ def spec_phase() -> dict:
                              "launches": dict(kernels.LAUNCHES),
                              "store": lstats.get("store", {}).get("kind"),
                              "restarts": lstats.get("prefetch_restarts"),
-                             "degraded": lstats.get("degraded")}
+                             "degraded": lstats.get("degraded"),
+                             "oracle": lstats.get("oracle")}
             card, cpu = runs[DEVICE], runs["cpu"]
             check(len(card["losses"]) == steps
                   and all(math.isfinite(x) for x in card["losses"]),
@@ -1203,15 +1238,23 @@ def spec_phase() -> dict:
                   f"{name}: the CPU run launched {cpu['launches']}")
             n = card["launches"]
             tier = spec.device_cache_tier()
+            host = spec.backend.name == "host"
             feats = tier is not None and "features" in tier.arrays
             edges = tier is not None and "topology" in tier.arrays
-            check((n["feature_gather_cached"] > 0) == feats
-                  and n["feature_gather_rows"] > 0,
-                  f"{name}: feature kernels launched {n}")
-            check((n["neighbor_sample_cached"] > 0) == edges
-                  and (n["neighbor_sample"] > 0) == (not edges),
-                  f"{name}: sampling kernels launched {n}")
-            disk = spec.store.kind == "disk" and tier is not None
+            if host:
+                # the host backend prepares batches in numpy
+                check(not any(n.values()), f"{name}: launched {n}")
+            else:
+                check((n["feature_gather_cached"] > 0) == feats
+                      and n["feature_gather_rows"] > 0,
+                      f"{name}: feature kernels launched {n}")
+                check((n["neighbor_sample_cached"] > 0) == edges
+                      and (n["neighbor_sample"] > 0) == (not edges),
+                      f"{name}: sampling kernels launched {n}")
+            if any(t.policy == "optimal" for t in spec.cache_tiers):
+                for dev, r in runs.items():
+                    _check_replay(r["oracle"], f"{name} on {dev}")
+            disk = spec.store.kind == "disk" and (tier is not None or host)
             check((card["store"] == "disk") == disk,
                   f"{name}: store {card['store']}, spec {spec.store.kind}")
             if spec.prefetch.overlap:
@@ -1246,6 +1289,14 @@ def spec_phase() -> dict:
     print(f"[smoke] phase 19: {REFUSED_SPEC} refused: {msg}")
     out[REFUSED_SPEC] = {"exit": code, "error": msg}
     return out
+
+
+def _check_replay(oracle: dict | None, what: str) -> None:
+    """An optimal run's replay lane ran, and without an error or a
+    timeout (its soft failure would pass as a quiet lru run)."""
+    check(oracle is not None and oracle["batches_replayed"] > 0
+          and oracle["errors"] == 0 and oracle["timeouts"] == 0,
+          f"{what}: replay lane {oracle}")
 
 
 def _recording(build, into: list):
@@ -1786,6 +1837,356 @@ def resume_phase(argv: list, chaos_losses: list) -> dict:
               f"{lm_full['seconds']:.1f} s with its training step")
     out["seconds"] = time.perf_counter() - t0
     print(f"[smoke] phase 23: {out['seconds']:.1f} s")
+    return out
+
+
+def _recording_ids(build, into: list):
+    """``build_pipeline`` whose pipelines record each batch's hop ids
+    (copies), ``trace.io`` and kernel launches."""
+    def built(*a, **kw):
+        pipe = build(*a, **kw)
+        get = pipe.get_batch
+
+        def get_batch(idx, **kw2):
+            mb = get(idx, **kw2)
+            into.append({"idx": idx, "ids": [h.clone() for h in mb.hop_ids],
+                         "io": copy.deepcopy(mb.trace.io)
+                         if mb.trace is not None else None,
+                         "launches": dict(mb.launches or {})})
+            return mb
+
+        pipe.get_batch = get_batch
+        return pipe
+    return built
+
+
+def _tier_sums(lstats: dict) -> dict:
+    """hits + misses of each cache tier: the requests, which the policy
+    must not change."""
+    return {t: lstats[t]["hits"] + lstats[t]["misses"]
+            for t in ("store", "devcache", "edgecache") if t in lstats}
+
+
+def _misses(lstats: dict) -> dict:
+    return {t: lstats[t]["misses"]
+            for t in ("store", "devcache", "edgecache") if t in lstats}
+
+
+def _cpu_batches(argv: list, g, n: int) -> list:
+    """Batches 0..n-1 of the pipeline ``argv`` describes, built on the
+    CPU: hop ids and ``trace.io``."""
+    spec = train.parse_args(argv + ["--device", "cpu"]).pipeline_spec
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pipe = build_pipeline(spec, g, device="cpu")
+    try:
+        out = []
+        for i in range(n):
+            mb = pipe.get_batch(i)
+            out.append({"ids": [h.cpu() for h in mb.hop_ids],
+                        "io": mb.trace.io if mb.trace is not None else None})
+        return out
+    finally:
+        pipe.close()
+
+
+def _same_batches(card: list, cpu: list, what: str) -> None:
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        check(a["idx"] == i and all(torch.equal(x.cpu(), y)
+                                    for x, y in zip(a["ids"], b["ids"])),
+              f"{what}: batch {i}'s ids differ between card and CPU")
+        check(a["io"] == b["io"], f"{what}: batch {i}'s counters card "
+              f"{a['io']} vs CPU {b['io']}")
+
+
+def _replay_window_s(argv: list, g) -> float:
+    """Seconds the replay lane's work takes for one window of phase 8's
+    command: the replay of each batch and the next-use times of each
+    stream, on this host's CPU (the lane's own code, run here)."""
+    from repro_torch.storage.oracle import next_use_times
+    spec = train.parse_args(argv + ["--device", "cpu"]).pipeline_spec
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pipe = build_pipeline(spec, g, device="cpu")
+    try:
+        rep = pipe.loader._oracle
+        t0 = time.perf_counter()
+        streams = {}
+        for i in range(rep.window, 2 * rep.window):
+            for k, ids in rep._replay(i).items():
+                streams.setdefault(k, []).append((i, ids))
+        for pairs in streams.values():
+            next_use_times(pairs)
+        return time.perf_counter() - t0
+    finally:
+        pipe.close()
+
+
+def _train_spec(spec, g, steps: int) -> dict:
+    """Train ``steps`` steps through ``build_pipeline(spec, g)`` on the
+    card at hidden 256 (the entry point's loop, for a graph it cannot
+    name); the launch counters reset just before."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pipe = build_pipeline(spec, g, device=DEVICE)
+    try:
+        cfg = GNNConfig(feat_dim=g.feat_dim, hidden=256,
+                        n_classes=int(g.labels.max()) + 1,
+                        fanouts=spec.effective_fanouts)
+        torch.manual_seed(0)
+        model = GraphSAGE(cfg, device=DEVICE)
+        opt = adamw(1e-3)
+        step = build_train_step(pipe, model, opt)
+        state = {"opt": opt.init(dict(model.named_parameters())), "step": 0}
+        losses = []
+        kernels.reset_launches()
+        _, stats = train_loop(pipe, step, state, steps=steps,
+                              on_step=lambda i, s, m: losses.append(
+                                  float(m["loss"])))
+        return {"losses": losses, "stats": stats, "loader": pipe.stats(),
+                "launches": dict(kernels.LAUNCHES)}
+    finally:
+        pipe.close()
+
+
+def _replayed_ahead(build):
+    """``build_pipeline`` whose replay lane has built the first two
+    windows before training starts: an 8-step run then trains with no
+    replay running beside it (what the lane's work costs the step)."""
+    def built(*a, **kw):
+        pipe = build(*a, **kw)
+        lane = pipe.loader._oracle
+        lane.advance(0)
+        while lane.stats()["windows_built"] < 2:
+            time.sleep(0.01)
+        return pipe
+    return built
+
+
+def oracle_phase(reddit, argv_ooc: list, synth) -> dict:
+    """Phase 24a-b: the optimal (Belady) policies on the card.  a: phase
+    8's command in both tiers against its lru twin; b: R-MAT out of core
+    with a feature tier between one batch's unique rows and the window's
+    union, where the schedule can matter."""
+    from repro_torch.core.loader import batch_targets
+    from repro_torch.core.sampler import replay_khop_jax_ids
+
+    out = {}
+    t0 = time.perf_counter()
+    argvs = {"lru": argv_ooc + ["--device-cache-policy", "lru"],
+             "optimal": argv_ooc + ORACLE_FLAGS}
+    runs, recs = {}, {}
+    for pol, argv in argvs.items():
+        print(f"[smoke] phase 24a: train {' '.join(argv)}")
+        recs[pol] = []
+        runs[pol] = _train_recorded(
+            argv, _recording_ids(build_pipeline, recs[pol]))
+    ahead = _train_recorded(argvs["optimal"],
+                            _replayed_ahead(build_pipeline))
+    lru, opt = runs["lru"], runs["optimal"]
+    _check_replay(opt["loader"].get("oracle"), "phase 24a")
+    check(ahead["losses"] == lru["losses"],
+          "phase 24a: the replayed-ahead run's losses differ")
+    check(opt["losses"] == lru["losses"],
+          f"phase 24a: losses optimal {opt['losses']} vs lru {lru['losses']}")
+    for a, b in zip(recs["lru"], recs["optimal"]):
+        check(all(torch.equal(x, y) for x, y in zip(a["ids"], b["ids"])),
+              f"phase 24a: batch {a['idx']}'s ids differ lru vs optimal")
+    check(len(recs["optimal"]) == 8, "phase 24a: 8 batches recorded")
+    check(_tier_sums(opt["loader"]) == _tier_sums(lru["loader"]),
+          f"phase 24a: requests {_tier_sums(opt['loader'])} optimal vs "
+          f"{_tier_sums(lru['loader'])} lru")
+    cpu = _cpu_batches(argvs["optimal"], reddit, HOST_COMPARED)
+    _same_batches(recs["optimal"], cpu, "phase 24a optimal")
+    window_s = _replay_window_s(argvs["optimal"], reddit)
+    for pol, r in (*runs.items(), ("optimal, replayed ahead", ahead)):
+        print(f"[smoke] phase 24a: {pol}: {r['stats'].steps_per_s:.4f} "
+              f"steps/s, consumer idle {r['stats'].idle_fraction:.4f}, "
+              f"host s a batch by stage {r['loader']['stage_mean_s']}, "
+              f"misses {_misses(r['loader'])}, launches "
+              f"{ {k: v for k, v in _gnn(r['launches']).items() if v} }")
+    print(f"[smoke] phase 24a: losses equal {opt['losses']}, batches 0-7's "
+          f"ids equal, requests {_tier_sums(opt['loader'])} equal, batches "
+          f"0-{HOST_COMPARED - 1}'s counters equal the CPU's, replay "
+          f"{opt['loader']['oracle']}, {window_s:.3f} s a window of 8 "
+          f"on this host's CPU")
+    out["a"] = {"argv": argvs, "window_s": window_s,
+                "replayed_ahead": {
+                    "steps_per_s": ahead["stats"].steps_per_s,
+                    "stage_mean_s": ahead["loader"]["stage_mean_s"]},
+                **{pol: {"losses": r["losses"],
+                         "steps_per_s": r["stats"].steps_per_s,
+                         "idle_fraction": r["stats"].idle_fraction,
+                         "stage_mean_s": r["loader"]["stage_mean_s"],
+                         "misses": _misses(r["loader"]),
+                         "requests": _tier_sums(r["loader"]),
+                         "oracle": r["loader"].get("oracle"),
+                         "launches": _gnn(r["launches"])}
+                   for pol, r in runs.items()}}
+
+    # b. the R-MAT graph: the first window's per-batch unique rows and
+    # their union, by the lane's own replay of the kernel sampler
+    t1 = time.perf_counter()
+    uniq = []
+    for i in range(RMAT_WINDOW):
+        hops = replay_khop_jax_ids(
+            synth.indptr, synth.indices.__getitem__,
+            batch_targets(synth, i, BATCH, 0), FANOUTS,
+            key=rng.fold_in(rng.key(0), i))
+        uniq.append(np.unique(np.concatenate([h.reshape(-1)
+                                              for h in hops])))
+    per_batch = max(u.size for u in uniq)
+    union = int(np.unique(np.concatenate(uniq)).size)
+    rows = (per_batch + union) // 2
+    check(per_batch < rows < union,
+          f"phase 24b: rows {rows}, batch {per_batch}, union {union}")
+    b_runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rmat-") as sdir:
+        save_graph(synth, sdir)
+        for pol in ("lru", "optimal"):
+            window = RMAT_WINDOW if pol == "optimal" else 0
+            d = PipelineSpec().to_dict()
+            d["backend"]["name"] = "pallas"
+            d["sampler"]["fanouts"] = list(FANOUTS)
+            d["store"].update(kind="disk", path=sdir)
+            spec = PipelineSpec.from_dict(dict(
+                d, cache_tiers=[dict(tier="host", policy=pol,
+                                  capacity_mb=OOC_CACHE_MB, rows=0,
+                                  edge_blocks=0, pinned_fraction=0.5,
+                                  arrays=[], oracle_window=window),
+                             dict(tier="device", policy=pol,
+                                  capacity_mb=None, rows=rows,
+                                  edge_blocks=0, pinned_fraction=0.5,
+                                  arrays=["features"],
+                                  oracle_window=window)],
+                batch_size=BATCH, seed=0))
+            b_runs[pol] = _train_spec(spec, synth, RMAT_STEPS)
+    lru_b, opt_b = b_runs["lru"], b_runs["optimal"]
+    _check_replay(opt_b["loader"].get("oracle"), "phase 24b")
+    check(opt_b["losses"] == lru_b["losses"],
+          f"phase 24b: losses optimal {opt_b['losses']} vs lru "
+          f"{lru_b['losses']}")
+    # the feature tier sees the same requests; the page cache serves its
+    # misses, which the policy changes
+    req_o, req_l = _tier_sums(opt_b["loader"]), _tier_sums(lru_b["loader"])
+    check(req_o["devcache"] == req_l["devcache"],
+          f"phase 24b: feature-tier requests {req_o} vs {req_l}")
+    mo, ml = _misses(opt_b["loader"]), _misses(lru_b["loader"])
+    for pol, r in b_runs.items():
+        print(f"[smoke] phase 24b: {pol}: {r['stats'].steps_per_s:.4f} "
+              f"steps/s, consumer idle {r['stats'].idle_fraction:.4f}, "
+              f"misses {_misses(r['loader'])}, launches "
+              f"{ {k: v for k, v in _gnn(r['launches']).items() if v} }")
+    b_s = time.perf_counter() - t1
+    print(f"[smoke] phase 24b: {synth.name}, batch {BATCH}, window "
+          f"{RMAT_WINDOW}, {RMAT_STEPS} steps: unique rows a batch "
+          f"{[int(u.size) for u in uniq]}, window union {union}, feature "
+          f"tier {rows} rows; losses equal; misses optimal {mo} vs lru "
+          f"{ml}; {b_s:.1f} s")
+    check(mo["devcache"] <= ml["devcache"] and mo["store"] <= ml["store"],
+          f"phase 24b: misses optimal {mo} above lru {ml}")
+    out["b"] = {"rows": rows, "unique_per_batch": [int(u.size)
+                                                   for u in uniq],
+                "union": union, "seconds": b_s,
+                **{pol: {"losses": r["losses"],
+                         "steps_per_s": r["stats"].steps_per_s,
+                         "idle_fraction": r["stats"].idle_fraction,
+                         "misses": _misses(r["loader"]),
+                         "requests": _tier_sums(r["loader"]),
+                         "oracle": r["loader"].get("oracle"),
+                         "launches": _gnn(r["launches"])}
+                   for pol, r in b_runs.items()}}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def host_phase(argv_mem: list, reddit, mem: dict, ooc: dict) -> dict:
+    """Phase 24c: the host backend (numpy sampling and gathers in
+    producer threads, copies to the card) at phase 5's width: in memory,
+    over the disk store with phase 8's page cache, and with that cache
+    optimal; one producer where counters are compared.  The model in
+    float32 on the card and the CPU, TF32 off, as phase 19."""
+    t0 = time.perf_counter()
+    base = argv_mem[:argv_mem.index("--device")]
+    base[base.index("--backend") + 1] = "host"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-host-") as tmp:
+        one = os.path.join(tmp, "one_producer.json")
+        d = PipelineSpec().to_dict()
+        d["backend"].update(name="host", n_workers=1, straggler_factor=1e6)
+        with open(one, "w") as f:
+            f.write(PipelineSpec.from_dict(d).to_json())
+        disk = ["--spec", one, *base, "--graph-store", "disk", "--cache-mb",
+                str(OOC_CACHE_MB)]
+        argvs = {"memory": base,
+                 "disk lru": disk,
+                 "disk optimal": disk + ["--cache-policy", "optimal",
+                                         "--cache-oracle-window", "8"]}
+        real_sage = train.GraphSAGE
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        train.GraphSAGE = functools.partial(real_sage,
+                                            compute_dtype=torch.float32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        runs, recs = {}, {}
+        try:
+            for name, argv in argvs.items():
+                print(f"[smoke] phase 24c: train {' '.join(argv)}")
+                recs[name] = []
+                runs[name] = _train_recorded(
+                    argv + ["--device", DEVICE],
+                    _recording_ids(build_pipeline, recs[name]))
+            cpu_argv = base + ["--steps", str(HOST_CPU_STEPS)]
+            _, cpu_losses, _ = train.main(cpu_argv + ["--device", "cpu"])
+        finally:
+            train.GraphSAGE = real_sage
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        for name, r in runs.items():
+            check(not any(r["launches"].values()),
+                  f"phase 24c {name}: launched {r['launches']}")
+            check(len(r["losses"]) == 8
+                  and all(math.isfinite(x) for x in r["losses"]),
+                  f"phase 24c {name}: losses {r['losses']}")
+            check(np.allclose(r["losses"][:HOST_CPU_STEPS], cpu_losses,
+                              rtol=1e-4, atol=1e-4),
+                  f"phase 24c {name}: losses {r['losses']} vs the CPU's "
+                  f"{cpu_losses}")
+            cpu = _cpu_batches(argvs[name], reddit, HOST_COMPARED)
+            _same_batches(recs[name], cpu, f"phase 24c {name}")
+        _check_replay(runs["disk optimal"]["loader"].get("oracle"),
+                      "phase 24c")
+        check(runs["disk optimal"]["losses"] == runs["disk lru"]["losses"],
+              "phase 24c: losses optimal vs lru differ")
+        # per consumed batch: the producer runs ahead of the consumer, so
+        # the store's totals hold a varying number of later batches
+        touched = {name: [(b["io"]["requests"],
+                           b["io"]["hits"] + b["io"]["misses"])
+                          for b in recs[name]]
+                   for name in ("disk lru", "disk optimal")}
+        check(touched["disk lru"] == touched["disk optimal"],
+              f"phase 24c: page-cache requests a batch {touched}")
+    for name, r in runs.items():
+        st = r["stats"]
+        # the page cache's misses over the 8 consumed batches
+        misses = (sum(b["io"]["misses"] for b in recs[name])
+                  if recs[name][0]["io"] is not None else None)
+        print(f"[smoke] phase 24c: host, {name}: {st.steps_per_s:.4f} "
+              f"steps/s, consumer idle {st.idle_fraction:.4f}, mean "
+              f"produce {r['loader']['mean_produce_s']:.3f} s, page-cache "
+              f"misses {misses}; losses within 1e-4 of the CPU's "
+              f"{cpu_losses}, batches 0-{HOST_COMPARED - 1} equal the "
+              f"CPU's")
+        out[name] = {"argv": argvs[name], "losses": r["losses"],
+                     "steps_per_s": st.steps_per_s,
+                     "idle_fraction": st.idle_fraction,
+                     "mean_produce_s": r["loader"]["mean_produce_s"],
+                     "misses_8_batches": misses,
+                     "oracle": r["loader"].get("oracle")}
+    print(f"[smoke] phase 24c: beside pallas in memory (phase 5) "
+          f"{mem['steps_per_s']:.4f} steps/s, idle "
+          f"{mem['idle_fraction']:.4f}, and out of core (phase 8) "
+          f"{ooc['steps_per_s']:.4f}, idle {ooc['idle_fraction']:.4f}")
+    out["cpu_losses"] = cpu_losses
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2522,7 +2923,6 @@ def main() -> int:
     edge_cases = {**cached_edge_cases(edge_loader),
                   **inmem_edge_cases(edge_loader)}
     del edge_loader
-    del synth
     torch.cuda.empty_cache()
     lm_cases = lm_kernel_phase(timer)
 
@@ -2664,6 +3064,12 @@ def main() -> int:
         fault_run = faults_phase(argv_ooc, sdir, ooc)
         dio = direct_io_phase(argv_ooc, sdir, ooc)
     resumed = resume_phase(argv, fault_run["chaos"]["losses"])
+    oracle = oracle_phase(reddit, argv_ooc, synth)
+    del synth
+    torch.cuda.empty_cache()
+    hosted = host_phase(argv, reddit, {"steps_per_s": stats.steps_per_s,
+                                       "idle_fraction": stats.idle_fraction},
+                        ooc | {"idle_fraction": ooc_stats.idle_fraction})
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -2753,8 +3159,8 @@ def main() -> int:
                "ssm_parity": ssm_parity, "ssm_serve": ssm_served,
                "ssm_serve_profile": ssm_prof,
                "specs": specs, "overlap": overlap, "faults": fault_run,
-               "direct_io": dio, "resume": resumed,
-               "seconds": time.perf_counter() - t_all}
+               "direct_io": dio, "resume": resumed, "oracle": oracle,
+               "host": hosted, "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)

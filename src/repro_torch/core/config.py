@@ -52,9 +52,8 @@ DEVICE_ARRAYS = ("features", "topology")
 ENGINES = ("none", "dram", "pmem", "mmap", "directio", "isp", "isp_oracle",
            "fpga")
 
-#: what of the tree the port runs: the flags offer only these choices
-PORTED_BACKENDS = ("pallas",)
-PORTED_POLICIES = ("lru", "pinned")
+#: the backends the port runs: ``--backend`` offers only these
+PORTED_BACKENDS = ("host", "pallas")
 
 
 def _check(value, name, choices):
@@ -480,16 +479,10 @@ def check_ported(spec: PipelineSpec) -> None:
     that the port does not run yet, with the ROADMAP item that brings
     it.  ``build_pipeline`` calls this before it opens anything."""
     missing = []
-    if spec.backend.name != "pallas":
-        item = 11 if spec.backend.name == "host" else 14
-        missing.append(f"backend {spec.backend.name!r} (ROADMAP item "
-                       f"{item})")
-    if spec.sampler.family == "saint":
-        missing.append("sampler.family 'saint' (ROADMAP item 11)")
+    if spec.backend.name == "isp":
+        missing.append("backend 'isp' (ROADMAP item 14)")
     if spec.store.mode == "isp":
         missing.append("store.mode 'isp' (ROADMAP item 12)")
-    if any(t.policy == "optimal" for t in spec.cache_tiers):
-        missing.append("cache policy 'optimal' (ROADMAP item 9)")
     if spec.engine != "none":
         missing.append(f"engine {spec.engine!r} (ROADMAP item 13)")
     if spec.obs.enabled:
@@ -691,9 +684,15 @@ FLAG_TABLE = {
     "--backend": ("backend.name", dict(
         choices=PORTED_BACKENDS,
         help="GNN data-preparation backend (SubgraphLoader)")),
+    "--sampler": ("sampler.family", dict(
+        choices=SAMPLERS,
+        help="sampler family: GraphSAGE k-hop fanouts or GraphSAINT "
+             "random walks (host backend only)")),
     "--fanouts": ("sampler.fanouts", dict(
         type=_parse_fanouts, metavar="F1,F2,...",
         help="per-hop fanouts for the khop sampler")),
+    "--walk-length": ("sampler.walk_length", dict(
+        type=int, help="GraphSAINT walk length (--sampler saint)")),
     "--batch": ("batch_size", dict(type=int, help="minibatch size")),
     "--seed": ("seed", dict(
         type=int, help="per-batch target/sampling seed")),
@@ -788,9 +787,14 @@ FLAG_TABLE = {
              "storage spec; set below the on-disk footprint to exercise "
              "the beyond-DRAM working set)")),
     "--cache-policy": ("cache.policy", dict(
-        choices=PORTED_POLICIES,
-        help="host tier placement: OS-page-cache-style LRU, or hot-block "
-             "pinning + LRU spill")),
+        choices=CACHE_POLICIES,
+        help="host tier placement: OS-page-cache-style LRU, hot-block "
+             "pinning + LRU spill, or Belady-optimal from sampler "
+             "replay")),
+    "--cache-oracle-window": ("cache.oracle_window", dict(
+        type=int,
+        help="host tier, policy 'optimal': superbatch replay window in "
+             "batches (the Belady schedule's lookahead)")),
     "--device-cache-rows": ("devcache.rows", dict(
         type=int,
         help="device tier (pallas): HBM feature-cache capacity in rows "
@@ -801,9 +805,13 @@ FLAG_TABLE = {
              "BLOCK_E-wide topology blocks (0 = full edge-array upload); "
              "with it the sampling kernel too runs beyond HBM")),
     "--device-cache-policy": ("devcache.policy", dict(
-        choices=PORTED_POLICIES,
-        help="device tier placement: LRU recency, or a degree-pinned hot "
-             "set + LRU spill")),
+        choices=CACHE_POLICIES,
+        help="device tier placement: LRU recency, degree-pinned hot "
+             "set + LRU spill, or Belady-optimal from sampler replay")),
+    "--device-cache-oracle-window": ("devcache.oracle_window", dict(
+        type=int,
+        help="device tier, policy 'optimal': superbatch replay window "
+             "in batches")),
     "--device-cache-pinned-fraction": ("devcache.pinned_fraction", dict(
         type=float,
         help="device tier: fraction of the capacity staged permanently "

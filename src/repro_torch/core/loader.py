@@ -1,10 +1,14 @@
 """The minibatch data plane and the training loop, in PyTorch.
 
-The port of the reference's ``core/loader.py`` for the ``pallas``
-backend.  A batch is sampled k hops by the ``neighbor_sample`` kernel and
-its features are gathered by the ``feature_gather_rows`` kernel, both
-hand-written CUDA for Hopper when the loader's device is a GPU (the plain
-PyTorch versions on the CPU, as the tests run it).
+The port of the reference's ``core/loader.py`` for the ``pallas`` and
+``host`` backends.  On ``pallas`` a batch is sampled k hops by the
+``neighbor_sample`` kernel and its features are gathered by the
+``feature_gather_rows`` kernel, both hand-written CUDA for Hopper when
+the loader's device is a GPU (the plain PyTorch versions on the CPU, as
+the tests run it).  On ``host`` (the paper's CPU data preparation,
+Fig. 4) producer threads sample with the numpy ``sample_khop`` (or
+GraphSAINT walks) and gather through the store, and ``get_batch`` copies
+the batch's features and labels to the device.
 
 Out of core, the graph is read through a ``GraphStore`` (``store=``,
 typically a ``DiskStore`` behind its page cache) and either array family
@@ -22,15 +26,18 @@ batch's unique rows are read straight from the store, uploaded once and
 gathered by ``feature_gather_rows``, with unchanged values.
 
 ``_build_loader`` builds the loader a ``PipelineSpec`` describes
-(``core.config.build_pipeline`` is the entry point), wrapped in a
-``PrefetchingLoader`` or an ``OverlappedLoader`` when the spec prefetches;
-``make_loader`` is the reference's keyword shim over it.
+(``core.config.build_pipeline`` is the entry point), attaches the Belady
+replay lane when a tier is ``optimal`` (``storage.oracle``), and wraps
+the loader in a ``PrefetchingLoader`` or an ``OverlappedLoader`` when the
+spec prefetches; ``make_loader`` is the reference's keyword shim over it.
 
 Randomness matches the reference exactly: targets of batch ``i`` come
 from ``np.random.default_rng(seed + i)``, and sampling bits from the
 threefry stream ``fold_in(fold_in(key(seed), i), hop)`` (``repro_torch.
 rng``), drawn on the loader's device, so the port's minibatches equal the
-reference's at equal seeds, cached or not.
+reference's at equal seeds, cached or not.  The host backend's numpy
+sampler draws from ``np.random.default_rng(seed + i)``, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -138,7 +145,7 @@ def _build_loader(spec: PipelineSpec, *, g: CSRGraph | None, store=None,
         raise KeyError(f"unknown backend {name!r}; have {sorted(LOADERS)}")
     feature_cache = spec.feature_cache()
     edge_cache = spec.topology_cache()
-    if g is None and store is not None:
+    if g is None and store is not None and name != "host":
         skip_features = feature_cache is not None
         nbytes = getattr(store, "nbytes_on_disk", lambda: 0)()
         warnings.warn(
@@ -153,10 +160,24 @@ def _build_loader(spec: PipelineSpec, *, g: CSRGraph | None, store=None,
             g = store.to_csr(include_features=not skip_features)
         else:
             g = store.to_csr()
+    if name == "host":
+        kw = dict(sampler=spec.sampler.family,
+                  walk_length=spec.sampler.walk_length,
+                  n_workers=spec.backend.n_workers,
+                  queue_depth=spec.backend.queue_depth,
+                  straggler_factor=spec.backend.straggler_factor)
+    else:
+        kw = dict(device_cache=feature_cache, edge_cache=edge_cache)
     loader = LOADERS[name](g, batch_size=spec.batch_size,
                            fanouts=spec.sampler.fanouts, seed=spec.seed,
-                           device=device, store=store,
-                           device_cache=feature_cache, edge_cache=edge_cache)
+                           device=device, store=store, **kw)
+    if any(t.policy == "optimal" for t in spec.cache_tiers):
+        from repro_torch.storage.oracle import (attach_host_oracle,
+                                                attach_pallas_oracle)
+        if name == "pallas":
+            attach_pallas_oracle(loader, spec)
+        else:
+            attach_host_oracle(loader, spec)
     if spec.prefetch.depth:
         from repro_torch.core.pipeline import (OverlappedLoader,
                                                PrefetchingLoader)
@@ -222,8 +243,154 @@ def batch_targets(g, idx: int, batch_size: int, seed: int = 0) -> np.ndarray:
     return rng_.integers(0, g.num_nodes, batch_size).astype(np.int32)
 
 
+class _LoaderBase:
+    """What every backend's loader shares: the target stream, the oracle
+    hook, the counters and ``stats()``."""
+
+    backend = "base"
+    SAMPLERS = ("khop",)
+
+    def __init__(self, g: CSRGraph | None, *, batch_size: int, fanouts,
+                 seed: int = 0, device="cuda", store=None,
+                 sampler: str = "khop", walk_length: int = 4):
+        self.g = g
+        self.store = store if store is not None else g
+        if self.store is None:
+            raise ValueError("loader needs a graph or a GraphStore")
+        if sampler not in self.SAMPLERS:
+            raise ValueError(
+                f"backend {self.backend!r} supports samplers "
+                f"{self.SAMPLERS}, not {sampler!r} (GraphSAINT walks are "
+                "host-side numpy sampling)")
+        self.sampler = sampler
+        self.walk_length = int(walk_length)
+        self.batch_size = batch_size
+        # a SAINT batch's one hop tensor is the (M, L+1) walk
+        self.fanouts = ((self.walk_length + 1,) if sampler == "saint"
+                        else tuple(fanouts))
+        self.seed = seed
+        self.device = torch.device(device)
+        self.devcache = None
+        self.edgecache = None
+        self._epoch0 = None
+        self._oracle = None        # OracleReplayer (optimal-policy tiers)
+
+    def targets(self, idx: int) -> np.ndarray:
+        return batch_targets(self.store, idx, self.batch_size, self.seed)
+
+    def _advance_oracle(self, idx: int) -> None:
+        """Head-of-batch hook of the optimal (Belady) tiers: wait until
+        the replay lane has batch ``idx``'s window scheduled, then roll
+        the edge cache's and the store's two-phase next-use state
+        forward.  No-ops under lru and pinned."""
+        rep = self._oracle
+        if rep is not None:
+            rep.advance(idx)
+        ec = self.edgecache
+        if ec is not None:
+            ec.oracle_begin_batch(idx)
+        adv = getattr(self.store, "oracle_advance", None)
+        if adv is not None:
+            adv(idx)
+
+    def _counter_sources(self) -> dict:
+        src = {}
+        io = getattr(self.store, "io_counters", None)
+        if io is not None:
+            src["store"] = io
+        if self.devcache is not None:
+            src["devcache"] = self.devcache.counters
+        if self.edgecache is not None:
+            src["edgecache"] = self.edgecache.counters
+        return src
+
+    def start_epoch(self) -> None:
+        """Mark an epoch boundary: from here on ``stats()`` also reports
+        the counters since this call (``store_epoch``, ``devcache_epoch``,
+        ``edgecache_epoch``) beside the cumulative totals."""
+        self._epoch0 = {k: fn() for k, fn in self._counter_sources().items()}
+
+    def stats(self) -> dict:
+        s = {"backend": self.backend, "sampler": self.sampler}
+        store_stats = getattr(self.store, "stats", None)
+        if store_stats is not None:
+            s["store"] = store_stats()
+        if self.devcache is not None:
+            s["devcache"] = self.devcache.stats()
+        if self.edgecache is not None:
+            s["edgecache"] = self.edgecache.stats()
+        if self._oracle is not None:
+            s["oracle"] = self._oracle.stats()
+        if self._epoch0 is not None:
+            for name, fn in self._counter_sources().items():
+                base = self._epoch0.get(name, {})
+                s[f"{name}_epoch"] = {
+                    k: v - base.get(k, 0) for k, v in fn().items()
+                    if isinstance(v, (int, float))}
+        return s
+
+    def close(self) -> None:
+        if self._oracle is not None:
+            self._oracle.close()
+
+
+@register_loader("host")
+class HostSubgraphLoader(_LoaderBase):
+    """CPU data preparation (the paper's Fig. 4): ``sample_khop`` (or
+    GraphSAINT walks, ``sampler='saint'``) and the feature and label
+    gathers run in the producer threads of a
+    ``core.pipeline.ProducerConsumerPipeline``, through ``self.store``
+    (in-memory arrays, or a ``DiskStore``'s paged reads), and batches are
+    consumed strictly in index order.  The producers touch only numpy and
+    the store.  ``get_batch`` copies the batch's features and labels to
+    the loader's device on the caller's thread, through pinned host
+    buffers with ``non_blocking`` on the current stream; the hop ids stay
+    on the host."""
+
+    SAMPLERS = ("khop", "saint")
+
+    def __init__(self, g, *, batch_size, fanouts, seed=0, device="cuda",
+                 store=None, sampler="khop", walk_length=4,
+                 n_workers: int = 4, queue_depth: int = 8,
+                 straggler_factor: float = 4.0):
+        super().__init__(g, batch_size=batch_size, fanouts=fanouts,
+                         seed=seed, device=device, store=store,
+                         sampler=sampler, walk_length=walk_length)
+        from repro_torch.core.pipeline import (ProducerConsumerPipeline,
+                                               make_host_producer)
+        produce = make_host_producer(self.store, batch_size, self.fanouts,
+                                     seed=seed, sampler=self.sampler,
+                                     walk_length=self.walk_length)
+        self.pipeline = ProducerConsumerPipeline(
+            produce, n_workers=n_workers, queue_depth=queue_depth,
+            straggler_factor=straggler_factor)
+
+    def get_batch(self, idx: int) -> Minibatch:
+        mb = self.pipeline.get_batch(idx)
+        dev = self.device
+        return Minibatch(
+            targets=mb.targets,
+            hop_ids=[torch.from_numpy(np.asarray(h)) for h in mb.hop_ids],
+            hop_feats=[_to_device(np.asarray(f, np.float32), dev)
+                       for f in mb.hop_feats],
+            labels=_to_device(np.asarray(mb.labels, np.int32), dev),
+            trace=mb.trace, launches={})
+
+    def stats(self) -> dict:
+        s = self.pipeline.stats
+        produce = s.produce_times
+        return dict(super().stats(),
+                    mean_produce_s=float(np.mean(produce)) if produce else 0.0,
+                    reissued=s.reissued,
+                    duplicates_dropped=s.duplicates_dropped)
+
+    def close(self) -> None:
+        self.pipeline.close()
+        super().close()
+
+
 @register_loader("pallas")
-class PallasSubgraphLoader:
+class PallasSubgraphLoader(_LoaderBase):
     """Kernel data preparation on one device.
 
     Without a device tier, the graph's CSR arrays, features and labels
@@ -247,21 +414,12 @@ class PallasSubgraphLoader:
     ``feature_segments``); ``stats()['stage_s']`` the host seconds of each
     stage when they run back to back here."""
 
-    backend = "pallas"
-
     def __init__(self, g: CSRGraph, *, batch_size: int,
                  fanouts: Sequence[int], seed: int = 0, device="cuda",
                  store=None, device_cache: CacheTierSpec | None = None,
                  edge_cache: CacheTierSpec | None = None):
-        self.g = g
-        self.store = store if store is not None else g
-        self.batch_size = batch_size
-        self.fanouts = tuple(fanouts)
-        self.seed = seed
-        self.devcache = None
-        self.edgecache = None
-        self._epoch0 = None
-        self.device = torch.device(device)
+        super().__init__(g, batch_size=batch_size, fanouts=fanouts,
+                         seed=seed, device=device, store=store)
         # the reference casts the int64 offsets to int32 as well
         self.indptr = torch.as_tensor(np.asarray(g.indptr, np.int32),
                                       device=self.device)
@@ -302,6 +460,7 @@ class PallasSubgraphLoader:
 
     def get_batch(self, idx: int) -> Minibatch:
         if self.devcache is None and self.edgecache is None:
+            self._advance_oracle(idx)
             l0 = kernels.thread_launches()
             targets = self.targets(idx)
             t = _to_device(targets, self.device)
@@ -351,7 +510,9 @@ class PallasSubgraphLoader:
     def _stage_sample(self, idx: int) -> dict:
         """Sample the k hops, through the edge-block cache when there is
         one, else over the device-resident edge array.  The edge cache's
-        counter delta here is the batch's exact edge traffic."""
+        counter delta here is the batch's exact edge traffic.  Under an
+        optimal tier the batch's schedule is entered first."""
+        self._advance_oracle(idx)
         l0 = kernels.thread_launches()
         targets = self.targets(idx)
         key = rng.fold_in(self._key, idx)
@@ -420,6 +581,7 @@ class PallasSubgraphLoader:
         s["hop_ids"], s["uniq"] = hop_ids, uniq
         if self.devcache is not None and not self._devcache_bypass:
             try:
+                self.devcache.oracle_begin_batch(s["idx"])
                 with self._attr(s["ctx"]):
                     plan = self.devcache.plan_rows(
                         pad_pow2(uniq, uniq[-1]), n_valid=uniq.size)
@@ -522,9 +684,6 @@ class PallasSubgraphLoader:
         dev = parts[0] if len(parts) == 1 else torch.cat(parts)
         return dev.cpu().numpy(), dev
 
-    def targets(self, idx: int) -> np.ndarray:
-        return batch_targets(self.store, idx, self.batch_size, self.seed)
-
     def warm_batch(self, idx: int) -> int:
         """Frontier planner hook: pre-pull batch ``idx``'s probable byte
         ranges (its targets' neighbour lists and feature rows) through
@@ -536,49 +695,15 @@ class PallasSubgraphLoader:
         return warm(self.targets(idx), features=self.devcache is not None,
                     edges=self.edgecache is not None)
 
-    def _counter_sources(self) -> dict:
-        src = {}
-        io = getattr(self.store, "io_counters", None)
-        if io is not None:
-            src["store"] = io
-        if self.devcache is not None:
-            src["devcache"] = self.devcache.counters
-        if self.edgecache is not None:
-            src["edgecache"] = self.edgecache.counters
-        return src
-
-    def start_epoch(self) -> None:
-        """Mark an epoch boundary: from here on ``stats()`` also reports
-        the counters since this call (``store_epoch``, ``devcache_epoch``,
-        ``edgecache_epoch``) beside the cumulative totals."""
-        self._epoch0 = {k: fn() for k, fn in self._counter_sources().items()}
-
     def stats(self) -> dict:
-        s = {"backend": self.backend, "sampler": "khop",
-             "dispatches": dict(self.dispatches),
-             "devcache_bypass": self._devcache_bypass,
-             "devcache_bypass_events": self._bypass_events}
+        s = dict(super().stats(), dispatches=dict(self.dispatches),
+                 devcache_bypass=self._devcache_bypass,
+                 devcache_bypass_events=self._bypass_events)
         if self._stage_s:
             s["stage_s"] = dict(self._stage_s)
             s["stage_mean_s"] = {k: v / max(self._stage_n[k], 1)
                                  for k, v in self._stage_s.items()}
-        store_stats = getattr(self.store, "stats", None)
-        if store_stats is not None:
-            s["store"] = store_stats()
-        if self.devcache is not None:
-            s["devcache"] = self.devcache.stats()
-        if self.edgecache is not None:
-            s["edgecache"] = self.edgecache.stats()
-        if self._epoch0 is not None:
-            for name, fn in self._counter_sources().items():
-                base = self._epoch0.get(name, {})
-                s[f"{name}_epoch"] = {
-                    k: v - base.get(k, 0) for k, v in fn().items()
-                    if isinstance(v, (int, float))}
         return s
-
-    def close(self) -> None:
-        pass
 
 
 def build_train_step(loader, gnn, optimizer):

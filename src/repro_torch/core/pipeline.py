@@ -1,11 +1,17 @@
-"""Asynchronous data preparation: prefetch and the overlapped pipeline.
+"""Asynchronous data preparation: the host producers, prefetch and the
+overlapped pipeline.
 
-The port's copy of ``PipelineStats``, ``PrefetchingLoader`` and
-``OverlappedLoader`` from the reference's ``core/pipeline.py``.  A
-background thread (prefetch) or one thread per stage (overlap) prepares
-batches ahead of the consumer, which trains on batch ``t`` meanwhile;
-batches are pure functions of their index and every lane runs them in
-index order, so the results are bit-equal to the synchronous path.
+The port's copy of the reference's ``core/pipeline.py``.
+``make_host_producer`` and ``ProducerConsumerPipeline`` are the host
+backend's CPU data preparation (the paper's Fig. 4): producer threads
+sample and gather numpy minibatches into a bounded set of results that
+the consumer takes strictly in batch order, re-issuing a straggler's
+batch to another worker.  ``PrefetchingLoader`` and ``OverlappedLoader``
+wrap any loader: a background thread (prefetch) or one thread per stage
+(overlap) prepares batches ahead of the consumer, which trains on batch
+``t`` meanwhile; batches are pure functions of their index and every lane
+runs them in index order, so the results are bit-equal to the
+synchronous path.
 
 On a GPU, which the reference (one JAX dispatch queue) never needed,
 every lane that launches device work does so on a ``torch.cuda.Stream``
@@ -31,9 +37,9 @@ none of these paths.
 (``FaultSpec.lane_stall``), which drives the watchdog's restart; after
 it the lanes' new streams replay the batches in order, and an orphaned
 lane's work lands in its dead generation.  Not ported yet: the lanes'
-trace spans come with telemetry (ROADMAP item 10).  The host backend's
-``make_host_producer`` and ``ProducerConsumerPipeline`` come with the
-host backend (item 11).
+trace spans come with telemetry (ROADMAP item 10), and
+``make_host_producer``'s push-down branch for a store with
+``sample_khop_pushdown`` comes with the ISP service (item 12).
 """
 
 from __future__ import annotations
@@ -45,10 +51,17 @@ import threading
 import time
 import warnings
 
+from typing import Callable
+
 import numpy as np
 import torch
 
+from repro_torch.core.loader import Minibatch, batch_targets
+from repro_torch.core.sampler import (DEFAULT_FANOUTS, _io_delta,
+                                      _io_snapshot, sample_khop,
+                                      saint_random_walk)
 from repro_torch.obs.metrics import idle_fraction as _idle_fraction
+from repro_torch.storage.store import nest_fault_counters
 
 
 @dataclasses.dataclass
@@ -63,6 +76,153 @@ class PipelineStats:
     @property
     def idle_fraction(self) -> float:
         return _idle_fraction(self.consumer_idle_s, self.consumer_busy_s)
+
+
+def make_host_producer(store, batch_size: int, fanouts=DEFAULT_FANOUTS,
+                       *, seed: int = 0, sampler: str = "khop",
+                       walk_length: int = 4) -> Callable[[int], Minibatch]:
+    """Returns ``produce(batch_idx) -> Minibatch`` of numpy arrays.
+
+    ``store`` is any GraphStore: a ``CSRGraph``, an ``InMemoryStore`` or
+    a ``DiskStore``, where sampling and the feature and label gathers are
+    paged reads and the batch's trace carries their measured block-I/O
+    counters.  ``sampler`` is ``'khop'`` fanout expansion or ``'saint'``
+    GraphSAINT walks of ``walk_length`` steps (one (M, L+1) hop tensor).
+    An optimal-policy store rolls its Belady schedule forward before the
+    batch's reads (``oracle_advance``).  The producer touches only numpy
+    and the store."""
+
+    def produce(batch_idx: int) -> Minibatch:
+        adv = getattr(store, "oracle_advance", None)
+        if adv is not None:
+            adv(batch_idx)
+        targets = batch_targets(store, batch_idx, batch_size, seed)
+        io0 = _io_snapshot(store)
+        if sampler == "saint":
+            trace = saint_random_walk(store, targets, walk_length,
+                                      seed=seed + batch_idx)
+        else:
+            trace = sample_khop(store, targets, fanouts,
+                                seed=seed + batch_idx)
+        hop_feats = [store.gather_features(h) for h in trace.hops]
+        labels = store.gather_labels(targets)
+        # the trace's span widens to the feature and label gathers; the
+        # thread-scoped counters keep the per-batch delta exact
+        trace.io = nest_fault_counters(_io_delta(store, io0))
+        return Minibatch(targets=targets, hop_ids=list(trace.hops),
+                         hop_feats=hop_feats, labels=labels, trace=trace)
+
+    return produce
+
+
+class ProducerConsumerPipeline:
+    """Bounded pipeline: ``n_workers`` producer threads and a
+    caller-driven consumer.  ``produce_fn(batch_idx) -> batch``; batches
+    are consumed strictly by index.  A batch not produced within
+    ``straggler_factor`` times the recent mean production time is issued
+    again to another worker and the first result wins; a request past the
+    next index skips the batches in between; a producer's error is raised
+    at the consumer."""
+
+    def __init__(self, produce_fn: Callable[[int], object], *,
+                 n_workers: int = 4, queue_depth: int = 8,
+                 straggler_factor: float = 4.0):
+        self.produce_fn = produce_fn
+        self.n_workers = n_workers
+        self.straggler_factor = straggler_factor
+        self.stats = PipelineStats()
+        self._tasks: queue.Queue = queue.Queue()
+        self._results: dict[int, object] = {}
+        self._errors: dict[int, BaseException] = {}
+        self._results_lock = threading.Condition()
+        self._issued: dict[int, float] = {}
+        self._stop = threading.Event()
+        self._queue_depth = queue_depth
+        self._next_issue = 0
+        self._watermark = 0          # lowest index still consumable
+        self._threads = [
+            threading.Thread(target=self._worker, daemon=True)
+            for _ in range(n_workers)]
+        for t in self._threads:
+            t.start()
+
+    # -- producer side -------------------------------------------------------
+    def _worker(self):
+        while not self._stop.is_set():
+            try:
+                idx = self._tasks.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            t0 = time.perf_counter()
+            try:
+                batch = self.produce_fn(idx)
+            except BaseException as e:
+                # wake the consumer now rather than at its timeout
+                with self._results_lock:
+                    self._errors[idx] = e
+                    self._results_lock.notify_all()
+                continue
+            dt = time.perf_counter() - t0
+            with self._results_lock:
+                if idx < self._watermark:
+                    # issued before a forward jump; never consumable
+                    self.stats.duplicates_dropped += 1
+                elif idx in self._results:
+                    self.stats.duplicates_dropped += 1
+                else:
+                    self._results[idx] = batch
+                    self.stats.produce_times.append(dt)
+                self._results_lock.notify_all()
+
+    def _ensure_issued(self, upto: int):
+        # consumption is by increasing index, so a forward jump (first
+        # request, resume, prefetch restart) makes the gap unconsumable:
+        # skip it instead of producing it
+        if upto > self._next_issue:
+            self._next_issue = upto
+            with self._results_lock:
+                for k in [k for k in self._results if k < upto]:
+                    del self._results[k]
+                for k in [k for k in self._errors if k < upto]:
+                    del self._errors[k]
+        while self._next_issue <= upto + self._queue_depth - 1:
+            self._tasks.put(self._next_issue)
+            self._issued[self._next_issue] = time.perf_counter()
+            self._next_issue += 1
+
+    def _maybe_reissue(self, idx: int):
+        times = self.stats.produce_times
+        if len(times) < 2:
+            return
+        ewma = float(np.mean(times[-8:]))
+        deadline = self.straggler_factor * max(ewma, 1e-4)
+        if time.perf_counter() - self._issued.get(idx, 0) > deadline:
+            self._tasks.put(idx)                      # re-issue; first wins
+            self._issued[idx] = time.perf_counter()
+            self.stats.reissued += 1
+
+    # -- consumer side -------------------------------------------------------
+    def get_batch(self, idx: int, timeout: float = 30.0):
+        with self._results_lock:
+            self._watermark = max(self._watermark, idx)
+        self._ensure_issued(idx)
+        t0 = time.perf_counter()
+        with self._results_lock:
+            while idx not in self._results:
+                if idx in self._errors:
+                    raise self._errors.pop(idx)
+                self._results_lock.wait(timeout=0.02)
+                self._maybe_reissue(idx)
+                if time.perf_counter() - t0 > timeout:
+                    raise TimeoutError(f"batch {idx} not produced")
+            batch = self._results.pop(idx)
+        self.stats.consumer_idle_s += time.perf_counter() - t0
+        return batch
+
+    def close(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,21 @@ file, flags overriding its fields:
   python -m repro_torch.launch.train --arch graphsage \\
       --spec benchmarks/specs/smoke_pallas_overlap.json --steps 4
 
+Belady (optimal) eviction in both tiers, from a sampler replay 8 batches
+ahead (``storage.oracle``), on the out-of-core command above:
+
+  ... --cache-policy optimal --cache-oracle-window 8 \\
+      --device-cache-policy optimal --device-cache-oracle-window 8
+
+The host backend, the paper's CPU data preparation (numpy sampling and
+gathers in the producer threads of the spec's ``backend.n_workers``), in
+memory or over the disk store (``--sampler saint --walk-length 3`` trains
+on GraphSAINT walks):
+
+  python -m repro_torch.launch.train --arch graphsage --backend host \\
+      --dataset reddit --batch 1024 --fanouts 25,10 --hidden 256 \\
+      --graph-store disk --cache-mb 4 --steps 8
+
 An LM of the dense family (qwen2-0.5b at full width, 4 x 4096 tokens a
 step), attention through the flash forward and backward kernels:
 
@@ -34,14 +49,15 @@ CUDA kernels, or on the CPU through their plain PyTorch versions with
 with an error.  The data-plane flags are generated from the spec's field
 table (``core.config.FLAG_TABLE``, ``add_pipeline_args``) and have the
 reference's names and defaults, with one exception: ``--backend``
-defaults to ``pallas``, where the reference's launcher sets ``isp``, the
-mesh backend that the port does not have yet (ROADMAP item 14); until
-then ``pallas`` is the port's only backend.  The table holds only the
-flags of what the port runs, fault injection (``--fault-*``) and
-``--direct-io`` included: the flags of ISP mode, the ``optimal``
-policies, storage engines and telemetry are unknown to it, and a
-``--spec`` file that asks for one of these features is refused with the
-ROADMAP item that brings it.  Every run goes through
+offers ``host`` and ``pallas`` and defaults to ``pallas``, where the
+reference's launcher sets ``isp``, the mesh backend that the port does
+not have yet (ROADMAP item 14).  The table holds only the flags of what
+the port runs, fault injection (``--fault-*``), ``--direct-io``, the
+``optimal`` policies with their ``--*-oracle-window`` and ``--sampler``
+with ``--walk-length`` included: the flags of ISP mode, storage engines
+and telemetry are unknown to it, and a ``--spec`` file that asks for one
+of these features is refused with the ROADMAP item that brings it.
+Every run goes through
 ``core.config.build_pipeline``: ``--graph-store disk`` writes the
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
 and reads it through a ``DiskStore``; without a device cache tier the
@@ -268,6 +284,10 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
             saver.save_async(args.steps, {"params": params, **state})
             saver.wait()
         loader_stats = pipe.stats()
+        replayer = getattr(store, "_oracle_replayer", None)
+        if "oracle" not in loader_stats and replayer is not None:
+            # the host backend's replay lane belongs to the store
+            loader_stats["oracle"] = replayer.stats()
         print(f"[train] {stats.steps} steps in {stats.wall_s:.1f}s "
               f"({stats.steps_per_s:.2f} steps/s, consumer idle "
               f"{stats.idle_fraction:.1%}) loader={loader_stats}")
@@ -289,6 +309,8 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                       f"hits={dc['hits']} misses={dc['misses']} "
                       f"evictions={dc['evictions']} "
                       f"({dc['bytes_uploaded'] / 2**20:.1f} MB uploaded)")
+        if "oracle" in loader_stats:
+            print(f"[train] oracle: {loader_stats['oracle']}")
         if store is not None:
             io = store.io_counters()
             print(f"[train] disk-store I/O: {io['requests']} requests, "

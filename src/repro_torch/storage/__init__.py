@@ -1,9 +1,11 @@
 """The out-of-core storage tiers of the port: the ``GraphStore`` layer
 with its on-disk ``DiskStore`` and page cache (``store``, ``blockdev``,
-``integrity``, ``specs``), its fault injection (``faults``), and the
-device caches in front of it (``devcache``)."""
+``integrity``, ``specs``), its fault injection (``faults``), the device
+caches in front of it (``devcache``) and the Belady replay lane that
+schedules the ``optimal`` policies (``oracle``, imported on use)."""
 
-from repro_torch.storage.blockdev import LRUCache, select_pinned_blocks
+from repro_torch.storage.blockdev import (FAR_NEXT_USE, LRUCache,
+                                          OracleCache, select_pinned_blocks)
 from repro_torch.storage.devcache import (AdmissionPlan, DeviceArrayCache,
                                           DeviceEdgeBlockCache,
                                           DeviceFeatureCache,
@@ -17,7 +19,8 @@ from repro_torch.storage.store import (DiskStore, GraphStore, InMemoryStore,
                                        nest_fault_counters, open_store,
                                        save_graph)
 
-__all__ = ["AdmissionPlan", "DEFAULT", "DeviceArrayCache",
+__all__ = ["AdmissionPlan", "DEFAULT", "DeviceArrayCache", "FAR_NEXT_USE",
+           "OracleCache",
            "DeviceCacheSpec", "DeviceEdgeBlockCache", "DeviceFeatureCache",
            "DiskStore", "FaultInjector", "FaultSpec", "GraphStore", "IOContext", "InMemoryStore",
            "LRUCache", "RetrySpec", "StaleAdmissionPlan", "StoreReadError",

@@ -1,14 +1,17 @@
 """The page-cache policies of the live ``DiskStore``.
 
-The port's copy of the two pieces of the reference's
-``storage/blockdev.py`` that the store needs: ``LRUCache`` (the OS page
-cache model, carrying block payloads) and ``select_pinned_blocks`` (the
-§IV-C hottest-first pinning).  The trace-replay models and
-``OracleCache`` are not part of the port yet.
+The port's copy of the pieces of the reference's ``storage/blockdev.py``
+that the store needs: ``LRUCache`` (the OS page cache model, carrying
+block payloads), ``select_pinned_blocks`` (the §IV-C hottest-first
+pinning) and ``OracleCache`` (Belady eviction from a replayed sampler
+schedule, ``storage.oracle``).  The trace-replay models ``BlockTrace``,
+``block_trace`` and ``PinnedCache`` come with the storage engines
+(ROADMAP item 13).
 """
 
 from __future__ import annotations
 
+import heapq
 from collections import OrderedDict
 
 import numpy as np
@@ -59,6 +62,139 @@ class LRUCache:
             self.evictions += 1
             return evicted
         return None
+
+
+#: "never used again inside the replayed window" sentinel for oracle
+#: next-use times: larger than any real batch index, and still inside
+#: int64 when negated for the max-heap order.
+FAR_NEXT_USE = 1 << 62
+
+
+class OracleCache:
+    """Belady (optimal) eviction over block ids, driven by a replayed
+    sampler schedule.
+
+    ``LRUCache``'s surface and counters, but the victim on overflow is the
+    resident block whose next use (known ahead because the sampler's id
+    stream is seed-deterministic and replayed a window ahead) is farthest
+    away (``FAR_NEXT_USE`` if not reused inside the window): a lazy
+    max-heap over ``(-next_use, seq, bid)``, FIFO among ties.
+
+    The schedule arrives per batch in two phases (``begin_batch``): the
+    batch's blocks are protected at next-use == the batch index for the
+    batch's duration, and their true after-batch times apply when the
+    next batch begins.  The batch is the quantum: below one batch's
+    unique-block working set the residency turns over every batch and no
+    batch-granular policy beats recency.  With no schedule the cache is
+    FIFO; reads stay exact either way."""
+
+    def __init__(self, capacity_blocks: int):
+        self.capacity = max(1, int(capacity_blocks))
+        self._data: dict[int, object] = {}   # resident payloads (ins. order)
+        self._nu: dict[int, int] = {}        # scheduled next use (batch)
+        self._heap: list[tuple[int, int, int]] = []  # (-next_use, seq, bid)
+        self._latest: dict[int, int] = {}    # bid -> authoritative heap seq
+        self._seq = 0                        # tiebreak: FIFO among ties
+        self._pending: tuple[np.ndarray, np.ndarray] | None = None
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    # -- schedule delivery --------------------------------------------------
+    def _push(self, bid: int) -> None:
+        """(Re-)insert ``bid``'s authoritative heap entry at its current
+        priority; older entries of the same bid turn stale."""
+        heap = self._heap
+        if len(heap) > max(1024, 16 * self.capacity):
+            # stale entries dominate: rebuild from the residents
+            heap[:] = [(-self._next_use_of(b), s, b)
+                       for b, s in self._latest.items()]
+            heapq.heapify(heap)
+        heapq.heappush(heap, (-self._next_use_of(bid), self._seq, bid))
+        self._latest[bid] = self._seq
+        self._seq += 1
+
+    def _set(self, bid: int, next_use: int) -> None:
+        if next_use >= FAR_NEXT_USE:
+            self._nu.pop(bid, None)
+        else:
+            self._nu[bid] = next_use
+        if bid in self._data:
+            self._push(bid)
+
+    def begin_batch(self, idx: int, blocks: np.ndarray,
+                    next_use: np.ndarray) -> None:
+        """Enter batch ``idx``: apply the previous batch's deferred
+        after-batch next-use times, protect this batch's ``blocks`` at
+        next-use == ``idx``, and defer their ``next_use`` (first use after
+        ``idx``) to the next call."""
+        if self._pending is not None:
+            for b, v in zip(*self._pending):
+                self._set(int(b), int(v))
+        for b in blocks:
+            self._set(int(b), int(idx))
+        self._pending = (blocks, next_use)
+
+    def _next_use_of(self, bid: int) -> int:
+        return self._nu.get(bid, FAR_NEXT_USE)
+
+    def _evict_one(self) -> tuple[int, object]:
+        """Pop the resident block with the farthest next use, skipping
+        stale heap entries (evicted blocks, superseded priorities)."""
+        heap = self._heap
+        while heap:
+            _, seq, bid = heapq.heappop(heap)
+            if bid in self._data and seq == self._latest.get(bid):
+                self._latest.pop(bid, None)
+                return bid, self._data.pop(bid)
+        bid = next(iter(self._data))             # unreachable fallback
+        self._latest.pop(bid, None)
+        return bid, self._data.pop(bid)
+
+    # -- trace-replay path --------------------------------------------------
+    def access(self, block: int) -> bool:
+        """Touch a block (payload-less); True on hit."""
+        if block in self._data:
+            self.hits += 1
+            return True
+        self.misses += 1
+        self.put_new(block, None)
+        return False
+
+    def access_run(self, first: int, n: int) -> int:
+        """Touch blocks [first, first+n); returns the number of misses."""
+        return sum(0 if self.access(first + i) else 1 for i in range(n))
+
+    # -- live-cache path (payload-carrying) ---------------------------------
+    def get(self, block: int):
+        """Payload for ``block`` or None on miss (counts either way)."""
+        if block in self._data:
+            self.hits += 1
+            return self._data[block]
+        self.misses += 1
+        return None
+
+    def peek(self, block: int):
+        """Payload if resident, without counters (the post-fetch
+        re-check of the read path)."""
+        return self._data.get(block)
+
+    def put_new(self, block: int, payload) -> tuple[int, object] | None:
+        """Insert a block, evicting the farthest-next-use resident when
+        full; returns the evicted ``(block, payload)`` or None."""
+        evicted = None
+        if block not in self._data and len(self._data) >= self.capacity:
+            evicted = self._evict_one()
+            self.evictions += 1
+        self._data[block] = payload
+        self._push(block)
+        return evicted
+
+    put = put_new
+
+    def counters(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}
 
 
 def select_pinned_blocks(g, budget_blocks: int, block_bytes: int = 4096,

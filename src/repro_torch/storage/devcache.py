@@ -5,7 +5,8 @@ is a fixed-capacity ``(C, W)`` entry cache (``table``) plus an ``entry id
 -> slot`` indirection (``slot_of``, ``N+1`` entries, the last a scatter
 sentinel), both tensors on the cache's ``device``, with host-managed,
 batched admission: the LRU/pinned bookkeeping is vectorized numpy over
-whole id batches (stamp arrays and ``argpartition`` victim selection).
+whole id batches (stamp arrays and ``argpartition`` victim selection;
+under ``optimal``, a lexsort by the replayed next use, then the stamp).
 Two instantiations:
 
 * ``DeviceFeatureCache``: entries are feature rows; misses are fetched
@@ -31,8 +32,12 @@ tensor scatters on the cache's device (``_push``), issued on the current
 stream between the gathers, in plan order; on a GPU their host-to-device
 copies go through the calling thread's ring of pinned buffers
 (``PinnedStaging``), so an overlapped pipeline's lane copies on its own
-stream without blocking.  The ``optimal`` (Belady) policy is not part of
-the port yet.
+stream without blocking.
+
+Under the ``optimal`` (Belady) policy the victims are the resident
+entries whose next use is farthest, from a schedule the replay lane
+(``storage.oracle``) feeds through ``oracle_feed`` and each batch enters
+with ``oracle_begin_batch``; with no schedule the choice is exact LRU.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.neighbor_sample import edge_block_count
 from repro_torch.obs import names as obs_names
+from repro_torch.storage.blockdev import FAR_NEXT_USE
 from repro_torch.storage.specs import DEFAULT, DeviceCacheSpec
 
 
@@ -166,14 +172,9 @@ class DeviceArrayCache:
         self.array = array
         self.capacity = int(capacity)
         self.policy = policy
-        if self.policy == "optimal":
-            raise NotImplementedError(
-                "device-cache policy 'optimal' (Belady eviction from a "
-                "replayed schedule) is not part of the port yet; use "
-                "'lru' or 'pinned'")
-        if self.policy not in ("lru", "pinned"):
+        if self.policy not in ("lru", "pinned", "optimal"):
             raise ValueError(f"unknown device-cache policy {self.policy!r};"
-                             " have ('lru', 'pinned')")
+                             " have ('lru', 'pinned', 'optimal')")
         if self.capacity < 1:
             raise ValueError(
                 f"device {array} cache needs at least one {self.entry_noun}")
@@ -224,6 +225,14 @@ class DeviceArrayCache:
         self._free = np.arange(self.capacity)
         self._free_ptr = 0              # slots [_free_ptr:] still free
         self._clock = 0
+
+        # Belady state (policy='optimal'): per-entry next-use times fed by
+        # the replay lane, batch-granular; unscheduled entries sit at
+        # FAR_NEXT_USE, the first victims
+        if self.policy == "optimal":
+            self._next_use = np.full(n + 1, FAR_NEXT_USE, np.int64)
+            self._oracle_updates: dict[int, tuple] = {}
+            self._oracle_pending: tuple | None = None
 
         # device state: index n of slot_of is the scatter-padding
         # sentinel, never queried by a real id
@@ -297,10 +306,22 @@ class DeviceArrayCache:
         self._free_ptr += take
         n_evict = m - take
         if n_evict:
-            occupied = np.flatnonzero((self._slot_entry >= 0)
-                                      & ~self._slot_pinned)
-            oldest = occupied[np.argpartition(
-                self._slot_stamp[occupied], n_evict - 1)[:n_evict]]
+            if self.policy == "optimal":
+                # Belady: the farthest next uses go first, the stamp
+                # breaking ties (so with no schedule this is exact LRU);
+                # the segment's hits must survive until its gather, and
+                # the residency contract leaves enough other candidates
+                cand = (self._slot_entry >= 0) & ~self._slot_pinned
+                cand[hit_slots] = False
+                occupied = np.flatnonzero(cand)
+                nu = self._next_use[self._slot_entry[occupied]]
+                order = np.lexsort((self._slot_stamp[occupied], -nu))
+                oldest = occupied[order[:n_evict]]
+            else:
+                occupied = np.flatnonzero((self._slot_entry >= 0)
+                                          & ~self._slot_pinned)
+                oldest = occupied[np.argpartition(
+                    self._slot_stamp[occupied], n_evict - 1)[:n_evict]]
             victims = self._slot_entry[oldest]
             self._host_slot[victims] = -1
             self._slot_entry[oldest] = -1
@@ -439,6 +460,40 @@ class DeviceArrayCache:
             for seg in self._segments(ids):
                 if seg.size:
                     self._resolve(seg)
+
+    # -- oracle (Belady) schedule delivery -----------------------------------
+    def oracle_feed(self, updates: dict) -> None:
+        """Accept per-batch next-use updates from the replay lane:
+        ``{batch_idx: (entry_ids, next_use)}``, ``next_use[j]`` the first
+        batch after ``batch_idx`` that requests ``entry_ids[j]`` again
+        (``FAR_NEXT_USE`` if none inside the window).  Only under
+        ``policy='optimal'``."""
+        if self.policy != "optimal":
+            raise ValueError(
+                f"oracle_feed on a {self.policy!r}-policy device cache")
+        with self._lock:
+            self._oracle_updates.update(updates)
+
+    def oracle_begin_batch(self, idx: int) -> None:
+        """Enter batch ``idx`` (once per batch, in batch order, from the
+        lane that plans this cache): the previous batch's deferred
+        after-batch times land, then this batch's entries are protected
+        at next-use == ``idx`` and their true times deferred to the next
+        call.  A batch without a schedule (replay behind, or its update
+        already popped before a restart) only lands the deferred times.
+        The next-use mirror survives ``reset``."""
+        if self.policy != "optimal":
+            return
+        with self._lock:
+            if self._oracle_pending is not None:
+                ids, nu = self._oracle_pending
+                self._next_use[ids] = nu
+                self._oracle_pending = None
+            upd = self._oracle_updates.pop(idx, None)
+            if upd is not None:
+                ids, nu = upd
+                self._next_use[ids] = idx
+                self._oracle_pending = (ids, nu)
 
     # -- accounting ----------------------------------------------------------
     def counters(self) -> dict:

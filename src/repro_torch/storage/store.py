@@ -8,9 +8,10 @@ standard library.  Two implementations of one protocol:
 * ``DiskStore`` serves the same reads from the paged on-disk layout that
   ``save_graph`` writes (one block-aligned binary file per array plus a
   JSON manifest with one CRC32C per block), through ``os.pread`` fronted
-  by a live page cache (``lru``, or ``pinned``: the hottest edge blocks
-  staged at open, the rest LRU), split into lock shards, with an optional
-  pread pool and a classified retry policy (``RetrySpec``).
+  by a live page cache (``lru``; ``pinned``: the hottest edge blocks
+  staged at open, the rest LRU; or ``optimal``: Belady eviction from a
+  replayed sampler schedule, unsharded), split into lock shards, with an
+  optional pread pool and a classified retry policy (``RetrySpec``).
 
 Only the (N+1)-entry ``indptr`` stays resident; ``indices``,
 ``features`` and ``labels`` are read on demand in ``block_bytes`` units,
@@ -30,8 +31,13 @@ reference's deterministic schedule), below the retry and verify policy;
 platform and filesystem allow it, and otherwise warns and reads buffered,
 as the reference does.
 
-Not part of the port yet, and refused by ``DiskStore``: the ``optimal``
-(Belady) policy with its oracle hooks, and the trace spans.
+Under ``optimal`` the schedule arrives through the oracle hooks
+(``oracle_attach``, ``oracle_feed``, ``oracle_advance``), computed by a
+replay lane (``storage.oracle``) that reads the edge array through
+``read_indices_at`` (retry- and CRC-protected, bypassing the page cache
+and its counters) and maps a replayed batch's reads to page ids with
+``replay_block_ids``.  Not part of the port yet: the trace spans, which
+come with telemetry (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import numpy as np
 
 from repro_torch.core.graph import CSRGraph, read_edge_blocks
 from repro_torch.obs import names as obs_names
-from repro_torch.storage.blockdev import LRUCache, select_pinned_blocks
+from repro_torch.storage.blockdev import (LRUCache, OracleCache,
+                                          select_pinned_blocks)
 from repro_torch.storage.faults import FaultInjector, FaultSpec
 from repro_torch.storage.integrity import block_checksums, crc32c
 from repro_torch.storage.specs import DEFAULT, RetrySpec, SystemSpec
@@ -269,7 +276,9 @@ class DiskStore:
     all arrays (block ids are namespaced per file).  ``policy='lru'``
     models the OS page cache; ``policy='pinned'`` is the paper's §IV-C
     scratchpad: half the budget pins the hottest (highest-degree) edge
-    blocks, preloaded at open, the rest is LRU.  The LRU budget is split
+    blocks, preloaded at open, the rest is LRU; ``policy='optimal'`` is
+    Belady eviction (``OracleCache``) fed by the oracle hooks, unsharded.
+    The LRU budget is split
     into ``lock_shards`` hashed-block shards, each behind its own lock;
     the pinned set is immutable after the preload and read lock-free.
     ``io_threads > 1`` opens a pread pool: multi-range gathers split
@@ -325,14 +334,9 @@ class DiskStore:
         self.cache_mb = (spec.diskstore.cache_mb if cache_mb is None
                          else float(cache_mb))
         self.policy = policy or spec.diskstore.policy
-        if self.policy == "optimal":
-            raise NotImplementedError(
-                "DiskStore: policy 'optimal' (Belady eviction from a "
-                "replayed schedule) is not part of the port yet; use "
-                "'lru' or 'pinned'")
-        if self.policy not in ("lru", "pinned"):
+        if self.policy not in ("lru", "pinned", "optimal"):
             raise ValueError(f"unknown cache policy {self.policy!r}; "
-                             "have ('lru', 'pinned')")
+                             "have ('lru', 'pinned', 'optimal')")
 
         self._arrays = self.manifest["arrays"]
         self._ns = {k: i for i, k in enumerate(_ARRAY_ORDER)
@@ -369,11 +373,21 @@ class DiskStore:
         shards = (spec.diskstore.lock_shards if lock_shards is None
                   else int(lock_shards))
         shards = max(1, min(shards, lru_blocks))
-        per = [lru_blocks // shards + (1 if i < lru_blocks % shards else 0)
-               for i in range(shards)]
-        self._shards = [LRUCache(max(1, c)) for c in per]
+        if self.policy == "optimal":
+            # Belady's victim choice needs one next-use order over the
+            # whole budget: one unsharded cache behind one lock
+            shards = 1
+            self._shards = [OracleCache(lru_blocks)]
+        else:
+            per = [lru_blocks // shards
+                   + (1 if i < lru_blocks % shards else 0)
+                   for i in range(shards)]
+            self._shards = [LRUCache(max(1, c)) for c in per]
         self._locks = [threading.Lock() for _ in range(shards)]
         self.lock_shards = shards
+        self._oracle_replayer = None
+        self._oracle_updates: dict[int, tuple] = {}
+        self._oracle_lock = threading.Lock()
         io_threads = (spec.diskstore.io_threads if io_threads is None
                       else int(io_threads))
         if io_threads < 1:
@@ -873,6 +887,109 @@ class DiskStore:
             self._warmed_nodes += int(nodes.size)
         return n
 
+    # -- oracle (Belady) scheduling hooks ------------------------------------
+    def read_indices_at(self, positions) -> np.ndarray:
+        """Raw positional reads of ``indices[positions]`` for sampler
+        replay: block reads through ``_fetch`` (retry and CRC policy)
+        that bypass the page cache, so no residency changes and no
+        request, hit or miss is billed."""
+        dt = self._dtype["indices"]
+        per = self.block_bytes // dt.itemsize
+        pos = np.asarray(positions, np.int64).reshape(-1)
+        uniq, inv = np.unique(pos, return_inverse=True)
+        out = np.empty(uniq.size, dt)
+        blocks = uniq // per
+        for b in np.unique(blocks):
+            sel = blocks == b
+            data = np.frombuffer(self._fetch("indices", int(b)), dtype=dt)
+            out[sel] = data[uniq[sel] - int(b) * per]
+        return out[inv].reshape(np.shape(positions))
+
+    def replay_block_ids(self, *, feature_nodes=None, edge_nodes=None,
+                         label_nodes=None, edge_blocks=None,
+                         block_e: int | None = None) -> np.ndarray:
+        """Namespaced page ids a replayed batch's reads will touch: the
+        feature rows of ``feature_nodes``, the neighbour lists of
+        ``edge_nodes``, the labels of ``label_nodes`` and the
+        ``block_e``-entry ``edge_blocks`` (the device edge cache's
+        fetch unit).  Layout arithmetic over ``indptr``, no reads."""
+        B = self.block_bytes
+        parts: list[np.ndarray] = []
+
+        def ranges_to_blocks(key, lo, hi):
+            ns = self._ns[key] * _NS_STRIDE
+            lo = np.asarray(lo, np.int64).reshape(-1)
+            hi = np.asarray(hi, np.int64).reshape(-1)
+            keep = hi > lo
+            lo, hi = lo[keep], hi[keep]
+            if lo.size == 0:
+                return
+            first = lo // B
+            counts = (hi - 1) // B - first + 1
+            total = int(counts.sum())
+            starts = np.repeat(first, counts)
+            offs = (np.arange(total)
+                    - np.repeat(np.cumsum(counts) - counts, counts))
+            parts.append(ns + starts + offs)
+
+        if feature_nodes is not None and "features" in self._arrays:
+            row = self._dtype["features"].itemsize * self.feat_dim
+            ids = np.asarray(feature_nodes, np.int64).reshape(-1)
+            ranges_to_blocks("features", ids * row, ids * row + row)
+        if edge_nodes is not None:
+            isz = self._dtype["indices"].itemsize
+            ids = np.asarray(edge_nodes, np.int64).reshape(-1)
+            ranges_to_blocks("indices", self.indptr[ids] * isz,
+                             self.indptr[ids + 1] * isz)
+        if edge_blocks is not None:
+            isz = self._dtype["indices"].itemsize
+            eb = np.asarray(edge_blocks, np.int64).reshape(-1)
+            lo_e = eb * int(block_e)
+            hi_e = np.minimum(lo_e + int(block_e), self.num_edges)
+            ranges_to_blocks("indices", lo_e * isz, hi_e * isz)
+        if label_nodes is not None and "labels" in self._arrays:
+            isz = self._dtype["labels"].itemsize
+            ids = np.asarray(label_nodes, np.int64).reshape(-1)
+            ranges_to_blocks("labels", ids * isz, ids * isz + isz)
+        if not parts:
+            return np.empty(0, np.int64)
+        return np.unique(np.concatenate(parts))
+
+    def oracle_attach(self, replayer) -> None:
+        """Bind the replay lane (``storage.oracle.OracleReplayer``) that
+        keeps this store's schedule a window ahead; ``close`` closes it.
+        Only under ``policy='optimal'``."""
+        if self.policy != "optimal":
+            raise ValueError(
+                f"oracle_attach on a {self.policy!r}-policy store; the "
+                "replayed schedule only drives policy='optimal'")
+        self._oracle_replayer = replayer
+
+    def oracle_feed(self, updates: dict) -> None:
+        """Accept per-batch next-use updates from the replay lane:
+        ``{batch_idx: (block_ids, next_use)}`` in the namespaced block
+        space."""
+        with self._oracle_lock:
+            self._oracle_updates.update(updates)
+
+    def oracle_advance(self, idx: int) -> None:
+        """Enter batch ``idx``: wait for its window's schedule (only when
+        the lane is behind) and apply the batch's next-use times to the
+        page cache.  A no-op for other policies and for a batch without
+        a schedule (an update already popped, as after a restart)."""
+        if self.policy != "optimal":
+            return
+        rep = self._oracle_replayer
+        if rep is not None:
+            rep.advance(idx)
+        with self._oracle_lock:
+            upd = self._oracle_updates.pop(idx, None)
+        if upd is None:
+            return
+        bids, nu = upd
+        with self._locks[0]:
+            self._shards[0].begin_batch(idx, bids, nu)
+
     # -- accounting ----------------------------------------------------------
     def io_counters(self) -> dict:
         hits = misses = evictions = 0
@@ -923,6 +1040,9 @@ class DiskStore:
                         name=self.name)
 
     def close(self) -> None:
+        if self._oracle_replayer is not None:
+            self._oracle_replayer.close()
+            self._oracle_replayer = None
         if self._pool is not None:
             # drain before the fds go away
             self._pool.shutdown(wait=True, cancel_futures=True)

@@ -162,8 +162,10 @@ def test_pad_rules_and_refusals_equal_reference():
 
 def test_cache_construction_refusals(graphs):
     g = graphs[1]
-    with pytest.raises(NotImplementedError, match="optimal"):
-        DeviceFeatureCache(g, rows=8, policy="optimal", device="cpu")
+    opt = DeviceFeatureCache(g, rows=8, policy="optimal", device="cpu")
+    assert opt.stats()["policy"] == "optimal"
+    with pytest.raises(ValueError, match="unknown device-cache policy"):
+        DeviceFeatureCache(g, rows=8, policy="mru", device="cpu")
     with pytest.raises(ValueError, match="capacity >= 2"):
         DeviceFeatureCache(g, rows=1, policy="pinned", device="cpu")
     with pytest.raises(ValueError, match=">= 4 non-pinned"):

@@ -113,7 +113,7 @@ def test_serve_cli_without_gpu_fails_loudly():
 
 def test_cli_rejects_flags_of_later_slices():
     out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-                "--backend", "host"])
+                "--backend", "isp"])
     assert out.returncode == 2 and "invalid choice" in out.stderr
     out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
                 "--graph-store", "disk", "--trace-out", "x"])

@@ -289,7 +289,7 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--overlap", "1"],
                                    ["--prefetch", "-1"],
-                                   ["--spec", "optimal.json"],
+                                   ["--spec", "obs.json"],
                                    ["--fault-eio", "1.5"],
                                    ["--storage-engine", "mmap"],
                                    ["--store-mode", "isp"],
@@ -301,16 +301,15 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
                                    ["--io-retries", "0"]])
 def test_cli_rejects_deferred_and_invalid_flags(flags, capsys, tmp_path):
     """Flags of later items are unknown, invalid values fail validation
-    (``--overlap 1`` needs ``--prefetch``), and a spec file that names a
-    later feature is refused with its item."""
+    (``--overlap 1`` needs ``--prefetch``, an ``optimal`` tier needs its
+    oracle window and a window needs ``optimal``), and a spec file that
+    names a later feature is refused with its item."""
     if flags[0] == "--spec":
         spec = tmp_path / flags[1]
         spec.write_text(port_config.PipelineSpec(
             backend=port_config.BackendSpec(name="pallas"),
             store=port_config.StoreSpec(kind="disk"),
-            cache_tiers=(port_config.CacheTierSpec(
-                tier="host", policy="optimal", oracle_window=8,
-                arrays=()),)).to_json())
+            obs=port_config.ObsSpec(enabled=True)).to_json())
         flags = ["--spec", str(spec)]
     with pytest.raises(SystemExit) as e:
         port_train.parse_args(["--device", "cpu", "--graph-store", "disk",
@@ -319,7 +318,7 @@ def test_cli_rejects_deferred_and_invalid_flags(flags, capsys, tmp_path):
     err = capsys.readouterr().err
     assert "error:" in err
     if flags[0] == "--spec":
-        assert "ROADMAP item 9" in err
+        assert "ROADMAP item 10" in err
 
 
 def test_cli_defaults_are_the_references():

@@ -7,9 +7,10 @@ manifest's ``pipeline_spec`` load to equal dicts in both packages;
 generated flags build equal specs from a table of argvs, with and without
 ``--spec``; the four specs the port runs without overlap give hop ids,
 features, labels and every per-batch ``trace.io`` counter bit-equal to the
-reference's ``build_pipeline`` over the same spec on reddit; the six it
+reference's ``build_pipeline`` over the same spec on reddit; the three it
 does not run yet are refused, before anything is opened, with the ROADMAP
-item each waits on.
+item each waits on, and the three of those six that the oracle and host
+slice brought in parse and build.
 """
 
 import argparse
@@ -38,11 +39,14 @@ GOLDEN = ROOT / "tests" / "data" / "golden_pipeline_spec.json"
 SPEC_FILES = sorted(Path(p).stem for p in glob.glob(str(SPEC_DIR / "*.json")))
 PORTED = ("smoke_pallas", "smoke_pallas_devcache_disk",
           "smoke_pallas_edgecache", "train_pallas_outofcore",
-          "smoke_pallas_overlap", "smoke_pallas_overlap_faults")
+          "smoke_pallas_overlap", "smoke_pallas_overlap_faults",
+          "smoke_pallas_optimal", "smoke_host", "smoke_disk_host")
 #: spec file -> the ROADMAP item it waits on
-REFUSED = {"smoke_host": 11, "smoke_disk_host": 11, "smoke_isp": 14,
-           "smoke_pallas_isp": 12, "smoke_pallas_optimal": 9,
+REFUSED = {"smoke_isp": 14, "smoke_pallas_isp": 12,
            "smoke_pallas_overlap_obs": 10}
+#: the specs refused before the oracle and host backend were ported
+LATER = ("smoke_host", "smoke_disk_host", "smoke_isp", "smoke_pallas_isp",
+         "smoke_pallas_optimal", "smoke_pallas_overlap_obs")
 
 
 def _path(name: str) -> str:
@@ -208,20 +212,16 @@ def test_flag_table_is_the_references_for_the_ported_fields():
     ref = ref_config.FLAG_TABLE
     for flag, (path, kw) in port_config.FLAG_TABLE.items():
         assert ref[flag][0] == path, flag
-        narrowed = {"--backend": ("pallas",),
-                    "--cache-policy": ("lru", "pinned"),
-                    "--device-cache-policy": ("lru", "pinned")}
+        narrowed = {"--backend": ("host", "pallas")}
         want = dict(ref[flag][1])
         if flag in narrowed:
             want["choices"] = narrowed[flag]
         assert _kwargs(kw) == _kwargs(want), flag
     later = set(ref) - set(port_config.FLAG_TABLE)
     assert later == {
-        "--sampler", "--walk-length", "--storage-engine", "--store-mode",
-        "--isp-transport", "--isp-address", "--isp-window",
-        "--isp-server-cache", "--cache-oracle-window",
-        "--device-cache-oracle-window", "--trace-out", "--metrics-out",
-        "--metrics-interval"}
+        "--storage-engine", "--store-mode", "--isp-transport",
+        "--isp-address", "--isp-window", "--isp-server-cache",
+        "--trace-out", "--metrics-out", "--metrics-interval"}
 
 
 def _parse(config, argv):
@@ -266,6 +266,19 @@ ARGVS = {
     "spec-faults-off": ["--spec", _path("smoke_pallas_overlap_faults"),
                         "--fault-eio", "0", "--fault-short-read", "0",
                         "--fault-bitflip", "0", "--fault-stall", "0"],
+    "host-saint": ["--backend", "host", "--sampler", "saint",
+                   "--walk-length", "3", "--graph-store", "disk"],
+    "optimal-tiers": ["--graph-store", "disk", "--cache-policy", "optimal",
+                      "--cache-oracle-window", "6", "--device-cache-rows",
+                      "32", "--edge-cache-blocks", "16",
+                      "--device-cache-policy", "optimal",
+                      "--device-cache-oracle-window", "4"],
+    "spec-optimal-window": ["--spec", _path("smoke_pallas_optimal"),
+                            "--cache-oracle-window", "4",
+                            "--device-cache-oracle-window", "2"],
+    "spec-host-to-optimal": ["--spec", _path("smoke_disk_host"),
+                             "--cache-policy", "optimal",
+                             "--cache-oracle-window", "2"],
 }
 
 
@@ -343,10 +356,24 @@ def test_ported_specs_match_reference(reddit, name):
         assert not os.path.exists(tmp)      # the pipeline's temp dir is gone
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
+@pytest.mark.parametrize("name", LATER)
 def test_later_specs_are_refused_before_anything_opens(name, monkeypatch,
                                                        capsys):
     import repro_torch.storage.store as port_store
+
+    if name not in REFUSED:
+        # ported since: the spec parses and builds, and a batch comes out
+        args = port_train.parse_args(["--device", "cpu", "--spec",
+                                      _path(name)])
+        g = load_dataset("reddit")
+        with port_config.build_pipeline(args.pipeline_spec, g,
+                                        device="cpu") as pipe:
+            assert pipe.backend == args.pipeline_spec.backend.name
+            mb = pipe.get_batch(0)
+            assert mb.hop_feats[-1].shape == (
+                args.pipeline_spec.batch_size,
+                *args.pipeline_spec.sampler.fanouts, g.feat_dim)
+        return
 
     def opened(*a, **kw):
         raise AssertionError("a resource was opened")
@@ -390,7 +417,7 @@ def test_make_loader_shim_equals_build_pipeline(reddit, tmp_path):
         for st in stores:
             st.close()
     with pytest.raises(KeyError, match="unknown backend"):
-        make_loader("host", g)
+        make_loader("isp", g)
 
 
 @pytest.mark.parametrize("cache_mb", [0.25, 64.0])

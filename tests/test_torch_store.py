@@ -198,8 +198,9 @@ def test_verify_turns_a_corrupt_block_into_store_read_error(ref_dir,
 
 
 def test_deferred_options_are_refused(ref_dir):
-    with pytest.raises(NotImplementedError, match="optimal"):
-        DiskStore(ref_dir, policy="optimal")
+    st = DiskStore(ref_dir, policy="optimal", lock_shards=4)
+    assert (st.policy, st.lock_shards) == ("optimal", 1)   # unsharded
+    st.close()
     for kw, what in ((dict(policy="mru"), "unknown cache policy"),
                      (dict(faults=FaultSpec(bitflip_rate=0.1)), "verify"),
                      (dict(io_threads=0), "io_threads must be >= 1")):

@@ -125,21 +125,23 @@ Phases, in order; any failure raises and the script exits nonzero:
      the counters reset just before each; finite logits; prefill ms,
      decode ms per step and tok/s;
   18. where mamba2-370m's serving time goes, as phase 12;
-  19. the spec files on the card: the nine ``benchmarks/specs/*.json``
+  19. the spec files on the card: the eleven ``benchmarks/specs/*.json``
      the port runs (``smoke_pallas``, ``smoke_pallas_devcache_disk``,
      ``smoke_pallas_edgecache``, ``train_pallas_outofcore``,
      ``smoke_pallas_overlap``, ``smoke_pallas_overlap_faults`` with
-     ``--steps 8``, ``smoke_pallas_optimal``, ``smoke_host`` and
-     ``smoke_disk_host``) through ``repro_torch.launch.train.main
+     ``--steps 8``, ``smoke_pallas_optimal``, ``smoke_host``,
+     ``smoke_disk_host``, ``smoke_pallas_overlap_obs`` with its files in a
+     temp directory, and ``smoke_pallas_isp``, the host backend over a
+     spawned storage process) through ``repro_torch.launch.train.main
      --spec ... --dataset reddit --steps 4``, each on the card and with
      ``--device cpu``, the model in float32 on both: finite losses within
      1e-5 of the CPU's, batch 0 of ``build_pipeline(spec)`` bit-equal
      between card and CPU, the kernels the spec implies launched (the
      cached ones where it has a device tier, ``neighbor_sample`` only
      without an edge tier, none on the host backend), a ``DiskStore``
-     opened where it says ``disk`` and, under ``optimal``, a replay lane
-     without errors or timeouts; ``smoke_pallas_overlap_obs`` refused
-     with its ROADMAP item;
+     (or the isp store) opened where it says ``disk``, a whole trace
+     where telemetry is on and, under ``optimal``, a replay lane without
+     errors or timeouts; ``smoke_isp`` refused with its ROADMAP item;
   20. the overlapped out-of-core path at full width: phase 8's command
      with ``--io-threads 4``, once synchronously and once with
      ``--prefetch 2 --overlap 1 --stage-depth 2 --plan-ahead 2``; batches
@@ -196,7 +198,27 @@ Phases, in order; any failure raises and the script exits nonzero:
      within 1e-4 of a 4-step CPU run (float32, as phase 19), lru and
      optimal losses equal; steps/s and consumer idle beside phases 5
      and 8 (the paper's Fig. 7 comparison);
-  25. a JSON line of the kernels' numbers (the GNN's per launch, with
+  25. telemetry: phase 20's overlapped command (4 pread threads) with and
+     without ``--trace-out --metrics-out --metrics-interval 0.5``, 3 runs
+     of each in turns: losses repr-equal; each trace JSON of complete and
+     metadata events only, with the ``sample``, ``resolve``, ``admit``,
+     ``consume.step``, ``devcache.plan`` and ``disk.pread`` spans (a
+     pread with its batch) on the ``overlap-*`` and ``consumer`` tracks;
+     the last JSONL snapshot with the store's hits, misses, bytes, hit
+     rate and retries and the device cache's hit rate; steps/s on and
+     off and their ratio (reported, not checked);
+  26. the ISP service.  a: phase 8's command with ``--store-mode isp``
+     (unix socket) against the local store: 8 batches (ids, features,
+     labels) and losses equal, the cached kernels launched as there,
+     batches 0-2's ids, ``trace.io`` and the requests and bytes the
+     client sent equal a CPU run's, the storage process exits 0; wire
+     bytes beside the server's bytes from flash.  b: the host backend
+     pushed down to the storage process at phase 24c's width (one
+     producer): no launch, losses equal 24c's local-store run, batches
+     0-2 equal the CPU's, exit 0; its steps/s beside 24c's.  c:
+     ``smoke_pallas_isp`` over the shm rings: losses equal the unix
+     socket's, exit 0;
+  27. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them), the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
@@ -279,8 +301,9 @@ OOC_TIER = CacheTierSpec.device(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
 PORTED_SPECS = ("smoke_pallas", "smoke_pallas_devcache_disk",
                 "smoke_pallas_edgecache", "train_pallas_outofcore",
                 "smoke_pallas_overlap", "smoke_pallas_overlap_faults",
-                "smoke_pallas_optimal", "smoke_host", "smoke_disk_host")
-REFUSED_SPEC, REFUSED_ITEM = "smoke_pallas_overlap_obs", 10
+                "smoke_pallas_optimal", "smoke_host", "smoke_disk_host",
+                "smoke_pallas_overlap_obs", "smoke_pallas_isp")
+REFUSED_SPEC, REFUSED_ITEM = "smoke_isp", 14
 SPEC_STEPS = 4
 # the chaos spec (faults, verify, a 2.5 s sample-lane stall at batch 4
 # against a 1 s lane timeout) and its fault-free twin, 8 steps each
@@ -320,6 +343,20 @@ ORACLE_FLAGS = ["--cache-policy", "optimal", "--cache-oracle-window", "8",
                 "--device-cache-oracle-window", "8"]
 RMAT_WINDOW, RMAT_STEPS = 4, 4
 HOST_CPU_STEPS, HOST_COMPARED = 4, 3
+# phase 25: phase 20's overlapped command with telemetry on and off, 3
+# runs of each in turns, and the JSONL snapshot interval; the spans and
+# lane tracks the trace must hold, and the metrics its last snapshot must
+OBS_RUNS = ("off", "on", "on", "off", "off", "on")
+OBS_INTERVAL = 0.5
+OBS_SPANS = ("sample", "resolve", "admit", "consume.step", "devcache.plan",
+             "disk.pread")
+OBS_LANES = ("overlap-sample", "overlap-resolve", "overlap-admit",
+             "consumer")
+OBS_METRICS = ("store.hits", "store.misses", "store.bytes_fetched",
+               "store.hit_rate", "devcache.hit_rate", "store.faults.retries")
+# phase 26: the ISP service's spec, and the longest AF_UNIX socket path
+ISP_SPEC = "smoke_pallas_isp"
+UNIX_PATH_MAX = 107
 DEVICE = "cuda"
 # LM serving: the arch, the entry point's batch, prompt and generation,
 # and the card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
@@ -1189,6 +1226,39 @@ def _spec_path(name: str) -> str:
     return os.path.join(HERE, "benchmarks", "specs", f"{name}.json")
 
 
+def isp_address(store_dir: str) -> str | None:
+    """None where the library's default socket, ``<store dir>/.isp.sock``,
+    fits AF_UNIX's path limit; else an explicit short path in the working
+    directory, said on the output."""
+    if len(os.path.join(store_dir, ".isp.sock").encode()) <= UNIX_PATH_MAX:
+        return None
+    addr = f".isp-smoke-{os.getpid()}.sock"
+    print(f"[smoke] the default socket under {store_dir} passes "
+          f"{UNIX_PATH_MAX} bytes: --isp-address {addr} in {os.getcwd()}")
+    return addr
+
+
+def _spec_in(spec, name: str, tmp: str):
+    """``spec`` with its telemetry files (the spec file names /tmp) and
+    its isp store in ``tmp``, and the entry point's flags that say the
+    same."""
+    d = spec.to_dict()
+    flags = []
+    if spec.obs.enabled:
+        d["obs"].update(trace_path=os.path.join(tmp, f"{name}.json"),
+                        metrics_path=os.path.join(tmp, f"{name}.jsonl"))
+        flags += ["--trace-out", d["obs"]["trace_path"], "--metrics-out",
+                  d["obs"]["metrics_path"]]
+    if spec.store.mode == "isp":
+        d["store"]["path"] = os.path.join(tmp, f"{name}-store")
+        flags += ["--store-dir", d["store"]["path"]]
+        addr = isp_address(d["store"]["path"])
+        if addr is not None:
+            d["store"]["isp"]["address"] = addr
+            flags += ["--isp-address", addr]
+    return PipelineSpec.from_dict(d), flags
+
+
 def spec_phase() -> dict:
     """Phase 19: the spec files the port runs, through the entry point on
     the card and on the CPU.  The model computes in float32 on both (in
@@ -1199,10 +1269,12 @@ def spec_phase() -> dict:
     train.GraphSAGE = functools.partial(real_sage,
                                         compute_dtype=torch.float32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-specs-")
     try:
         for name in PORTED_SPECS:
             path = _spec_path(name)
-            spec = PipelineSpec.load(path)
+            spec, flags = _spec_in(PipelineSpec.load(path), name,
+                                   tmp_dir.name)
             ids = {}
             for dev in (DEVICE, "cpu"):
                 with build_pipeline(spec, g, device=dev) as pipe:
@@ -1220,7 +1292,7 @@ def spec_phase() -> dict:
                     _, losses, lstats = train.main([
                         "--arch", "graphsage", "--spec", path, "--dataset",
                         "reddit", "--steps", str(steps), "--log-every",
-                        str(steps), "--device", dev])
+                        str(steps), "--device", dev, *flags])
                 runs[dev] = {"losses": losses,
                              "launches": dict(kernels.LAUNCHES),
                              "store": lstats.get("store", {}).get("kind"),
@@ -1255,8 +1327,15 @@ def spec_phase() -> dict:
                 for dev, r in runs.items():
                     _check_replay(r["oracle"], f"{name} on {dev}")
             disk = spec.store.kind == "disk" and (tier is not None or host)
-            check((card["store"] == "disk") == disk,
+            kind = "isp" if spec.store.mode == "isp" else "disk"
+            check((card["store"] == kind) == disk,
                   f"{name}: store {card['store']}, spec {spec.store.kind}")
+            if spec.obs.enabled:
+                # the CPU's run wrote the files last: a whole trace
+                with open(spec.obs.trace_path) as f:
+                    events = json.load(f)["traceEvents"]
+                check(events and {e["ph"] for e in events} <= {"X", "M"},
+                      f"{name}: trace events {events[:3]}")
             if spec.prefetch.overlap:
                 # the chaos spec's scheduled stall restarts its lanes
                 # (phase 21 checks that); no other spec may restart
@@ -1274,6 +1353,7 @@ def spec_phase() -> dict:
     finally:
         train.GraphSAGE = real_sage
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        tmp_dir.cleanup()
     path = _spec_path(REFUSED_SPEC)
     err = io.StringIO()
     code = None
@@ -2190,6 +2270,305 @@ def host_phase(argv_mem: list, reddit, mem: dict, ooc: dict) -> dict:
     return out
 
 
+def _check_trace(trace_path: str, metrics_path: str, what: str) -> dict:
+    """A telemetry-on run's files: a trace of complete and metadata events
+    only, with the pipeline's spans (disk preads attributed to batches)
+    and lane tracks, and a last JSONL snapshot with the store's and the
+    device cache's counters.  Returns what the trace and snapshot hold."""
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    check({e["ph"] for e in events} <= {"X", "M"},
+          f"{what}: event phases {sorted({e['ph'] for e in events})}")
+    spans: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            spans.setdefault(e["name"], []).append(e)
+    missing = [n for n in OBS_SPANS if not spans.get(n)]
+    check(not missing, f"{what}: no {missing} spans in {sorted(spans)}")
+    check(any(e.get("args", {}).get("batch") is not None
+              for e in spans["disk.pread"]),
+          f"{what}: no disk.pread span carries its batch")
+    lanes = {e["args"]["name"] for e in events if e["ph"] == "M"}
+    check(set(OBS_LANES) <= lanes, f"{what}: lanes {sorted(lanes)}")
+    with open(metrics_path) as f:
+        lines = f.read().splitlines()
+    snap = json.loads(lines[-1])["metrics"]
+    check(all(k in snap for k in OBS_METRICS)
+          and snap["store.bytes_fetched"] > 0,
+          f"{what}: last snapshot {sorted(snap)}")
+    return {"spans": {k: len(v) for k, v in spans.items()},
+            "lanes": sorted(lanes), "other": trace["otherData"],
+            "trace_mb": os.path.getsize(trace_path) / 1e6,
+            "snapshots": len(lines),
+            "last_snapshot": {k: snap[k] for k in OBS_METRICS}}
+
+
+def telemetry_phase(g, argv_ooc: list) -> dict:
+    """Phase 25: phase 20's overlapped out-of-core command with telemetry
+    on (``--trace-out/--metrics-out/--metrics-interval``) and off, 3 runs
+    of each in turns: losses repr-equal, the files whole, steps/s of
+    each beside the other."""
+    t0 = time.perf_counter()
+    runs: dict = {"on": [], "off": []}
+    files = []
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-obs-") as tmp:
+        sdir = os.path.join(tmp, "store")
+        save_graph(g, sdir)
+        argv = argv_ooc + ["--io-threads", str(PREAD_THREADS[0]),
+                           "--store-dir", sdir] + OVERLAP_FLAGS
+        print(f"[smoke] phase 25: train {' '.join(argv)}, with and without "
+              f"--trace-out/--metrics-out/--metrics-interval {OBS_INTERVAL}")
+        for k, mode in enumerate(OBS_RUNS):
+            extra = []
+            if mode == "on":
+                files.append((os.path.join(tmp, f"t{k}.json"),
+                              os.path.join(tmp, f"m{k}.jsonl")))
+                extra = ["--trace-out", files[-1][0], "--metrics-out",
+                         files[-1][1], "--metrics-interval",
+                         str(OBS_INTERVAL)]
+            r = _train_recorded(argv + extra, build_pipeline)
+            ls = r["loader"]
+            check(ls["prefetch_restarts"] == 0 and ls["degraded"] is False,
+                  f"phase 25 {mode}: {ls['prefetch_restarts']} restarts, "
+                  f"degraded {ls['degraded']}")
+            runs[mode].append(r)
+        losses = runs["off"][0]["losses"]
+        check(all(r["losses"] == losses for rs in runs.values() for r in rs),
+              "phase 25: losses differ: "
+              + str({m: [r["losses"] for r in rs] for m, rs in runs.items()}))
+        held = [_check_trace(t, m, f"phase 25 run {k}")
+                for k, (t, m) in enumerate(files)]
+    launches = _gnn(runs["on"][0]["launches"])
+    check(launches["neighbor_sample_cached"] > 0
+          and launches["feature_gather_cached"] > 0
+          and launches["feature_gather_rows"] > 0,
+          f"phase 25: launches {launches}")
+    sps = {m: [r["stats"].steps_per_s for r in rs] for m, rs in runs.items()}
+    med = {m: statistics.median(v) for m, v in sps.items()}
+    ratio = med["on"] / med["off"]
+    print(f"[smoke] phase 25: losses repr-equal in all 6 runs {losses}; "
+          f"traces {[round(h['trace_mb'], 1) for h in held]} MB, spans "
+          f"{[h['other']['spans'] for h in held]} (dropped "
+          f"{[h['other']['dropped'] for h in held]}), "
+          f"{held[0]['spans'].get('disk.pread')} disk.pread, snapshots "
+          f"{[h['snapshots'] for h in held]}; launches with telemetry on "
+          f"{launches}")
+    print(f"[smoke] phase 25: steps/s telemetry on {sps['on']} (median "
+          f"{med['on']:.4f}), off {sps['off']} (median {med['off']:.4f}): "
+          f"ratio {ratio:.4f}")
+    return {"argv": argv, "runs": OBS_RUNS, "losses": losses,
+            "steps_per_s": sps, "median": med, "ratio": ratio,
+            "idle_fraction": {m: [r["stats"].idle_fraction for r in rs]
+                              for m, rs in runs.items()},
+            "files": held, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def _keeping_procs(build, procs: list):
+    """``build_pipeline`` over an isp store that keeps each pipeline's
+    storage process in ``procs`` (its exit code is read after the run)."""
+    def built(*a, **kw):
+        pipe = build(*a, **kw)
+        procs.append(pipe.store.server_proc)
+        return pipe
+    return built
+
+
+def _recording_wire(build, into: list, procs: list):
+    """``_recording`` over an isp store: each batch's record also keeps
+    the client's wire counters just after it, and ``procs`` the storage
+    processes."""
+    rec = _keeping_procs(_recording(build, into), procs)
+
+    def built(*a, **kw):
+        pipe = rec(*a, **kw)
+        get = pipe.get_batch
+
+        def get_batch(idx, **kw2):
+            mb = get(idx, **kw2)
+            into[-1]["wire"] = pipe.store.isp_counters()
+            return mb
+
+        pipe.get_batch = get_batch
+        return pipe
+    return built
+
+
+def _wire_line(lstats: dict) -> dict:
+    """The run's wire totals beside the storage process's flash reads."""
+    st = lstats["store"]
+    return {"tx": st["isp"]["bytes_tx"], "rx": st["isp"]["bytes_rx"],
+            "requests": st["isp"]["requests"],
+            "flash": st["server"]["bytes_fetched"],
+            "commands": st["server_wire"]["commands"]}
+
+
+def isp_phase(reddit, argv_mem: list, argv_ooc: list, hosted: dict) -> dict:
+    """Phase 26: the ISP service on the card.  a: phase 8's command over
+    ``--store-mode isp`` against the local store; b: the host backend
+    pushed down at phase 24c's width; c: the shm transport at the spec's
+    width."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-isp-") as tmp:
+        # a: the device caches fetch their misses over the wire
+        sdir = os.path.join(tmp, "a")
+        addr = isp_address(sdir)
+        local_argv = argv_ooc + ["--store-dir", os.path.join(tmp, "local")]
+        isp_argv = argv_ooc + ["--store-dir", sdir, "--store-mode", "isp"] \
+            + (["--isp-address", addr] if addr else [])
+        print(f"[smoke] phase 26a: train {' '.join(isp_argv)}")
+        recs = {"local": [], "isp": []}
+        procs: list = []
+        loc = _train_recorded(local_argv, build_pipeline, recs["local"])
+        isp = _train_recorded(isp_argv,
+                              _recording_wire(build_pipeline, recs["isp"],
+                                              procs))
+        check(len(recs["isp"]) == 8 and len(recs["local"]) == 8,
+              "phase 26a: 8 batches each")
+        for a, b in zip(recs["local"], recs["isp"]):
+            check(all(torch.equal(x, y)
+                      for x, y in zip(a["tensors"], b["tensors"])),
+                  f"phase 26a: batch {a['idx']} differs local vs isp")
+        check(isp["losses"] == loc["losses"],
+              f"phase 26a: losses isp {isp['losses']} vs local "
+              f"{loc['losses']}")
+        n = _gnn(isp["launches"])
+        check(n["neighbor_sample_cached"] > 0
+              and n["feature_gather_cached"] > 0
+              and n == _gnn(loc["launches"]),
+              f"phase 26a: launches isp {n} vs local "
+              f"{_gnn(loc['launches'])}")
+        check(procs and procs[0].returncode == 0,
+              f"phase 26a: the storage process exited "
+              f"{procs[0].returncode if procs else None}")
+        # the CPU's run of the same command: batches 0-2's ids, trace.io
+        # and the requests and bytes the client sent after each (the
+        # replies' bytes hold the server's uptime in each STATS reply)
+        spec = train.parse_args(isp_argv + ["--device", "cpu"]).pipeline_spec
+        cpu = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            pipe = build_pipeline(spec, reddit, device="cpu")
+        try:
+            for i in range(HOST_COMPARED):
+                mb = pipe.get_batch(i)
+                cpu.append({"ids": [h.cpu() for h in mb.hop_ids],
+                            "io": mb.trace.io,
+                            "wire": pipe.store.isp_counters()})
+        finally:
+            pipe.close()
+        for i, (c, b) in enumerate(zip(cpu, recs["isp"])):
+            nh = len(c["ids"])
+            check(all(torch.equal(x.cpu(), y)
+                      for x, y in zip(b["tensors"][:nh], c["ids"]))
+                  and b["io"] == c["io"],
+                  f"phase 26a: batch {i}'s ids or counters card vs CPU")
+            want = {k: c["wire"][k] for k in ("requests", "bytes_tx")}
+            got = {k: b["wire"][k] for k in ("requests", "bytes_tx")}
+            check(got == want, f"phase 26a: batch {i}'s wire card {got} "
+                  f"vs CPU {want}")
+        wire = _wire_line(isp["loader"])
+        out["a"] = {"argv": isp_argv, "losses": isp["losses"],
+                    "steps_per_s": isp["stats"].steps_per_s,
+                    "idle_fraction": isp["stats"].idle_fraction,
+                    "local_steps_per_s": loc["stats"].steps_per_s,
+                    "launches": n, "wire": wire,
+                    "wire_per_batch": [b["wire"] for b in recs["isp"]],
+                    "cpu_wire": [c["wire"] for c in cpu]}
+        del recs
+        print(f"[smoke] phase 26a: 8 batches and losses equal the local "
+              f"store's, batches 0-{HOST_COMPARED - 1}'s ids, counters and "
+              f"sent wire equal the CPU's; launches {n}; "
+              f"{isp['stats'].steps_per_s:.4f} steps/s (local "
+              f"{loc['stats'].steps_per_s:.4f}), idle "
+              f"{isp['stats'].idle_fraction:.4f}; wire tx {wire['tx']} B, "
+              f"rx {wire['rx']} B against {wire['flash']} B from flash "
+              f"(rx/flash {wire['rx'] / max(wire['flash'], 1):.4f}), "
+              f"commands {wire['commands']}; server exit 0")
+
+        # b: the host backend's k-hop sample and gather pushed down
+        base = argv_mem[:argv_mem.index("--device")]
+        base[base.index("--backend") + 1] = "host"
+        one = os.path.join(tmp, "one_producer.json")
+        d = PipelineSpec().to_dict()
+        d["backend"].update(name="host", n_workers=1, straggler_factor=1e6)
+        with open(one, "w") as f:
+            f.write(PipelineSpec.from_dict(d).to_json())
+        bdir = os.path.join(tmp, "b")
+        addr = isp_address(bdir)
+        argv_b = ["--spec", one, *base, "--graph-store", "disk",
+                  "--cache-mb", str(OOC_CACHE_MB), "--store-dir", bdir,
+                  "--store-mode", "isp"] + (["--isp-address", addr]
+                                            if addr else [])
+        print(f"[smoke] phase 26b: train {' '.join(argv_b)}")
+        real_sage = train.GraphSAGE
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        train.GraphSAGE = functools.partial(real_sage,
+                                            compute_dtype=torch.float32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rec_b, procs_b = [], []
+        try:
+            r = _train_recorded(argv_b + ["--device", DEVICE],
+                                _recording_ids(_keeping_procs(
+                                    build_pipeline, procs_b), rec_b))
+        finally:
+            train.GraphSAGE = real_sage
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        check(not any(r["launches"].values()),
+              f"phase 26b: launched {r['launches']}")
+        check(r["losses"] == hosted["disk lru"]["losses"],
+              f"phase 26b: losses {r['losses']} vs phase 24c's local "
+              f"store {hosted['disk lru']['losses']}")
+        _same_batches(rec_b, _cpu_batches(argv_b, reddit, HOST_COMPARED),
+                      "phase 26b")
+        check(procs_b and procs_b[0].returncode == 0,
+              "phase 26b: the storage process did not exit 0")
+        wire_b = _wire_line(r["loader"])
+        st = r["stats"]
+        out["b"] = {"argv": argv_b, "losses": r["losses"],
+                    "steps_per_s": st.steps_per_s,
+                    "idle_fraction": st.idle_fraction,
+                    "mean_produce_s": r["loader"]["mean_produce_s"],
+                    "local_steps_per_s": hosted["disk lru"]["steps_per_s"],
+                    "wire": wire_b}
+        print(f"[smoke] phase 26b: host backend pushed down: "
+              f"{st.steps_per_s:.4f} steps/s, idle {st.idle_fraction:.4f}, "
+              f"mean produce {r['loader']['mean_produce_s']:.3f} s, against "
+              f"phase 24c's local store {hosted['disk lru']['steps_per_s']:.4f}"
+              f"; losses equal 24c's, batches 0-{HOST_COMPARED - 1} equal the "
+              f"CPU's; wire tx {wire_b['tx']} B, rx {wire_b['rx']} B against "
+              f"{wire_b['flash']} B from flash; server exit 0")
+
+        # c: the shared-memory rings at the spec's width
+        _, flags = _spec_in(PipelineSpec.load(_spec_path(ISP_SPEC)),
+                            ISP_SPEC, tmp)
+        runs_c = {}
+        for kind in ("unix", "shm"):
+            procs_c: list = []
+            extra = ["--isp-transport", "shm"] if kind == "shm" else []
+            runs_c[kind] = _train_recorded(
+                _spec_argv(ISP_SPEC, SPEC_STEPS, *flags, *extra),
+                _keeping_procs(build_pipeline, procs_c))
+            check(procs_c and procs_c[0].returncode == 0,
+                  f"phase 26c: {kind}: the storage process did not exit 0")
+        check(runs_c["shm"]["losses"] == runs_c["unix"]["losses"]
+              and runs_c["shm"]["loader"]["store"]["transport"] == "shm",
+              f"phase 26c: losses shm {runs_c['shm']['losses']} vs unix "
+              f"{runs_c['unix']['losses']}")
+        out["c"] = {k: {"losses": v["losses"],
+                        "steps_per_s": v["stats"].steps_per_s,
+                        "wire": _wire_line(v["loader"])}
+                    for k, v in runs_c.items()}
+        print(f"[smoke] phase 26c: {ISP_SPEC} over shm: losses equal unix's "
+              f"{runs_c['shm']['losses']}, wire "
+              f"{out['c']['shm']['wire']}; server exit 0")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[smoke] phase 26: {out['seconds']:.1f} s")
+    return out
+
+
 def _sdpa(q, k, v, **kw):
     """The library yardstick: one ``scaled_dot_product_attention`` call on
     q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) views, GQA by
@@ -3070,6 +3449,8 @@ def main() -> int:
     hosted = host_phase(argv, reddit, {"steps_per_s": stats.steps_per_s,
                                        "idle_fraction": stats.idle_fraction},
                         ooc | {"idle_fraction": ooc_stats.idle_fraction})
+    telemetry = telemetry_phase(reddit, argv_ooc)
+    isp = isp_phase(reddit, argv, argv_ooc, hosted)
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -3160,7 +3541,8 @@ def main() -> int:
                "ssm_serve_profile": ssm_prof,
                "specs": specs, "overlap": overlap, "faults": fault_run,
                "direct_io": dio, "resume": resumed, "oracle": oracle,
-               "host": hosted, "seconds": time.perf_counter() - t_all}
+               "host": hosted, "telemetry": telemetry, "isp": isp,
+               "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1)

@@ -21,7 +21,10 @@ serializable object:
   asks for a feature the port does not run yet (``check_ported`` names
   the ROADMAP item of each), opens the store the spec asks for (owning
   it, and any temp directory, for the lifetime of the returned
-  ``Pipeline``) and builds the loader.
+  ``Pipeline``): a ``DiskStore`` in-process, or under
+  ``store.mode='isp'`` a storage process (``repro_torch.isp``) and its
+  ``RemoteGraphStore``; installs the telemetry session of the ``obs``
+  node, and builds the loader.
 
 * ``add_pipeline_args`` / ``spec_from_args``: the launcher's data-plane
   flags, generated from ``FLAG_TABLE`` (each flag maps to a spec field),
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import tempfile
 from typing import Sequence
@@ -481,12 +485,8 @@ def check_ported(spec: PipelineSpec) -> None:
     missing = []
     if spec.backend.name == "isp":
         missing.append("backend 'isp' (ROADMAP item 14)")
-    if spec.store.mode == "isp":
-        missing.append("store.mode 'isp' (ROADMAP item 12)")
     if spec.engine != "none":
         missing.append(f"engine {spec.engine!r} (ROADMAP item 13)")
-    if spec.obs.enabled:
-        missing.append("obs (ROADMAP item 10)")
     if missing:
         raise NotImplementedError("not part of the port yet: "
                                   + "; ".join(missing))
@@ -502,14 +502,16 @@ class Pipeline:
     Implements the loader protocol by delegation, so it can be handed to
     ``build_train_step``/``train_loop``.  ``close`` releases the loader
     and any store or temp directory the pipeline created (a store the
-    caller passed is left open)."""
+    caller passed is left open), and finalizes the telemetry session."""
 
     def __init__(self, spec: PipelineSpec, loader, *, graph=None, store=None,
-                 owns_store: bool = False, tmpdir: str | None = None):
+                 owns_store: bool = False, tmpdir: str | None = None,
+                 obs_session=None):
         self.spec = spec
         self.loader = loader
         self.graph = graph
         self.store = store
+        self.obs = obs_session
         self.notes: list[str] = []
         self._owns_store = owns_store
         self._tmpdir = tmpdir
@@ -538,6 +540,9 @@ class Pipeline:
         s = self.spec
         bits = [f"backend={s.backend.name}", f"sampler={s.sampler.family}",
                 f"store={s.store.kind}"]
+        if s.store.mode == "isp":
+            bits.append(f"isp({s.store.isp.transport}, "
+                        f"window={s.store.isp.window})")
         if s.store.direct_io:
             bits.append("direct_io")
         if s.store.verify:
@@ -570,6 +575,10 @@ class Pipeline:
         try:
             self.loader.close()
         finally:
+            if self.obs is not None:
+                # flush the trace and the final metrics snapshot before
+                # the store (a collector source) goes away
+                self.obs.close()
             if self._owns_store and self.store is not None:
                 self.store.close()
             if self._tmpdir is not None:
@@ -590,8 +599,10 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
     data: a ``CSRGraph``, a ``GraphStore``, or both.  When the spec asks
     for a disk store and none was passed, the pipeline writes the graph
     into ``spec.store.path`` (or a temp directory it owns) and opens a
-    ``DiskStore`` with the host cache tier's budget and policy.  Returns
-    a ``Pipeline`` that owns exactly the resources it created."""
+    ``DiskStore`` with the host cache tier's budget and policy, or, under
+    ``store.mode='isp'``, spawns the storage process that owns it
+    (``_open_isp_store``).  Returns a ``Pipeline`` that owns exactly the
+    resources it created."""
     from repro_torch.core.graph import CSRGraph
 
     check_ported(spec)
@@ -636,14 +647,18 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
             if spec.store.io_threads is not None:
                 store_kw["io_threads"] = spec.store.io_threads
             try:
-                store = open_store(
-                    "disk", g=g, path=path,
-                    block_bytes=spec.store.block_bytes,
-                    cache_mb=None if host is None else host.capacity_mb,
-                    policy=None if host is None else host.policy,
-                    verify=spec.store.verify,
-                    direct_io=spec.store.direct_io, retry=spec.store.retry,
-                    faults=spec.store.faults, **store_kw)
+                if spec.store.mode == "isp":
+                    store = _open_isp_store(spec, g, path)
+                else:
+                    store = open_store(
+                        "disk", g=g, path=path,
+                        block_bytes=spec.store.block_bytes,
+                        cache_mb=None if host is None else host.capacity_mb,
+                        policy=None if host is None else host.policy,
+                        verify=spec.store.verify,
+                        direct_io=spec.store.direct_io,
+                        retry=spec.store.retry, faults=spec.store.faults,
+                        **store_kw)
             except BaseException:
                 if tmpdir is not None:
                     shutil.rmtree(tmpdir, ignore_errors=True)
@@ -651,18 +666,108 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
             owns_store = True
 
     from repro_torch.core.loader import _build_loader
+    obs_session = None
     try:
+        if spec.obs.enabled:
+            from repro_torch import obs
+            obs_session = obs.install(obs.ObsSession(
+                trace_path=spec.obs.trace_path,
+                metrics_path=spec.obs.metrics_path,
+                metrics_interval_s=spec.obs.metrics_interval_s))
         loader = _build_loader(spec, g=g, store=store, device=device)
     except BaseException:
+        if obs_session is not None:
+            obs_session.close()
         if owns_store:
             store.close()
         if tmpdir is not None:
             shutil.rmtree(tmpdir, ignore_errors=True)
         raise
+    if obs_session is not None:
+        # absorb the loader's counter surfaces (store I/O bill, cache
+        # tiers, oracle lane, lane supervisor) into every snapshot; all
+        # of them are host ints, so a snapshot never waits on the device
+        from repro_torch.obs import names as _names
+        obs_session.registry.register_collector(
+            lambda: _names.flatten_stats(loader.stats()))
     pipe = Pipeline(spec, loader, graph=g, store=store,
-                    owns_store=owns_store, tmpdir=tmpdir)
+                    owns_store=owns_store, tmpdir=tmpdir,
+                    obs_session=obs_session)
     pipe.notes = notes
     return pipe
+
+
+def _open_isp_store(spec: PipelineSpec, g, path: str):
+    """Spawn the storage process over ``path`` and return the trainer's
+    ``RemoteGraphStore`` view of it.
+
+    The layout is written trainer-side first (the one-time ingest any
+    real device would also need); the server then owns the DiskStore:
+    page cache, retry and fault machinery and CRC verification all run
+    in the storage process, and only command replies cross the wire.
+    The unix socket's default address is ``<path>/.isp.sock``."""
+    from repro_torch.isp.client import IspClient, RemoteGraphStore
+    from repro_torch.isp.server import spawn_server
+    from repro_torch.storage.store import MANIFEST, save_graph
+
+    if g is not None and not os.path.exists(os.path.join(path, MANIFEST)):
+        save_graph(g, path, block_bytes=spec.store.block_bytes)
+    isp = spec.store.isp
+    address = isp.address
+    if address is None:
+        if isp.transport == "unix":
+            address = os.path.join(path, ".isp.sock")
+        elif isp.transport == "shm":
+            address = f"isp-{os.getpid():x}"
+        else:
+            raise ValueError(
+                "store.isp.transport='tcp' needs an explicit "
+                "store.isp.address ('host:port')")
+    host = spec.host_cache_tier()
+    sstore: dict = {"path": path, "verify": spec.store.verify,
+                    "direct_io": spec.store.direct_io,
+                    "retry": dataclasses.asdict(spec.store.retry)}
+    if spec.store.lock_shards is not None:
+        sstore["lock_shards"] = spec.store.lock_shards
+    if spec.store.io_threads is not None:
+        sstore["io_threads"] = spec.store.io_threads
+    if spec.store.faults is not None:
+        sstore["faults"] = dataclasses.asdict(spec.store.faults)
+    if not isp.server_cache:
+        # worst-case-wire configuration: a nominal cache so (almost)
+        # every block read hits the backing files
+        sstore["cache_mb"] = 1.0
+    elif host is not None:
+        if host.capacity_mb is not None:
+            sstore["cache_mb"] = host.capacity_mb
+        sstore["policy"] = host.policy
+    config = {"transport": isp.transport, "address": address,
+              "store": sstore}
+    if spec.obs.enabled and (spec.obs.trace_path or spec.obs.metrics_path):
+        # the storage process writes its own telemetry next to the
+        # trainer's (the same files would clobber each other)
+        config["obs"] = {
+            "trace_path": spec.obs.trace_path
+            and spec.obs.trace_path + ".isp",
+            "metrics_path": spec.obs.metrics_path
+            and spec.obs.metrics_path + ".isp",
+            "metrics_interval_s": spec.obs.metrics_interval_s}
+    proc = spawn_server(config)
+    try:
+        client = IspClient(isp.transport, address, window=isp.window)
+    except Exception:
+        proc.kill()
+        proc.wait(timeout=5.0)
+        raise
+    store = RemoteGraphStore(client, server_proc=proc)
+    if g is not None and (store.name, store.num_nodes, store.num_edges,
+                          store.feat_dim) != (g.name, g.num_nodes,
+                                              g.num_edges, g.feat_dim):
+        store.close()
+        raise ValueError(
+            f"{path} holds graph {store.name!r}, not {g.name!r}; point "
+            "--store-dir elsewhere or remove the stale layout")
+    return store
 
 
 # ---------------------------------------------------------------------------
@@ -722,12 +827,38 @@ FLAG_TABLE = {
     "--store-dir": ("store.path", dict(
         help="directory for the on-disk graph layout (default: a fresh "
              "temp dir; reused if it already holds a manifest)")),
+    "--store-mode": ("store.mode", dict(
+        choices=STORE_MODES,
+        help="who serves the disk layout: 'local' opens the DiskStore "
+             "in-process; 'isp' spawns the in-storage processing "
+             "service — a storage process owning the store, with k-hop "
+             "sample+gather pushed down so only sampled bytes cross "
+             "the wire")),
     "--direct-io": ("store.direct_io", dict(
         type=int, choices=(0, 1), metavar="0|1",
         help="1 = open the disk store's backing files O_DIRECT (bypass "
              "the OS page cache; aligned preads into a pooled buffer), "
              "falling back to buffered reads where the filesystem "
              "refuses")),
+    "--isp-transport": ("store.isp.transport", dict(
+        choices=ISP_TRANSPORTS,
+        help="isp mode: command-queue transport — unix socket (default), "
+             "tcp, or shm (two SPSC shared-memory rings; single "
+             "connection, no reconnect)")),
+    "--isp-address": ("store.isp.address", dict(
+        metavar="ADDR",
+        help="isp mode: transport address (unix: socket path; tcp: "
+             "host:port; shm: segment name prefix; default derives from "
+             "the store directory)")),
+    "--isp-window": ("store.isp.window", dict(
+        type=int,
+        help="isp mode: pipelined in-flight command window (concurrent "
+             "producer round-trips overlap instead of serializing)")),
+    "--isp-server-cache": ("store.isp.server_cache", dict(
+        type=int, choices=(0, 1), metavar="0|1",
+        help="isp mode: 1 = the storage process runs the host cache "
+             "tier's page-cache budget/policy; 0 = minimal server "
+             "cache, every read hits the backing files")),
     "--lock-shards": ("store.lock_shards", dict(
         type=int,
         help="disk-store page-cache lock shards (default: storage spec; "
@@ -816,6 +947,20 @@ FLAG_TABLE = {
         type=float,
         help="device tier: fraction of the capacity staged permanently "
              "under the pinned policy")),
+    "--trace-out": ("obs.trace_path", dict(
+        metavar="PATH",
+        help="telemetry: write a Chrome/Perfetto trace-event JSON of "
+             "the run (pipeline lanes, consumer steps, disk preads) to "
+             "PATH; implies obs.enabled")),
+    "--metrics-out": ("obs.metrics_path", dict(
+        metavar="PATH",
+        help="telemetry: append periodic JSONL metrics snapshots "
+             "(canonical counter namespace: per-tier hit rates, I/O "
+             "bytes, faults) to PATH; implies obs.enabled")),
+    "--metrics-interval": ("obs.metrics_interval_s", dict(
+        type=float,
+        help="telemetry: seconds between JSONL metrics snapshots "
+             "(a final snapshot is always written at close)")),
 }
 
 #: argparse default marking "flag not given", distinguishable from an
@@ -837,9 +982,11 @@ def _spec_defaults() -> dict:
         rows=0, edge_blocks=0,
         pinned_fraction=DEFAULT.devcache.pinned_fraction,
         arrays=("features",), oracle_window=0)
-    # faults is None in the canonical spec; the flag paths need a scratch
-    # dict to write through (all-zero normalizes back to None)
+    # faults/isp are None in the canonical spec; the flag paths need
+    # scratch dicts to write through (faults: all-zero normalizes back to
+    # None; isp: dropped unless store.mode is 'isp')
     d["store"]["faults"] = dataclasses.asdict(FaultSpec())
+    d["store"]["isp"] = dataclasses.asdict(IspSpec())
     return d
 
 
@@ -913,10 +1060,13 @@ def spec_from_args(args) -> PipelineSpec:
         base = PipelineSpec.load(spec_path)
 
     tree = base.to_dict() if base is not None else PipelineSpec().to_dict()
-    # the faults flags need a dict to write through even when the base
-    # spec carries none (StoreSpec normalizes all-inactive faults to None)
+    # the faults/isp flags need a dict to write through even when the
+    # base spec carries none (StoreSpec normalizes all-inactive faults,
+    # and any isp config outside isp mode, back to None)
     if tree["store"].get("faults") is None:
         tree["store"]["faults"] = dict(defaults["store"]["faults"])
+    if tree["store"].get("isp") is None:
+        tree["store"]["isp"] = dict(defaults["store"]["isp"])
     # scratch dicts for the two tiers, seeded from the base spec's tiers
     cache = dict(defaults["cache"])
     devcache = dict(defaults["devcache"])

@@ -52,7 +52,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import kernels, rng
+from repro_torch import kernels, obs, rng
 from repro_torch.core.config import (BackendSpec, CacheTierSpec,
                                      PipelineSpec, PrefetchSpec, SamplerSpec,
                                      StoreSpec)
@@ -370,7 +370,10 @@ class HostSubgraphLoader(_LoaderBase):
         dev = self.device
         return Minibatch(
             targets=mb.targets,
-            hop_ids=[torch.from_numpy(np.asarray(h)) for h in mb.hop_ids],
+            # (a pushed-down batch's ids are read-only views of the
+            # reply's payload)
+            hop_ids=[torch.from_numpy(np.require(h, requirements="W"))
+                     for h in mb.hop_ids],
             hop_feats=[_to_device(np.asarray(f, np.float32), dev)
                        for f in mb.hop_feats],
             labels=_to_device(np.asarray(mb.labels, np.int32), dev),
@@ -518,6 +521,10 @@ class PallasSubgraphLoader(_LoaderBase):
         key = rng.fold_in(self._key, idx)
         make_ctx = getattr(self.store, "make_io_context", None)
         ctx = make_ctx() if make_ctx is not None else None
+        if ctx is not None:
+            # spans of pool preads issued on this batch's behalf inherit
+            # the attribution ctx, and with it the batch index
+            ctx.batch = idx
         io0 = _io_snapshot(self.store) if ctx is None else None
         edge0 = (self.edgecache.counters()
                  if self.edgecache is not None else None)
@@ -583,9 +590,11 @@ class PallasSubgraphLoader(_LoaderBase):
             try:
                 self.devcache.oracle_begin_batch(s["idx"])
                 with self._attr(s["ctx"]):
-                    plan = self.devcache.plan_rows(
-                        pad_pow2(uniq, uniq[-1]), n_valid=uniq.size)
-                    self.devcache.fetch_plan(plan)
+                    with obs.trace_span("devcache.plan", batch=s["idx"]):
+                        plan = self.devcache.plan_rows(
+                            pad_pow2(uniq, uniq[-1]), n_valid=uniq.size)
+                    with obs.trace_span("devcache.fetch", batch=s["idx"]):
+                        self.devcache.fetch_plan(plan)
                 s["plan"] = plan
             except _store.StoreReadError as e:
                 self._note_devcache_failure(e)
@@ -608,7 +617,8 @@ class PallasSubgraphLoader(_LoaderBase):
                 if self._devcache_bypass:
                     plan = None
                 else:
-                    rows = self.devcache.execute_plan(plan)
+                    with obs.trace_span("devcache.install", batch=s["idx"]):
+                        rows = self.devcache.execute_plan(plan)
                     self.dispatches["feature_segments"] += len(
                         plan.segments)
             if plan is None:
@@ -764,16 +774,19 @@ def train_loop(loader, train_step, state, *, steps: int, start: int = 0,
     t_start = time.perf_counter()
     for i in range(start, steps):
         t0 = time.perf_counter()
-        mb = loader.get_batch(i)
+        with obs.trace_span("consume.wait", batch=i, lane="consumer"):
+            mb = loader.get_batch(i)
         t1 = time.perf_counter()
-        state, metrics = train_step(state, mb)
-        # kernels run asynchronously: without the wait, device time would
-        # fall into the next step's idle window
-        _block_until_ready(metrics)
+        with obs.trace_span("consume.step", batch=i, lane="consumer"):
+            state, metrics = train_step(state, mb)
+            # kernels run asynchronously: without the wait, device time
+            # would fall into the next step's idle window
+            _block_until_ready(metrics)
         t2 = time.perf_counter()
         stats.idle_s += t1 - t0
         stats.busy_s += t2 - t1
         stats.steps += 1
+        obs.tick()                   # periodic JSONL metrics snapshot
         if on_step is not None:
             on_step(i, state, metrics)
     stats.wall_s = time.perf_counter() - t_start

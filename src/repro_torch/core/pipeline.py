@@ -36,10 +36,10 @@ none of these paths.
 ``OverlappedLoader(stall_inject=)`` schedules one sample-lane stall
 (``FaultSpec.lane_stall``), which drives the watchdog's restart; after
 it the lanes' new streams replay the batches in order, and an orphaned
-lane's work lands in its dead generation.  Not ported yet: the lanes'
-trace spans come with telemetry (ROADMAP item 10), and
-``make_host_producer``'s push-down branch for a store with
-``sample_khop_pushdown`` comes with the ISP service (item 12).
+lane's work lands in its dead generation.  With telemetry on, each
+stage of each batch is a span on its lane's track (``overlap-sample``,
+``overlap-resolve``, ``overlap-admit``): host time, which on a lane's
+CUDA stream is the enqueue, not the device time.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.loader import Minibatch, batch_targets
 from repro_torch.core.sampler import (DEFAULT_FANOUTS, _io_delta,
                                       _io_snapshot, sample_khop,
@@ -90,13 +91,28 @@ def make_host_producer(store, batch_size: int, fanouts=DEFAULT_FANOUTS,
     GraphSAINT walks of ``walk_length`` steps (one (M, L+1) hop tensor).
     An optimal-policy store rolls its Belady schedule forward before the
     batch's reads (``oracle_advance``).  The producer touches only numpy
-    and the store."""
+    and the store.
+
+    A store exposing ``sample_khop_pushdown`` (the in-storage processing
+    service's ``RemoteGraphStore``) gets the whole k-hop sample and gather
+    pushed down as one fused command: the storage process runs the
+    expansion against its local blocks and replies with the sampled
+    subgraph only, bit-identical to the host-side path at equal seeds,
+    with the batch's storage-side I/O bill in the trace."""
+    pushdown = getattr(store, "sample_khop_pushdown", None) \
+        if sampler == "khop" else None
 
     def produce(batch_idx: int) -> Minibatch:
         adv = getattr(store, "oracle_advance", None)
         if adv is not None:
             adv(batch_idx)
         targets = batch_targets(store, batch_idx, batch_size, seed)
+        if pushdown is not None:
+            trace, hop_feats, labels = pushdown(targets, fanouts,
+                                                seed=seed + batch_idx)
+            return Minibatch(targets=targets, hop_ids=list(trace.hops),
+                             hop_feats=hop_feats, labels=labels,
+                             trace=trace)
         io0 = _io_snapshot(store)
         if sampler == "saint":
             trace = saint_random_walk(store, targets, walk_length,
@@ -531,7 +547,8 @@ class OverlappedLoader:
                         warmed_to += 1
                 t0 = time.perf_counter()
                 try:
-                    payload = fn(idx)
+                    with obs.trace_span(name, batch=idx):
+                        payload = fn(idx)
                     item = (idx, payload, None, _mark(self._device))
                 except BaseException as e:      # surfaced on the consumer
                     item = (idx, None, e, None)
@@ -558,7 +575,8 @@ class OverlappedLoader:
                     t0 = time.perf_counter()
                     try:
                         _receive(payload, event, self._device)
-                        payload = fn(payload)
+                        with obs.trace_span(name, batch=idx):
+                            payload = fn(payload)
                         event = _mark(self._device)
                     except BaseException as e:
                         payload, err, event = None, e, None

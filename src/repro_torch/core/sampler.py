@@ -18,6 +18,10 @@ kernels, ``kernels.ops``):
   sampler's stream is replayed with the port's threefry
   (``repro_torch.rng``), bit-equal to ``jax.random``'s, on the CPU.
 
+The module imports numpy only (the threefry, which runs on torch
+tensors, is imported where the replay needs it), so the storage process
+of the ISP service (``repro_torch.isp.server``) samples without torch.
+
 Sampling is uniform with replacement among each node's neighbours; a
 node without neighbours samples itself.
 """
@@ -27,8 +31,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-
-from repro_torch import rng as _rng
 
 DEFAULT_FANOUTS = (25, 10)   # paper default: 25 then 10 per layer
 
@@ -172,6 +174,7 @@ def replay_khop_jax_ids(indptr: np.ndarray, read_indices, targets, fanouts,
     as ``kernels.ops.sample_khop_kernel`` does on the device, so the ids
     equal the live path's.  ``rand_shape_fn(frontier, fanout)`` overrides
     the draw's shape (the bits do not depend on it)."""
+    from repro_torch import rng as _rng
     hops = [np.asarray(targets, np.int32)]
     frontier = hops[0]
     for i, f in enumerate(fanouts):

@@ -37,6 +37,16 @@ on GraphSAINT walks):
       --dataset reddit --batch 1024 --fanouts 25,10 --hidden 256 \\
       --graph-store disk --cache-mb 4 --steps 8
 
+``--store-mode isp`` serves the disk layout from a storage process of its
+own (the in-storage processing service, ``repro_torch.isp``, over a unix
+socket at ``<store dir>/.isp.sock`` unless ``--isp-address`` says
+otherwise): the host backend pushes its k-hop sampling and gathers down
+to it, and the pallas backend's device caches fetch their misses through
+it.  ``--trace-out t.json --metrics-out m.jsonl`` write a Perfetto trace
+of the lanes, the consumer and the disk reads, and JSONL snapshots of the
+canonical counters (``repro_torch.obs``); every GNN run ends with the
+``[obs] epoch summary`` table.
+
 An LM of the dense family (qwen2-0.5b at full width, 4 x 4096 tokens a
 step), attention through the flash forward and backward kernels:
 
@@ -52,11 +62,9 @@ reference's names and defaults, with one exception: ``--backend``
 offers ``host`` and ``pallas`` and defaults to ``pallas``, where the
 reference's launcher sets ``isp``, the mesh backend that the port does
 not have yet (ROADMAP item 14).  The table holds only the flags of what
-the port runs, fault injection (``--fault-*``), ``--direct-io``, the
-``optimal`` policies with their ``--*-oracle-window`` and ``--sampler``
-with ``--walk-length`` included: the flags of ISP mode, storage engines
-and telemetry are unknown to it, and a ``--spec`` file that asks for one
-of these features is refused with the ROADMAP item that brings it.
+the port runs: the storage engines' ``--storage-engine`` is unknown to
+it, and a ``--spec`` file that asks for an engine or the mesh backend is
+refused with the ROADMAP item that brings it.
 Every run goes through
 ``core.config.build_pipeline``: ``--graph-store disk`` writes the
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
@@ -94,7 +102,7 @@ import time
 import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch import kernels
+from repro_torch import kernels, obs
 from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE, PipelineSpec,
                               add_pipeline_args, build_pipeline,
                               build_train_step, check_ported,
@@ -240,7 +248,14 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
               f"{pipe.describe()}, batch={spec.batch_size} "
               f"fanouts={spec.sampler.fanouts} on {where}")
         store = pipe.store
-        if store is not None:
+        if store is not None and getattr(store, "kind", None) == "isp":
+            c = store.client
+            print(f"[train] graph store: in-storage processing service at "
+                  f"{c.kind}:{c.address} (pid "
+                  f"{store.server_proc.pid if store.server_proc else '-'}, "
+                  f"window={c.window}, block {store.block_bytes} B) — "
+                  "sample+gather pushed down to the storage process")
+        elif store is not None:
             print(f"[train] graph store: disk at {store.path} "
                   f"({store.nbytes_on_disk() / 2**20:.1f} MB on disk, "
                   f"page cache {store.cache_blocks} x {store.block_bytes} B "
@@ -292,6 +307,19 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
               f"({stats.steps_per_s:.2f} steps/s, consumer idle "
               f"{stats.idle_fraction:.1%}) loader={loader_stats}")
         print(f"[train] kernel launches: {dict(kernels.LAUNCHES)}")
+        # the per-epoch summary table, rendered from the canonical metric
+        # namespace (repro_torch.obs.names)
+        metrics = obs.names.flatten_stats(loader_stats)
+        metrics.update(obs.names.train_metrics(
+            stats.steps, stats.idle_s, stats.busy_s, stats.steps_per_s,
+            stats.idle_fraction))
+        print(obs.epoch_summary(metrics))
+        if pipe.obs is not None:
+            if spec.obs.trace_path:
+                print(f"[obs] trace -> {spec.obs.trace_path} "
+                      "(open at https://ui.perfetto.dev)")
+            if spec.obs.metrics_path:
+                print(f"[obs] metrics snapshots -> {spec.obs.metrics_path}")
         if spec.prefetch.depth:
             ls = loader_stats
             print(f"[train] lanes: stages {ls.get('stages', ['produce'])}, "
@@ -318,6 +346,14 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                   f"({io['bytes_fetched'] / 2**20:.1f} MB from disk), "
                   f"cache hits={io['hits']} misses={io['misses']} "
                   f"evictions={io['evictions']}")
+            if getattr(store, "kind", None) == "isp":
+                w = store.isp_counters()
+                print(f"[train] isp wire: {w['requests']} commands, "
+                      f"{w['bytes_tx'] / 2**20:.2f} MB tx / "
+                      f"{w['bytes_rx'] / 2**20:.2f} MB rx "
+                      f"(vs {io['bytes_fetched'] / 2**20:.1f} MB read from "
+                      f"flash server-side), disconnects={w['disconnects']} "
+                      f"reconnects={w['reconnects']}")
         return stats, [float(x) for x in losses], loader_stats
     finally:
         # a failed or interrupted run must not leak fds, lanes or the temp

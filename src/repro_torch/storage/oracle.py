@@ -25,9 +25,9 @@ The schedule is advisory and window-local: an entry not reused inside
 the window carries ``FAR_NEXT_USE``, and a replay failure leaves the
 caches without a schedule (exact LRU order), never with wrong data, since
 the policy only decides which entries stay resident.  The replay lane
-runs numpy and the CPU threefry only: it makes no CUDA call.  The
-reference's ``oracle.window`` trace span comes with telemetry (ROADMAP
-item 10).
+runs numpy and the CPU threefry only: it makes no CUDA call.  With
+telemetry on, each window's replay is an ``oracle.window`` span on the
+lane's track.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import numpy as np
 
 from repro_torch import rng
 from repro_torch.core import sampler as sampler_mod
+from repro_torch.obs import session as obs_session
 from repro_torch.storage.blockdev import FAR_NEXT_USE
 
 
@@ -214,7 +215,8 @@ class OracleReplayer:
                     return
                 w = self._queue.pop(0)
             try:
-                self._compute(w)
+                with obs_session.trace_span("oracle.window", window=w):
+                    self._compute(w)
             except Exception as e:          # soft failure: LRU order
                 with self._cv:
                     self._errors += 1

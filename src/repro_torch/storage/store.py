@@ -36,8 +36,9 @@ Under ``optimal`` the schedule arrives through the oracle hooks
 replay lane (``storage.oracle``) that reads the edge array through
 ``read_indices_at`` (retry- and CRC-protected, bypassing the page cache
 and its counters) and maps a replayed batch's reads to page ids with
-``replay_block_ids``.  Not part of the port yet: the trace spans, which
-come with telemetry (ROADMAP item 10).
+``replay_block_ids``.  With telemetry on (``obs``), every block read is
+a ``disk.pread`` span (``disk.retry`` after the first attempt), carrying
+the batch of the ``IOContext`` it bills to.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import numpy as np
 
 from repro_torch.core.graph import CSRGraph, read_edge_blocks
 from repro_torch.obs import names as obs_names
+from repro_torch.obs import session as obs_session
 from repro_torch.storage.blockdev import (LRUCache, OracleCache,
                                           select_pinned_blocks)
 from repro_torch.storage.faults import FaultInjector, FaultSpec
@@ -173,16 +175,19 @@ class IOContext:
     (``DiskStore.io_attribution``) merge into it, including reads the
     store's pread pool runs on other threads on the installer's behalf.
     Fault keys are flat here; ``nest_fault_counters`` folds them into
-    ``io["faults"]`` at trace assembly."""
+    ``io["faults"]`` at trace assembly.  ``batch`` (set by the loader) is
+    the batch index the scope's reads belong to, which pool-thread pread
+    spans inherit."""
 
     FAULT_KEYS = obs_names.FAULT_KEYS
     KEYS = obs_names.STORE_IO_KEYS + FAULT_KEYS
 
-    __slots__ = ("_lock", "_c")
+    __slots__ = ("_lock", "_c", "batch")
 
     def __init__(self):
         self._lock = threading.Lock()
         self._c = dict.fromkeys(self.KEYS, 0)
+        self.batch: int | None = None
 
     def add(self, **deltas) -> None:
         with self._lock:
@@ -553,6 +558,11 @@ class DiskStore:
         r = self.retry
         faults: dict[str, int] = {}
         last: Exception | None = None
+        # pread spans inherit the submitting batch through the IOContext
+        # (the pool runs under the submitter's ctx); resolved once per
+        # fetch, only when tracing is on
+        span_batch = (self._current_ctx().batch
+                      if obs_session.tracing() else None)
 
         def note(kind):
             faults[kind] = faults.get(kind, 0) + 1
@@ -561,12 +571,16 @@ class DiskStore:
             t0 = time.perf_counter()
             data = None
             try:
-                if self._injector is not None:
-                    data = self._injector.read(
-                        lambda: self._read_block_raw(key, block),
-                        key, block, attempt)
-                else:
-                    data = self._read_block_raw(key, block)
+                with obs_session.trace_span(
+                        "disk.pread" if attempt == 0 else "disk.retry",
+                        array=key, block=int(block), attempt=attempt,
+                        batch=span_batch):
+                    if self._injector is not None:
+                        data = self._injector.read(
+                            lambda: self._read_block_raw(key, block),
+                            key, block, attempt)
+                    else:
+                        data = self._read_block_raw(key, block)
             except OSError as e:
                 last = e
                 note("io_errors")

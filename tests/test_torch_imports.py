@@ -43,7 +43,12 @@ PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
                 "repro_torch.optim", "repro_torch.optim.adamw",
                 "repro_torch.optim.schedules", "repro_torch.core.config",
                 "repro_torch.core.pipeline", "repro_torch.storage.faults",
-                "repro_torch.checkpoint", "repro_torch.checkpoint.store")
+                "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+                "repro_torch.obs", "repro_torch.obs.metrics",
+                "repro_torch.obs.tracer", "repro_torch.obs.session",
+                "repro_torch.obs.summary", "repro_torch.isp",
+                "repro_torch.isp.protocol", "repro_torch.isp.transport",
+                "repro_torch.isp.server", "repro_torch.isp.client")
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -116,5 +121,45 @@ def test_cli_rejects_flags_of_later_slices():
                 "--backend", "isp"])
     assert out.returncode == 2 and "invalid choice" in out.stderr
     out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-                "--graph-store", "disk", "--trace-out", "x"])
+                "--graph-store", "disk", "--storage-engine", "mmap"])
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr
+
+
+def test_isp_server_process_imports_numpy_only(tmp_path):
+    """``python -m repro_torch.isp.server`` as the pipeline spawns it: it
+    serves a client and exits 0 at SHUTDOWN, having imported neither
+    jax, nor ``repro``, nor torch (``-X importtime`` lists every module
+    the process imported)."""
+    import json
+
+    from repro_torch.core import load_dataset
+    from repro_torch.isp.client import IspClient
+    from repro_torch.isp.protocol import Command
+    from repro_torch.storage import save_graph
+
+    save_graph(load_dataset("reddit"), str(tmp_path / "g"))
+    sock = str(tmp_path / "s.sock")
+    config = {"transport": "unix", "address": sock,
+              "store": {"path": str(tmp_path / "g")}}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m", "repro_torch.isp.server",
+         "--config", json.dumps(config)], env=env,
+        stdin=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        client = IspClient("unix", sock, window=2)
+        assert client.hello["num_nodes"] == 1024
+        client.call(Command.SHUTDOWN)
+        client.close()
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=10)
+    assert proc.returncode == 0, err
+    mods = {line.rsplit("|", 1)[-1].strip()
+            for line in err.splitlines() if line.startswith("import time:")}
+    assert {"repro_torch.isp.protocol", "repro_torch.storage.store",
+            "repro_torch.core.sampler", "numpy"} <= mods
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "repro", "torch")]
+    assert not bad, bad

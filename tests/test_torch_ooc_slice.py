@@ -289,27 +289,28 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--overlap", "1"],
                                    ["--prefetch", "-1"],
-                                   ["--spec", "obs.json"],
+                                   ["--spec", "engine.json"],
                                    ["--fault-eio", "1.5"],
                                    ["--storage-engine", "mmap"],
-                                   ["--store-mode", "isp"],
+                                   ["--backend", "isp"],
                                    ["--cache-policy", "optimal"],
                                    ["--device-cache-policy", "optimal"],
                                    ["--device-cache-oracle-window", "4"],
-                                   ["--trace-out", "t.json"],
+                                   ["--storage-engine", "isp_oracle"],
                                    ["--device-cache-pinned-fraction", "2"],
                                    ["--io-retries", "0"]])
 def test_cli_rejects_deferred_and_invalid_flags(flags, capsys, tmp_path):
-    """Flags of later items are unknown, invalid values fail validation
-    (``--overlap 1`` needs ``--prefetch``, an ``optimal`` tier needs its
-    oracle window and a window needs ``optimal``), and a spec file that
-    names a later feature is refused with its item."""
+    """Flags and choices of later items (the storage engines, item 13;
+    the mesh backend, item 14) are unknown, invalid values fail
+    validation (``--overlap 1`` needs ``--prefetch``, an ``optimal`` tier
+    needs its oracle window and a window needs ``optimal``), and a spec
+    file that names a later feature is refused with its item."""
     if flags[0] == "--spec":
         spec = tmp_path / flags[1]
         spec.write_text(port_config.PipelineSpec(
             backend=port_config.BackendSpec(name="pallas"),
             store=port_config.StoreSpec(kind="disk"),
-            obs=port_config.ObsSpec(enabled=True)).to_json())
+            engine="mmap").to_json())
         flags = ["--spec", str(spec)]
     with pytest.raises(SystemExit) as e:
         port_train.parse_args(["--device", "cpu", "--graph-store", "disk",
@@ -318,7 +319,7 @@ def test_cli_rejects_deferred_and_invalid_flags(flags, capsys, tmp_path):
     err = capsys.readouterr().err
     assert "error:" in err
     if flags[0] == "--spec":
-        assert "ROADMAP item 10" in err
+        assert "ROADMAP item 13" in err
 
 
 def test_cli_defaults_are_the_references():

@@ -7,10 +7,11 @@ manifest's ``pipeline_spec`` load to equal dicts in both packages;
 generated flags build equal specs from a table of argvs, with and without
 ``--spec``; the four specs the port runs without overlap give hop ids,
 features, labels and every per-batch ``trace.io`` counter bit-equal to the
-reference's ``build_pipeline`` over the same spec on reddit; the three it
-does not run yet are refused, before anything is opened, with the ROADMAP
-item each waits on, and the three of those six that the oracle and host
-slice brought in parse and build.
+reference's ``build_pipeline`` over the same spec on reddit; the one it
+does not run yet (``smoke_isp``) is refused, before anything is opened,
+with the ROADMAP item it waits on, and the five specs of the later
+slices that the port runs now (oracle, host backend, telemetry, the ISP
+service) parse and build.
 """
 
 import argparse
@@ -40,11 +41,12 @@ SPEC_FILES = sorted(Path(p).stem for p in glob.glob(str(SPEC_DIR / "*.json")))
 PORTED = ("smoke_pallas", "smoke_pallas_devcache_disk",
           "smoke_pallas_edgecache", "train_pallas_outofcore",
           "smoke_pallas_overlap", "smoke_pallas_overlap_faults",
-          "smoke_pallas_optimal", "smoke_host", "smoke_disk_host")
+          "smoke_pallas_optimal", "smoke_host", "smoke_disk_host",
+          "smoke_pallas_overlap_obs", "smoke_pallas_isp")
 #: spec file -> the ROADMAP item it waits on
-REFUSED = {"smoke_isp": 14, "smoke_pallas_isp": 12,
-           "smoke_pallas_overlap_obs": 10}
-#: the specs refused before the oracle and host backend were ported
+REFUSED = {"smoke_isp": 14}
+#: the specs refused before the oracle, the host backend, telemetry and
+#: the ISP service were ported
 LATER = ("smoke_host", "smoke_disk_host", "smoke_isp", "smoke_pallas_isp",
          "smoke_pallas_optimal", "smoke_pallas_overlap_obs")
 
@@ -218,10 +220,7 @@ def test_flag_table_is_the_references_for_the_ported_fields():
             want["choices"] = narrowed[flag]
         assert _kwargs(kw) == _kwargs(want), flag
     later = set(ref) - set(port_config.FLAG_TABLE)
-    assert later == {
-        "--storage-engine", "--store-mode", "--isp-transport",
-        "--isp-address", "--isp-window", "--isp-server-cache",
-        "--trace-out", "--metrics-out", "--metrics-interval"}
+    assert later == {"--storage-engine"}
 
 
 def _parse(config, argv):
@@ -358,13 +357,17 @@ def test_ported_specs_match_reference(reddit, name):
 
 @pytest.mark.parametrize("name", LATER)
 def test_later_specs_are_refused_before_anything_opens(name, monkeypatch,
-                                                       capsys):
+                                                       capsys, tmp_path):
     import repro_torch.storage.store as port_store
 
     if name not in REFUSED:
         # ported since: the spec parses and builds, and a batch comes out
+        # (the telemetry spec's files go to the test's directory)
+        files = (["--trace-out", str(tmp_path / "t.json"), "--metrics-out",
+                  str(tmp_path / "m.jsonl")]
+                 if name == "smoke_pallas_overlap_obs" else [])
         args = port_train.parse_args(["--device", "cpu", "--spec",
-                                      _path(name)])
+                                      _path(name), *files])
         g = load_dataset("reddit")
         with port_config.build_pipeline(args.pipeline_spec, g,
                                         device="cpu") as pipe:
@@ -373,6 +376,8 @@ def test_later_specs_are_refused_before_anything_opens(name, monkeypatch,
             assert mb.hop_feats[-1].shape == (
                 args.pipeline_spec.batch_size,
                 *args.pipeline_spec.sampler.fanouts, g.feat_dim)
+        if files:
+            assert (tmp_path / "t.json").exists()
         return
 
     def opened(*a, **kw):

@@ -125,23 +125,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      the counters reset just before each; finite logits; prefill ms,
      decode ms per step and tok/s;
   18. where mamba2-370m's serving time goes, as phase 12;
-  19. the spec files on the card: the eleven ``benchmarks/specs/*.json``
-     the port runs (``smoke_pallas``, ``smoke_pallas_devcache_disk``,
+  19. the spec files on the card: all twelve ``benchmarks/specs/*.json``
+     (``smoke_pallas``, ``smoke_pallas_devcache_disk``,
      ``smoke_pallas_edgecache``, ``train_pallas_outofcore``,
      ``smoke_pallas_overlap``, ``smoke_pallas_overlap_faults`` with
      ``--steps 8``, ``smoke_pallas_optimal``, ``smoke_host``,
      ``smoke_disk_host``, ``smoke_pallas_overlap_obs`` with its files in a
-     temp directory, and ``smoke_pallas_isp``, the host backend over a
-     spawned storage process) through ``repro_torch.launch.train.main
+     temp directory, ``smoke_pallas_isp``, the host backend over a
+     spawned storage process, and ``smoke_isp``, the mesh ISP backend)
+     through ``repro_torch.launch.train.main
      --spec ... --dataset reddit --steps 4``, each on the card and with
      ``--device cpu``, the model in float32 on both: finite losses within
      1e-5 of the CPU's, batch 0 of ``build_pipeline(spec)`` bit-equal
      between card and CPU, the kernels the spec implies launched (the
      cached ones where it has a device tier, ``neighbor_sample`` only
-     without an edge tier, none on the host backend), a ``DiskStore``
-     (or the isp store) opened where it says ``disk``, a whole trace
-     where telemetry is on and, under ``optimal``, a replay lane without
-     errors or timeouts; ``smoke_isp`` refused with its ROADMAP item;
+     without an edge tier, none on the host and isp backends), a
+     ``DiskStore`` (or the isp store) opened where it says ``disk``, a
+     whole trace where telemetry is on and, under ``optimal``, a replay
+     lane without errors or timeouts;
   20. the overlapped out-of-core path at full width: phase 8's command
      with ``--io-threads 4``, once synchronously and once with
      ``--prefetch 2 --overlap 1 --stage-depth 2 --plan-ahead 2``; batches
@@ -218,7 +219,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      0-2 equal the CPU's, exit 0; its steps/s beside 24c's.  c:
      ``smoke_pallas_isp`` over the shm rings: losses equal the unix
      socket's, exit 0;
-  27. a JSON line of the kernels' numbers (the GNN's per launch, with
+  27. the mesh ISP backend: phase 5's command with ``--backend isp`` at
+     ``--devices 1`` and ``--devices 4`` (four shards on the one card)
+     against ``--backend pallas``: losses equal (``==``), batch 0's hop
+     ids and features bit-equal, no kernel launched by the isp runs;
+     steps/s of the three side by side, and the peak device memory of
+     each; then phase 8's command with ``--storage-engine isp``: a
+     simulated storage delay above 0, losses and launches equal phase
+     8's;
+  28. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them), the card line, and the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
@@ -227,11 +236,9 @@ It needs one CUDA device and exits nonzero without one.  Details go to
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import functools
-import io
 import json
 import math
 import os
@@ -295,15 +302,13 @@ RMAT_NODES, RMAT_EDGES = 1 << 18, 1 << 23
 OOC_CACHE_MB, OOC_ROWS, OOC_BLOCKS, OOC_POLICY = 4, 4096, 128, "pinned"
 OOC_TIER = CacheTierSpec.device(rows=OOC_ROWS, edge_blocks=OOC_BLOCKS,
                                 policy=OOC_POLICY)
-# the spec files the port runs (phase 19), one it refuses and the
-# ROADMAP item that one waits on; the overlapped run's flags (phase 20)
-# and the timed runs of each mode
+# the spec files (phase 19); the overlapped run's flags (phase 20) and
+# the timed runs of each mode
 PORTED_SPECS = ("smoke_pallas", "smoke_pallas_devcache_disk",
                 "smoke_pallas_edgecache", "train_pallas_outofcore",
                 "smoke_pallas_overlap", "smoke_pallas_overlap_faults",
                 "smoke_pallas_optimal", "smoke_host", "smoke_disk_host",
-                "smoke_pallas_overlap_obs", "smoke_pallas_isp")
-REFUSED_SPEC, REFUSED_ITEM = "smoke_isp", 14
+                "smoke_pallas_overlap_obs", "smoke_pallas_isp", "smoke_isp")
 SPEC_STEPS = 4
 # the chaos spec (faults, verify, a 2.5 s sample-lane stall at batch 4
 # against a 1 s lane timeout) and its fault-free twin, 8 steps each
@@ -1313,8 +1318,9 @@ def spec_phase() -> dict:
             host = spec.backend.name == "host"
             feats = tier is not None and "features" in tier.arrays
             edges = tier is not None and "topology" in tier.arrays
-            if host:
-                # the host backend prepares batches in numpy
+            if spec.backend.name in ("host", "isp"):
+                # the host backend prepares batches in numpy, the isp
+                # backend in plain torch ops on its shards
                 check(not any(n.values()), f"{name}: launched {n}")
             else:
                 check((n["feature_gather_cached"] > 0) == feats
@@ -1354,20 +1360,6 @@ def spec_phase() -> dict:
         train.GraphSAGE = real_sage
         torch.backends.cuda.matmul.allow_tf32 = tf32
         tmp_dir.cleanup()
-    path = _spec_path(REFUSED_SPEC)
-    err = io.StringIO()
-    code = None
-    with contextlib.redirect_stderr(err):
-        try:
-            train.main(["--arch", "graphsage", "--spec", path, "--device",
-                        DEVICE])
-        except SystemExit as e:
-            code = e.code
-    msg = err.getvalue().strip().splitlines()[-1]
-    check(code == 2 and f"ROADMAP item {REFUSED_ITEM}" in msg,
-          f"{REFUSED_SPEC}: exit {code}, {msg!r}")
-    print(f"[smoke] phase 19: {REFUSED_SPEC} refused: {msg}")
-    out[REFUSED_SPEC] = {"exit": code, "error": msg}
     return out
 
 
@@ -2569,6 +2561,101 @@ def isp_phase(reddit, argv_mem: list, argv_ooc: list, hosted: dict) -> dict:
     return out
 
 
+def _first_batch(build, into: dict):
+    """``build_pipeline`` whose pipelines keep host copies of batch 0's
+    hop ids and features in ``into`` (host copies: the card's peak
+    memory stays the run's own)."""
+    def built(*a, **kw):
+        pipe = build(*a, **kw)
+        get = pipe.get_batch
+
+        def get_batch(idx, **kw2):
+            mb = get(idx, **kw2)
+            if idx == 0:
+                into["ids"] = [h.cpu() for h in mb.hop_ids]
+                into["feats"] = [f.cpu() for f in mb.hop_feats]
+            return mb
+
+        pipe.get_batch = get_batch
+        return pipe
+    return built
+
+
+def mesh_phase(argv_mem: list, argv_ooc: list, ooc: dict) -> dict:
+    """Phase 27: the mesh ISP backend at phase 5's width, 1 and 4 shards
+    on the card, against the pallas backend; then phase 8's command with
+    the isp storage engine attached."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    runs, first = {}, {}
+    for name, shards in (("pallas", None), ("isp x1", 1), ("isp x4", 4)):
+        argv = list(argv_mem)
+        if shards is not None:
+            argv[argv.index("--backend") + 1] = "isp"
+            argv += ["--devices", str(shards)]
+        print(f"[smoke] phase 27: train {' '.join(argv)}")
+        first[name] = {}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = _train_recorded(argv, _first_batch(train.build_pipeline,
+                                               first[name]))
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        runs[name] = r
+    base = runs["pallas"]
+    check(_gnn(base["launches"])["neighbor_sample"] == 2 * 8
+          and _gnn(base["launches"])["feature_gather_rows"] == 3 * 8,
+          f"phase 27: pallas launched {base['launches']}")
+    for name in ("isp x1", "isp x4"):
+        r = runs[name]
+        check(r["loader"]["backend"] == "isp",
+              f"phase 27 {name}: backend {r['loader']['backend']}")
+        check(not any(r["launches"].values()),
+              f"phase 27 {name}: launched {r['launches']}")
+        check(r["losses"] == base["losses"],
+              f"phase 27 {name}: losses {r['losses']} vs pallas "
+              f"{base['losses']}")
+        for kind in ("ids", "feats"):
+            check(all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(first[name][kind],
+                                      first["pallas"][kind])),
+                  f"phase 27 {name}: batch 0's {kind} differ from pallas's")
+    sps = {k: r["stats"].steps_per_s for k, r in runs.items()}
+    peak = {k: r["peak_bytes"] for k, r in runs.items()}
+    print(f"[smoke] phase 27: losses == pallas's at 1 and 4 shards "
+          f"{base['losses']}; batch 0's ids and features bit-equal; no "
+          f"kernel launched by isp; steps/s "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sps.items())
+          + "; peak device memory "
+          + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in peak.items())
+          + f" ({card})")
+    del first
+    argv_e = argv_ooc + ["--storage-engine", "isp"]
+    print(f"[smoke] phase 27: train {' '.join(argv_e)}")
+    eng = _train_recorded(argv_e, train.build_pipeline)
+    sim = eng["loader"]["simulated_storage_s"]
+    check(sim > 0, f"phase 27: simulated_storage_s {sim}")
+    check(eng["losses"] == ooc["losses"],
+          f"phase 27: engine losses {eng['losses']} vs phase 8's "
+          f"{ooc['losses']}")
+    check(_gnn(eng["launches"]) == _gnn(ooc["launches"]),
+          f"phase 27: engine launches {eng['launches']} vs phase 8's "
+          f"{ooc['launches']}")
+    out = {"card": card, "losses": base["losses"], "steps_per_s": sps,
+           "peak_bytes": peak,
+           "idle_fraction": {k: r["stats"].idle_fraction
+                             for k, r in runs.items()},
+           "engine": {"argv": argv_e, "simulated_storage_s": sim,
+                      "steps_per_s": eng["stats"].steps_per_s,
+                      "idle_fraction": eng["stats"].idle_fraction},
+           "seconds": time.perf_counter() - t_phase}
+    print(f"[smoke] phase 27: --storage-engine isp: simulated storage "
+          f"{sim:.4f} s over the run, {eng['stats'].steps_per_s:.4f} "
+          f"steps/s (phase 8 {ooc['steps_per_s']:.4f}), losses and "
+          f"launches equal phase 8's ({card}); phase 27 "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def _sdpa(q, k, v, **kw):
     """The library yardstick: one ``scaled_dot_product_attention`` call on
     q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) views, GQA by
@@ -3451,6 +3538,7 @@ def main() -> int:
                         ooc | {"idle_fraction": ooc_stats.idle_fraction})
     telemetry = telemetry_phase(reddit, argv_ooc)
     isp = isp_phase(reddit, argv, argv_ooc, hosted)
+    mesh = mesh_phase(argv, argv_ooc, ooc)
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -3542,6 +3630,7 @@ def main() -> int:
                "specs": specs, "overlap": overlap, "faults": fault_run,
                "direct_io": dio, "resume": resumed, "oracle": oracle,
                "host": hosted, "telemetry": telemetry, "isp": isp,
+               "mesh": mesh,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

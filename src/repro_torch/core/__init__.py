@@ -1,9 +1,9 @@
 """SmartSAGE core in PyTorch: graphs, the GraphSAGE model, the
 declarative data-plane spec (``config``), the kernel data plane (in memory
 or out of core through device caches), the host backend's numpy samplers
-and producer pipeline, the prefetching and overlapped pipelines and the
-training loop (the ``pallas`` and ``host`` paths of the reference's
-``repro.core``).
+and producer pipeline, the mesh ISP backend (``partition``, ``isp``), the
+prefetching and overlapped pipelines and the training loop (the
+``pallas``, ``host`` and ``isp`` paths of the reference's ``repro.core``).
 
 The names below are re-exported lazily (PEP 562): importing the
 package imports no submodule, so a process that needs only the numpy
@@ -18,7 +18,7 @@ _EXPORTS = {
     "ObsSpec": "config", "Pipeline": "config", "PipelineSpec": "config",
     "PrefetchSpec": "config", "SamplerSpec": "config", "StoreSpec": "config",
     "add_pipeline_args": "config", "build_pipeline": "config",
-    "check_ported": "config", "fill_pipeline_flag_defaults": "config",
+    "fill_pipeline_flag_defaults": "config",
     "spec_from_args": "config",
     "GNNConfig": "gnn", "GraphSAGE": "gnn", "build_defs": "gnn",
     "gnn_loss_fn": "gnn",
@@ -26,7 +26,9 @@ _EXPORTS = {
     "edges_to_csr": "graph", "kronecker_expand": "graph",
     "load_dataset": "graph", "read_edge_blocks": "graph",
     "rmat_graph": "graph",
-    "HostSubgraphLoader": "loader", "LOADERS": "loader", "Minibatch": "loader",
+    "ISPGraph": "isp", "build_fused_train_step": "isp",
+    "build_isp_train_step": "isp",
+    "HostSubgraphLoader": "loader", "ISPSubgraphLoader": "loader", "LOADERS": "loader", "Minibatch": "loader",
     "PallasSubgraphLoader": "loader", "RunStats": "loader",
     "batch_targets": "loader", "build_train_step": "loader",
     "make_loader": "loader", "register_loader": "loader",
@@ -34,22 +36,12 @@ _EXPORTS = {
     "OverlappedLoader": "pipeline", "PipelineStats": "pipeline",
     "PrefetchingLoader": "pipeline", "ProducerConsumerPipeline": "pipeline",
     "make_host_producer": "pipeline",
+    "PartitionedGraph": "partition", "partition_graph": "partition",
     "DEFAULT_FANOUTS": "sampler", "SampleTrace": "sampler",
     "saint_random_walk": "sampler", "sample_khop": "sampler",
 }
 
-__all__ = [
-    "BackendSpec", "CSRGraph", "CacheTierSpec", "DATASETS", "DEFAULT_FANOUTS",
-    "GNNConfig", "GraphSAGE", "HostSubgraphLoader", "IspSpec", "LOADERS",
-    "Minibatch", "ObsSpec", "OverlappedLoader", "PallasSubgraphLoader",
-    "Pipeline", "PipelineSpec", "PipelineStats", "PrefetchSpec",
-    "PrefetchingLoader", "ProducerConsumerPipeline", "RunStats", "SampleTrace",
-    "SamplerSpec", "StoreSpec", "add_pipeline_args", "attach_features",
-    "batch_targets", "build_defs", "build_pipeline", "build_train_step",
-    "check_ported", "edges_to_csr", "fill_pipeline_flag_defaults",
-    "gnn_loss_fn", "kronecker_expand", "load_dataset", "make_host_producer",
-    "make_loader", "read_edge_blocks", "register_loader", "rmat_graph",
-    "saint_random_walk", "sample_khop", "spec_from_args", "train_loop"]
+__all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name):

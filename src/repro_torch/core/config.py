@@ -13,24 +13,19 @@ serializable object:
   ``to_dict``/``from_dict``/``to_json``/``from_json`` round-trip exactly;
   the JSON schema is the reference's, so its spec files and the
   ``pipeline_spec`` of its checkpoint manifests load here unchanged.
-  The tree describes every feature of the reference, including those the
-  port does not run yet.
 
 * ``build_pipeline(spec, graph_or_store)``: the entry point the launcher
-  and the tests share.  It refuses, before opening anything, a spec that
-  asks for a feature the port does not run yet (``check_ported`` names
-  the ROADMAP item of each), opens the store the spec asks for (owning
-  it, and any temp directory, for the lifetime of the returned
-  ``Pipeline``): a ``DiskStore`` in-process, or under
-  ``store.mode='isp'`` a storage process (``repro_torch.isp``) and its
-  ``RemoteGraphStore``; installs the telemetry session of the ``obs``
-  node, and builds the loader.
+  and the tests share.  It opens the store the spec asks for (owning it,
+  and any temp directory, for the lifetime of the returned ``Pipeline``):
+  a ``DiskStore`` in-process, or under ``store.mode='isp'`` a storage
+  process (``repro_torch.isp``) and its ``RemoteGraphStore``; attaches
+  the simulated storage engine (``storage.engines``); installs the
+  telemetry session of the ``obs`` node, and builds the loader.
 
 * ``add_pipeline_args`` / ``spec_from_args``: the launcher's data-plane
   flags, generated from ``FLAG_TABLE`` (each flag maps to a spec field),
   with ``--spec file.json`` loading a whole configuration and the flags
-  given as overrides.  The table holds the flags of the fields the port
-  runs, so the flags of later items stay unknown to ``argparse``.
+  given as overrides.
 """
 
 from __future__ import annotations
@@ -55,9 +50,6 @@ CACHE_TIERS = ("host", "device")
 DEVICE_ARRAYS = ("features", "topology")
 ENGINES = ("none", "dram", "pmem", "mmap", "directio", "isp", "isp_oracle",
            "fpga")
-
-#: the backends the port runs: ``--backend`` offers only these
-PORTED_BACKENDS = ("host", "pallas")
 
 
 def _check(value, name, choices):
@@ -478,20 +470,6 @@ def _reject_unknown(cls, d: dict, where: str) -> None:
         raise ValueError(f"unknown {where} field(s): {sorted(unknown)}")
 
 
-def check_ported(spec: PipelineSpec) -> None:
-    """Raise ``NotImplementedError`` naming each feature ``spec`` asks for
-    that the port does not run yet, with the ROADMAP item that brings
-    it.  ``build_pipeline`` calls this before it opens anything."""
-    missing = []
-    if spec.backend.name == "isp":
-        missing.append("backend 'isp' (ROADMAP item 14)")
-    if spec.engine != "none":
-        missing.append(f"engine {spec.engine!r} (ROADMAP item 13)")
-    if missing:
-        raise NotImplementedError("not part of the port yet: "
-                                  + "; ".join(missing))
-
-
 # ---------------------------------------------------------------------------
 # the assembled pipeline: the resources a spec materializes into
 # ---------------------------------------------------------------------------
@@ -505,12 +483,13 @@ class Pipeline:
     caller passed is left open), and finalizes the telemetry session."""
 
     def __init__(self, spec: PipelineSpec, loader, *, graph=None, store=None,
-                 owns_store: bool = False, tmpdir: str | None = None,
-                 obs_session=None):
+                 engine=None, owns_store: bool = False,
+                 tmpdir: str | None = None, obs_session=None):
         self.spec = spec
         self.loader = loader
         self.graph = graph
         self.store = store
+        self.engine = engine
         self.obs = obs_session
         self.notes: list[str] = []
         self._owns_store = owns_store
@@ -549,6 +528,8 @@ class Pipeline:
             bits.append("verify=crc32c")
         if s.store.faults is not None:
             bits.append("faults=injected")
+        if s.engine != "none":
+            bits.append(f"engine={s.engine}")
         if s.prefetch.depth:
             bits.append(f"prefetch={s.prefetch.depth}")
         if s.prefetch.overlap:
@@ -592,7 +573,7 @@ class Pipeline:
 
 
 def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
-                   store=None, device="cuda") -> Pipeline:
+                   store=None, mesh=None, device="cuda") -> Pipeline:
     """Materialize ``spec`` into a running data plane on ``device``.
 
     ``graph_or_store`` (or the ``g``/``store`` keywords) supplies the
@@ -601,11 +582,13 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
     into ``spec.store.path`` (or a temp directory it owns) and opens a
     ``DiskStore`` with the host cache tier's budget and policy, or, under
     ``store.mode='isp'``, spawns the storage process that owns it
-    (``_open_isp_store``).  Returns a ``Pipeline`` that owns exactly the
-    resources it created."""
+    (``_open_isp_store``).  A spec naming an ``engine`` attaches it,
+    measured against the store when there is one.  ``mesh`` places the
+    ``isp`` backend's shards (``launch.mesh``; default one shard on
+    ``device``).  Returns a ``Pipeline`` that owns exactly the resources
+    it created."""
     from repro_torch.core.graph import CSRGraph
 
-    check_ported(spec)
     if graph_or_store is not None:
         if isinstance(graph_or_store, CSRGraph):
             if g is not None:
@@ -666,15 +649,25 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
             owns_store = True
 
     from repro_torch.core.loader import _build_loader
+    engine = None
     obs_session = None
     try:
+        if spec.engine != "none":
+            from repro_torch.storage.engines import make_engine
+            if g is None:
+                # one materialization, reused by the loader below (the
+                # engines model the whole graph, features included)
+                g = store.to_csr()
+            engine = make_engine(spec.engine, g, measured=store is not None,
+                                 store=store)
         if spec.obs.enabled:
             from repro_torch import obs
             obs_session = obs.install(obs.ObsSession(
                 trace_path=spec.obs.trace_path,
                 metrics_path=spec.obs.metrics_path,
                 metrics_interval_s=spec.obs.metrics_interval_s))
-        loader = _build_loader(spec, g=g, store=store, device=device)
+        loader = _build_loader(spec, g=g, store=store, mesh=mesh,
+                               storage_engine=engine, device=device)
     except BaseException:
         if obs_session is not None:
             obs_session.close()
@@ -690,7 +683,7 @@ def build_pipeline(spec: PipelineSpec, graph_or_store=None, *, g=None,
         from repro_torch.obs import names as _names
         obs_session.registry.register_collector(
             lambda: _names.flatten_stats(loader.stats()))
-    pipe = Pipeline(spec, loader, graph=g, store=store,
+    pipe = Pipeline(spec, loader, graph=g, store=store, engine=engine,
                     owns_store=owns_store, tmpdir=tmpdir,
                     obs_session=obs_session)
     pipe.notes = notes
@@ -780,14 +773,13 @@ def _parse_fanouts(s) -> tuple[int, ...]:
     return tuple(int(x) for x in str(s).split(","))
 
 
-#: flag -> (spec path, argparse kwargs), the reference's entries for the
-#: fields the port runs.  Paths address the spec tree; the pseudo-paths
+#: flag -> (spec path, argparse kwargs), the reference's entries.  Paths address the spec tree; the pseudo-paths
 #: ``cache.*`` / ``devcache.*`` configure the two cache tiers (a host tier
 #: exists iff the store is on disk; a device tier iff rows or edge_blocks
 #: is set).
 FLAG_TABLE = {
     "--backend": ("backend.name", dict(
-        choices=PORTED_BACKENDS,
+        choices=BACKENDS,
         help="GNN data-preparation backend (SubgraphLoader)")),
     "--sampler": ("sampler.family", dict(
         choices=SAMPLERS,
@@ -819,6 +811,9 @@ FLAG_TABLE = {
         help="overlapped pipeline: frontier-planner window; warm the "
              "host page cache for batch t+N's probable reads while "
              "batch t is in flight (0 = off)")),
+    "--storage-engine": ("engine", dict(
+        choices=ENGINES,
+        help="simulated storage tier attached to the loader")),
     "--graph-store": ("store.kind", dict(
         choices=STORE_KINDS,
         help="where the graph data lives: 'mem' = DRAM arrays, 'disk' = "

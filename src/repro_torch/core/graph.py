@@ -89,6 +89,11 @@ class CSRGraph:
     def gather_labels(self, ids: np.ndarray) -> np.ndarray:
         return self.labels[np.asarray(ids)]
 
+    def edge_list_nbytes(self, entry_bytes: int = 8) -> int:
+        """Size of the neighbour edge-list array on storage (the paper's
+        8 B an entry)."""
+        return self.num_edges * entry_bytes
+
     def edge_byte_range(self, u: int, entry_bytes: int = 8) -> tuple[int, int]:
         """Byte extent of node u's neighbour list within the edge-list file."""
         return (int(self.indptr[u]) * entry_bytes,
@@ -217,6 +222,13 @@ DATASETS = {
     "amazon":      (1 << 12, 1 << 15, 32, 8, 0.30),
     "ogbn-100m":   (1 << 12, 1 << 15, 32, 4, 0.50),
     "protein-pi":  (1 << 10, 1 << 14, 512, 4, 0.55),
+}
+
+# The paper's Table I sizes (GB of graph data) of the large-scale datasets:
+# the storage simulator's capacity check at true scale.
+TABLE1_LARGE_SCALE_GB = {
+    "reddit": 402, "movielens": 442, "amazon": 75, "ogbn-100m": 41,
+    "protein-pi": 66,
 }
 
 

@@ -1,14 +1,18 @@
 """The minibatch data plane and the training loop, in PyTorch.
 
-The port of the reference's ``core/loader.py`` for the ``pallas`` and
-``host`` backends.  On ``pallas`` a batch is sampled k hops by the
+The port of the reference's ``core/loader.py``: the ``pallas``, ``host``
+and ``isp`` backends.  On ``pallas`` a batch is sampled k hops by the
 ``neighbor_sample`` kernel and its features are gathered by the
 ``feature_gather_rows`` kernel, both hand-written CUDA for Hopper when
 the loader's device is a GPU (the plain PyTorch versions on the CPU, as
 the tests run it).  On ``host`` (the paper's CPU data preparation,
 Fig. 4) producer threads sample with the numpy ``sample_khop`` (or
 GraphSAINT walks) and gather through the store, and ``get_batch`` copies
-the batch's features and labels to the device.
+the batch's features and labels to the device.  On ``isp`` (the mesh ISP
+backend, ``core.isp``) the graph lives partitioned over the shards of a
+mesh (``launch.mesh``), each shard samples and gathers the targets it
+owns, and the shard results are summed: plain torch ops, no kernel, and
+the ``pallas`` backend's ids and features at equal seeds.
 
 Out of core, the graph is read through a ``GraphStore`` (``store=``,
 typically a ``DiskStore`` behind its page cache) and either array family
@@ -25,6 +29,12 @@ policy trips the reference's one-strike bypass: from then on each
 batch's unique rows are read straight from the store, uploaded once and
 gathered by ``feature_gather_rows``, with unchanged values.
 
+A simulated storage tier (``storage.engines``, the spec's ``engine``) can
+be attached to any loader: each batch's access trace is replayed against
+the engine's cost model and the modeled latency is imposed on the batch's
+preparation (``impose_storage_cost``; the host producers sleep it), so a
+slow simulated device shows as consumer idle time.
+
 ``_build_loader`` builds the loader a ``PipelineSpec`` describes
 (``core.config.build_pipeline`` is the entry point), attaches the Belady
 replay lane when a tier is ``optimal`` (``storage.oracle``), and wraps
@@ -35,7 +45,8 @@ Randomness matches the reference exactly: targets of batch ``i`` come
 from ``np.random.default_rng(seed + i)``, and sampling bits from the
 threefry stream ``fold_in(fold_in(key(seed), i), hop)`` (``repro_torch.
 rng``), drawn on the loader's device, so the port's minibatches equal the
-reference's at equal seeds, cached or not.  The host backend's numpy
+reference's at equal seeds, cached or not, and the ``isp`` backend's equal
+the ``pallas`` backend's.  The host backend's numpy
 sampler draws from ``np.random.default_rng(seed + i)``, as the
 reference's does.
 """
@@ -59,7 +70,8 @@ from repro_torch.core.config import (BackendSpec, CacheTierSpec,
 from repro_torch.core.gnn import gnn_loss_fn
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.sampler import (DEFAULT_FANOUTS, SampleTrace,
-                                      _io_delta, _io_snapshot)
+                                      _io_delta, _io_snapshot, sample_khop,
+                                      saint_random_walk)
 from repro_torch.kernels import ops
 from repro_torch.obs.metrics import idle_fraction as _idle_fraction
 from repro_torch.storage import store as _store
@@ -101,9 +113,9 @@ def register_loader(name: str):
 
 
 def make_loader(name: str, g: CSRGraph | None, *, batch_size: int = 64,
-                fanouts: Sequence[int] = DEFAULT_FANOUTS, seed: int = 0,
-                prefetch: int = 0, store=None, device_cache=None,
-                device="cuda"):
+                fanouts: Sequence[int] = DEFAULT_FANOUTS, mesh=None,
+                seed: int = 0, storage_engine=None, prefetch: int = 0,
+                store=None, device_cache=None, device="cuda"):
     """The reference's keyword shim over the spec API: assembles the
     ``PipelineSpec`` its arguments describe and returns the bare loader
     (``core.config.build_pipeline`` is the entry point).
@@ -129,14 +141,17 @@ def make_loader(name: str, g: CSRGraph | None, *, batch_size: int = 64,
         store=StoreSpec(kind=getattr(store, "kind", "mem")),
         cache_tiers=tuple(tiers), prefetch=PrefetchSpec(depth=prefetch),
         batch_size=batch_size, seed=seed)
-    return _build_loader(spec, g=g, store=store, device=device)
+    return _build_loader(spec, g=g, store=store, mesh=mesh,
+                         storage_engine=storage_engine, device=device)
 
 
 def _build_loader(spec: PipelineSpec, *, g: CSRGraph | None, store=None,
-                  device="cuda"):
+                  mesh=None, storage_engine=None, device="cuda"):
     """Construct the loader a validated spec describes, on ``device``.
 
-    ``store`` selects where graph data is read from; without ``g`` the
+    ``store`` selects where graph data is read from; ``mesh`` places the
+    ``isp`` backend's shards; ``storage_engine`` is the simulated tier
+    whose modeled latency each batch pays.  Without ``g`` the
     graph is materialized from it, with a loud warning (that loads the
     whole store into DRAM), leaving the feature table on disk when a
     device feature-cache tier fetches rows on demand anyway."""
@@ -166,17 +181,20 @@ def _build_loader(spec: PipelineSpec, *, g: CSRGraph | None, store=None,
                   n_workers=spec.backend.n_workers,
                   queue_depth=spec.backend.queue_depth,
                   straggler_factor=spec.backend.straggler_factor)
+    elif name == "isp":
+        kw = dict(mesh=mesh, axis=spec.backend.axis)
     else:
         kw = dict(device_cache=feature_cache, edge_cache=edge_cache)
     loader = LOADERS[name](g, batch_size=spec.batch_size,
                            fanouts=spec.sampler.fanouts, seed=spec.seed,
-                           device=device, store=store, **kw)
+                           device=device, store=store,
+                           storage_engine=storage_engine, **kw)
     if any(t.policy == "optimal" for t in spec.cache_tiers):
         from repro_torch.storage.oracle import (attach_host_oracle,
                                                 attach_pallas_oracle)
         if name == "pallas":
             attach_pallas_oracle(loader, spec)
-        else:
+        elif name == "host":
             attach_host_oracle(loader, spec)
     if spec.prefetch.depth:
         from repro_torch.core.pipeline import (OverlappedLoader,
@@ -245,14 +263,16 @@ def batch_targets(g, idx: int, batch_size: int, seed: int = 0) -> np.ndarray:
 
 class _LoaderBase:
     """What every backend's loader shares: the target stream, the oracle
-    hook, the counters and ``stats()``."""
+    hook, the simulated-storage accounting, the counters and
+    ``stats()``."""
 
     backend = "base"
     SAMPLERS = ("khop",)
 
     def __init__(self, g: CSRGraph | None, *, batch_size: int, fanouts,
                  seed: int = 0, device="cuda", store=None,
-                 sampler: str = "khop", walk_length: int = 4):
+                 storage_engine=None, sampler: str = "khop",
+                 walk_length: int = 4):
         self.g = g
         self.store = store if store is not None else g
         if self.store is None:
@@ -270,6 +290,9 @@ class _LoaderBase:
                         else tuple(fanouts))
         self.seed = seed
         self.device = torch.device(device)
+        self.storage_engine = storage_engine
+        self.simulated_storage_s = 0.0
+        self._storage_lock = threading.Lock()
         self.devcache = None
         self.edgecache = None
         self._epoch0 = None
@@ -293,6 +316,43 @@ class _LoaderBase:
         if adv is not None:
             adv(idx)
 
+    def storage_delay(self, trace: SampleTrace) -> float:
+        """Replay ``trace`` against the attached engine's cost model and
+        return the simulated data-preparation latency (0 without an
+        engine).  Producer threads call it, so the sum is locked; a
+        straggler's reissued batch pays its cost twice, like the
+        duplicated work it models."""
+        if self.storage_engine is None or trace is None:
+            return 0.0
+        eng = self.storage_engine
+        delay = eng.batch_cost(trace).time_s + eng.feature_time(trace)
+        with self._storage_lock:
+            self.simulated_storage_s += delay
+        return delay
+
+    def storage_cost_trace(self, idx: int) -> SampleTrace:
+        """The cost model's access trace for the device backends, which
+        keep no host trace: a numpy re-sample of batch ``idx`` with the
+        same event counts (the host sampler's stream)."""
+        g = self.g if self.g is not None else self.store
+        if self.sampler == "saint":
+            return saint_random_walk(g, self.targets(idx), self.walk_length,
+                                     seed=self.seed + idx)
+        return sample_khop(g, self.targets(idx), self.fanouts,
+                           seed=self.seed + idx)
+
+    def impose_storage_cost(self, idx: int) -> None:
+        """Replay batch ``idx``'s trace against the attached engine and
+        sleep the modeled latency, less the re-sample's own time, so the
+        visible delay is the model's.  It runs inside ``get_batch``: under
+        a prefetching loader the re-sample and the sleep happen on the
+        prefetch worker, off the consumer's path."""
+        if self.storage_engine is None:
+            return
+        t0 = time.perf_counter()
+        delay = self.storage_delay(self.storage_cost_trace(idx))
+        time.sleep(max(0.0, delay - (time.perf_counter() - t0)))
+
     def _counter_sources(self) -> dict:
         src = {}
         io = getattr(self.store, "io_counters", None)
@@ -311,7 +371,8 @@ class _LoaderBase:
         self._epoch0 = {k: fn() for k, fn in self._counter_sources().items()}
 
     def stats(self) -> dict:
-        s = {"backend": self.backend, "sampler": self.sampler}
+        s = {"backend": self.backend, "sampler": self.sampler,
+             "simulated_storage_s": self.simulated_storage_s}
         store_stats = getattr(self.store, "stats", None)
         if store_stats is not None:
             s["store"] = store_stats()
@@ -350,17 +411,19 @@ class HostSubgraphLoader(_LoaderBase):
     SAMPLERS = ("khop", "saint")
 
     def __init__(self, g, *, batch_size, fanouts, seed=0, device="cuda",
-                 store=None, sampler="khop", walk_length=4,
-                 n_workers: int = 4, queue_depth: int = 8,
+                 store=None, storage_engine=None, sampler="khop",
+                 walk_length=4, n_workers: int = 4, queue_depth: int = 8,
                  straggler_factor: float = 4.0):
         super().__init__(g, batch_size=batch_size, fanouts=fanouts,
                          seed=seed, device=device, store=store,
-                         sampler=sampler, walk_length=walk_length)
+                         storage_engine=storage_engine, sampler=sampler,
+                         walk_length=walk_length)
         from repro_torch.core.pipeline import (ProducerConsumerPipeline,
                                                make_host_producer)
         produce = make_host_producer(self.store, batch_size, self.fanouts,
                                      seed=seed, sampler=self.sampler,
-                                     walk_length=self.walk_length)
+                                     walk_length=self.walk_length,
+                                     storage_cost_fn=self.storage_delay)
         self.pipeline = ProducerConsumerPipeline(
             produce, n_workers=n_workers, queue_depth=queue_depth,
             straggler_factor=straggler_factor)
@@ -419,10 +482,12 @@ class PallasSubgraphLoader(_LoaderBase):
 
     def __init__(self, g: CSRGraph, *, batch_size: int,
                  fanouts: Sequence[int], seed: int = 0, device="cuda",
-                 store=None, device_cache: CacheTierSpec | None = None,
+                 store=None, storage_engine=None,
+                 device_cache: CacheTierSpec | None = None,
                  edge_cache: CacheTierSpec | None = None):
         super().__init__(g, batch_size=batch_size, fanouts=fanouts,
-                         seed=seed, device=device, store=store)
+                         seed=seed, device=device, store=store,
+                         storage_engine=storage_engine)
         # the reference casts the int64 offsets to int32 as well
         self.indptr = torch.as_tensor(np.asarray(g.indptr, np.int32),
                                       device=self.device)
@@ -466,6 +531,7 @@ class PallasSubgraphLoader(_LoaderBase):
             self._advance_oracle(idx)
             l0 = kernels.thread_launches()
             targets = self.targets(idx)
+            self.impose_storage_cost(idx)
             t = _to_device(targets, self.device)
             hops = ops.sample_khop_kernel(self.indptr, self.indices, t,
                                           self.fanouts,
@@ -518,6 +584,7 @@ class PallasSubgraphLoader(_LoaderBase):
         self._advance_oracle(idx)
         l0 = kernels.thread_launches()
         targets = self.targets(idx)
+        self.impose_storage_cost(idx)
         key = rng.fold_in(self._key, idx)
         make_ctx = getattr(self.store, "make_io_context", None)
         ctx = make_ctx() if make_ctx is not None else None
@@ -714,6 +781,47 @@ class PallasSubgraphLoader(_LoaderBase):
             s["stage_mean_s"] = {k: v / max(self._stage_n[k], 1)
                                  for k, v in self._stage_s.items()}
         return s
+
+
+@register_loader("isp")
+class ISPSubgraphLoader(_LoaderBase):
+    """Near-data (ISP) data preparation on a mesh: the graph is
+    partitioned over the mesh's ``axis`` (``core.partition``), each shard
+    lives on its device (``core.isp.ISPGraph``), and a batch is sampled
+    and gathered where its nodes live, the shards' results summed into
+    the minibatch on the first shard's device.  Without a mesh the graph
+    is one shard on the loader's device (``launch.mesh.make_host_mesh``).
+    Plain torch ops, no kernel launch; hop ids and labels int32, as the
+    ``pallas`` loader's, and equal to its at equal seeds."""
+
+    def __init__(self, g: CSRGraph, *, batch_size: int,
+                 fanouts: Sequence[int], seed: int = 0, device="cuda",
+                 store=None, storage_engine=None, mesh=None,
+                 axis: str = "data"):
+        super().__init__(g, batch_size=batch_size, fanouts=fanouts,
+                         seed=seed, device=device, store=store,
+                         storage_engine=storage_engine)
+        from repro_torch.core.isp import ISPGraph
+        from repro_torch.core.partition import partition_graph
+        if mesh is None:
+            from repro_torch.launch.mesh import make_host_mesh
+            mesh = make_host_mesh(self.device)
+        self.mesh = mesh
+        self.engine = ISPGraph(partition_graph(g, mesh.shape[axis]), mesh,
+                               axis=axis)
+        self._key = rng.key(seed)
+
+    def get_batch(self, idx: int) -> Minibatch:
+        l0 = kernels.thread_launches()
+        targets = self.targets(idx)
+        self.impose_storage_cost(idx)
+        eng = self.engine
+        hops = eng.sample_khop(_to_device(targets, eng.device), self.fanouts,
+                               key=rng.fold_in(self._key, idx))
+        return Minibatch(targets=targets, hop_ids=hops,
+                         hop_feats=[eng.gather_features(h) for h in hops],
+                         labels=eng.gather_labels(hops[0]),
+                         launches=_launches_since(l0))
 
 
 def build_train_step(loader, gnn, optimizer):

@@ -81,7 +81,8 @@ class PipelineStats:
 
 def make_host_producer(store, batch_size: int, fanouts=DEFAULT_FANOUTS,
                        *, seed: int = 0, sampler: str = "khop",
-                       walk_length: int = 4) -> Callable[[int], Minibatch]:
+                       walk_length: int = 4,
+                       storage_cost_fn=None) -> Callable[[int], Minibatch]:
     """Returns ``produce(batch_idx) -> Minibatch`` of numpy arrays.
 
     ``store`` is any GraphStore: a ``CSRGraph``, an ``InMemoryStore`` or
@@ -92,6 +93,11 @@ def make_host_producer(store, batch_size: int, fanouts=DEFAULT_FANOUTS,
     An optimal-policy store rolls its Belady schedule forward before the
     batch's reads (``oracle_advance``).  The producer touches only numpy
     and the store.
+
+    ``storage_cost_fn(trace) -> seconds`` (optional) models the storage
+    tier serving the batch's access trace; the producer sleeps that long,
+    so a slow simulated device shows as consumer idle time, as in the
+    paper's Fig. 7.
 
     A store exposing ``sample_khop_pushdown`` (the in-storage processing
     service's ``RemoteGraphStore``) gets the whole k-hop sample and gather
@@ -110,6 +116,8 @@ def make_host_producer(store, batch_size: int, fanouts=DEFAULT_FANOUTS,
         if pushdown is not None:
             trace, hop_feats, labels = pushdown(targets, fanouts,
                                                 seed=seed + batch_idx)
+            if storage_cost_fn is not None:
+                time.sleep(storage_cost_fn(trace))
             return Minibatch(targets=targets, hop_ids=list(trace.hops),
                              hop_feats=hop_feats, labels=labels,
                              trace=trace)
@@ -125,6 +133,8 @@ def make_host_producer(store, batch_size: int, fanouts=DEFAULT_FANOUTS,
         # the trace's span widens to the feature and label gathers; the
         # thread-scoped counters keep the per-batch delta exact
         trace.io = nest_fault_counters(_io_delta(store, io0))
+        if storage_cost_fn is not None:
+            time.sleep(storage_cost_fn(trace))
         return Minibatch(targets=targets, hop_ids=list(trace.hops),
                          hop_feats=hop_feats, labels=labels, trace=trace)
 

@@ -50,6 +50,9 @@ class SampleTrace:
     subgraph_nodes: np.ndarray
     io: dict | None = None
 
+    def sampled_ids_nbytes(self, entry_bytes: int = 8) -> int:
+        return sum(h.size for h in self.hops) * entry_bytes
+
 
 def _io_fn(store):
     """The store's I/O-counter view, preferring the thread-scoped one."""

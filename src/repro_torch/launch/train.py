@@ -1,5 +1,15 @@
 """Training entry point of the port: GraphSAGE and the dense-family LMs.
 
+GraphSAGE with near-data (ISP) subgraph generation, the graph partitioned
+over a mesh of 4 shards (the default backend is ``isp``, as in the
+reference; shards share the card when there are fewer cards than shards):
+
+  python -m repro_torch.launch.train --arch graphsage --dataset reddit \\
+      --steps 100 --devices 4
+
+The kernel data plane, sampling and gathering in the hand-written CUDA
+kernels:
+
   python -m repro_torch.launch.train --arch graphsage --backend pallas \\
       --dataset reddit --large-scale --batch 1024 --fanouts 25,10 \\
       --hidden 256 --steps 8
@@ -45,7 +55,11 @@ to it, and the pallas backend's device caches fetch their misses through
 it.  ``--trace-out t.json --metrics-out m.jsonl`` write a Perfetto trace
 of the lanes, the consumer and the disk reads, and JSONL snapshots of the
 canonical counters (``repro_torch.obs``); every GNN run ends with the
-``[obs] epoch summary`` table.
+``[obs] epoch summary`` table.  ``--storage-engine mmap|directio|isp|...``
+attaches the storage simulator (``storage.engines``, the paper's machine):
+each batch pays the modeled latency of its access trace, the tail line's
+``simulated_storage_s`` sums it, and over a disk store the run prints the
+``measured-vs-simulated`` report beside the store's real counters.
 
 An LM of the dense family (qwen2-0.5b at full width, 4 x 4096 tokens a
 step), attention through the flash forward and backward kernels:
@@ -58,14 +72,10 @@ CUDA kernels, or on the CPU through their plain PyTorch versions with
 ``--device cpu``.  Without a GPU and without ``--device cpu`` it stops
 with an error.  The data-plane flags are generated from the spec's field
 table (``core.config.FLAG_TABLE``, ``add_pipeline_args``) and have the
-reference's names and defaults, with one exception: ``--backend``
-offers ``host`` and ``pallas`` and defaults to ``pallas``, where the
-reference's launcher sets ``isp``, the mesh backend that the port does
-not have yet (ROADMAP item 14).  The table holds only the flags of what
-the port runs: the storage engines' ``--storage-engine`` is unknown to
-it, and a ``--spec`` file that asks for an engine or the mesh backend is
-refused with the ROADMAP item that brings it.
-Every run goes through
+reference's names and defaults, ``--backend`` defaulting to ``isp`` as
+the reference's launcher sets it.  ``--devices N`` sets the GNN mesh's
+``data`` axis (``launch.mesh``); an LM's mesh, and ``--mesh``, belong to
+ROADMAP item 16.  Every run goes through
 ``core.config.build_pipeline``: ``--graph-store disk`` writes the
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
 and reads it through a ``DiskStore``; without a device cache tier the
@@ -105,10 +115,10 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import kernels, obs
 from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE, PipelineSpec,
                               add_pipeline_args, build_pipeline,
-                              build_train_step, check_ported,
-                              fill_pipeline_flag_defaults, load_dataset,
-                              spec_from_args, train_loop)
+                              build_train_step, fill_pipeline_flag_defaults,
+                              load_dataset, spec_from_args, train_loop)
 from repro_torch.data import TokenPipeline
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.params import count_params, init_params, tree_map
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import LM, build_defs
@@ -122,9 +132,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("graphsage",) + ARCH_IDS)
     # the data-plane flags (--backend, --fanouts, --batch, --seed,
     # --prefetch, --overlap, --graph-store, --cache-*, --device-cache-*,
-    # --edge-cache-blocks, --spec, ...) are generated from the spec's
-    # field table; --backend defaults to pallas (see the module docstring)
-    add_pipeline_args(ap, overrides={"backend": "pallas"})
+    # --edge-cache-blocks, --storage-engine, --spec, ...) are generated
+    # from the spec's field table
+    add_pipeline_args(ap, overrides={"backend": "isp"})
     ap.add_argument("--dataset", default="reddit", choices=tuple(DATASETS))
     ap.add_argument("--large-scale", action="store_true")
     ap.add_argument("--hidden", type=int, default=128)
@@ -132,6 +142,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shards of the GNN mesh's 'data' axis (the isp "
+                         "backend partitions the graph over them)")
     # the LM's flags, with the reference's names and defaults
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--reduced", action="store_true",
@@ -157,18 +170,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.arch == "graphsage":
         try:
             args.pipeline_spec = spec_from_args(args)
-            check_ported(args.pipeline_spec)
-        except (ValueError, NotImplementedError, OSError) as e:
+        except (ValueError, OSError) as e:
             ap.error(str(e))
+    elif args.devices > 1:
+        ap.error("--devices > 1 shards the GNN's mesh; an LM's mesh is "
+                 "not part of the port yet (ROADMAP item 16)")
     # resolve the "not given" sentinels for code that reads flags directly
     # (the LM's --batch); after the spec is assembled
     fill_pipeline_flag_defaults(args)
     args.device_tier = (args.pipeline_spec.device_cache_tier()
                         if args.pipeline_spec is not None else None)
     if args.batch < 1 or args.steps < 0 or args.log_every < 1 \
-            or args.ckpt_every < 1:
-        ap.error("--batch, --log-every and --ckpt-every must be >= 1, "
-                 "--steps >= 0")
+            or args.ckpt_every < 1 or args.devices < 1:
+        ap.error("--batch, --log-every, --ckpt-every and --devices must be "
+                 ">= 1, --steps >= 0")
     if args.seq_len < 1 or args.microbatches < 1 \
             or args.batch % args.microbatches:
         ap.error("--seq-len and --microbatches must be >= 1, and "
@@ -238,12 +253,15 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                 print("[train] --resume: data plane restored from the "
                       "checkpoint manifest's pipeline_spec")
     g = load_dataset(args.dataset, large_scale=args.large_scale)
-    pipe = build_pipeline(spec, g, device=device)
+    mesh = make_mesh((args.devices, 1), ("data", "model"), device=device)
+    pipe = build_pipeline(spec, g, mesh=mesh, device=device)
     try:
         for note in pipe.notes:
             print(f"[train] note: {note}")
         where = (torch.cuda.get_device_name(device)
                  if device.type == "cuda" else "cpu")
+        if pipe.backend == "isp":
+            where += f", mesh of {args.devices} shard(s)"
         print(f"[train] {g.name}: {g.num_nodes} nodes {g.num_edges} edges, "
               f"{pipe.describe()}, batch={spec.batch_size} "
               f"fanouts={spec.sampler.fanouts} on {where}")
@@ -354,6 +372,8 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                       f"(vs {io['bytes_fetched'] / 2**20:.1f} MB read from "
                       f"flash server-side), disconnects={w['disconnects']} "
                       f"reconnects={w['reconnects']}")
+            if pipe.engine is not None and hasattr(pipe.engine, "report"):
+                print(f"[train] measured-vs-simulated: {pipe.engine.report()}")
         return stats, [float(x) for x in losses], loader_stats
     finally:
         # a failed or interrupted run must not leak fds, lanes or the temp

@@ -1,16 +1,22 @@
-"""The page-cache policies of the live ``DiskStore``.
+"""Block-level view of the neighbour edge-list array, and the cache
+models: the page-cache policies of the live ``DiskStore`` and the
+trace-replay models of the storage engines.
 
-The port's copy of the pieces of the reference's ``storage/blockdev.py``
-that the store needs: ``LRUCache`` (the OS page cache model, carrying
-block payloads), ``select_pinned_blocks`` (the §IV-C hottest-first
-pinning) and ``OracleCache`` (Belady eviction from a replayed sampler
-schedule, ``storage.oracle``).  The trace-replay models ``BlockTrace``,
-``block_trace`` and ``PinnedCache`` come with the storage engines
-(ROADMAP item 13).
+The port's copy of the reference's ``storage/blockdev.py``:
+
+* ``BlockTrace``/``block_trace``: a batch's touched nodes as the block
+  request stream a 4 KB-granular device serves (``storage.engines``);
+* ``LRUCache``: the OS page cache model, payload-less for trace replay
+  (``access``) or carrying block payloads for the live store;
+* ``select_pinned_blocks`` and ``PinnedCache``: the §IV-C direct-I/O
+  scratchpad, the hottest blocks pinned and an LRU for the rest;
+* ``OracleCache``: Belady eviction from a replayed sampler schedule
+  (``storage.oracle``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from collections import OrderedDict
 
@@ -19,9 +25,46 @@ import numpy as np
 EDGE_ENTRY_BYTES = 8    # the paper's 8-byte neighbor entries (§III-B)
 
 
+@dataclasses.dataclass
+class BlockTrace:
+    """Per-request block extents for one batch's touched nodes."""
+    first_block: np.ndarray      # (R,) int64
+    n_blocks: np.ndarray         # (R,) int64 blocks per request
+    total_blocks: int            # sum(n_blocks): block fetches if uncached
+    unique_blocks: int
+    chunk_bytes: np.ndarray      # (R,) exact neighbor-list bytes per request
+
+    @property
+    def n_requests(self) -> int:
+        return int(self.first_block.shape[0])
+
+    def raw_block_bytes(self, block_bytes: int) -> int:
+        """Bytes moved when every request fetches whole blocks (Fig. 10a)."""
+        return int(self.total_blocks) * block_bytes
+
+
+def block_trace(g, touched_nodes: np.ndarray,
+                block_bytes: int = 4096) -> BlockTrace:
+    t = np.asarray(touched_nodes, np.int64)
+    start = g.indptr[t] * EDGE_ENTRY_BYTES
+    end = g.indptr[t + 1] * EDGE_ENTRY_BYTES
+    first = start // block_bytes
+    # degree-0 nodes still cost one metadata block probe
+    last = np.maximum(end - 1, start) // block_bytes
+    n_blocks = last - first + 1
+    uniq = set()
+    for f, n in zip(first, n_blocks):
+        uniq.update(range(int(f), int(f + n)))
+    return BlockTrace(first_block=first, n_blocks=n_blocks,
+                      total_blocks=int(n_blocks.sum()),
+                      unique_blocks=len(uniq),
+                      chunk_bytes=np.maximum(end - start, 1))
+
+
 class LRUCache:
-    """O(1) LRU over block ids whose entries carry block payloads, with
-    hit/miss/eviction counters."""
+    """O(1) LRU over block ids, with hit/miss/eviction counters: touched
+    without payloads in trace replay (``access``), or carrying block
+    payloads as the live store's page cache (``get``/``put``)."""
 
     def __init__(self, capacity_blocks: int):
         self.capacity = max(1, int(capacity_blocks))
@@ -29,6 +72,24 @@ class LRUCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+
+    def access(self, block: int) -> bool:
+        """Touch a block (payload-less, trace-replay use); True on hit."""
+        od = self._od
+        if block in od:
+            od.move_to_end(block)
+            self.hits += 1
+            return True
+        self.misses += 1
+        od[block] = None
+        if len(od) > self.capacity:
+            od.popitem(last=False)
+            self.evictions += 1
+        return False
+
+    def access_run(self, first: int, n: int) -> int:
+        """Touch blocks [first, first+n); returns the number of misses."""
+        return sum(0 if self.access(first + i) else 1 for i in range(n))
 
     def get(self, block: int):
         """Payload for ``block`` or None on miss (counts either way)."""
@@ -213,3 +274,56 @@ def select_pinned_blocks(g, budget_blocks: int, block_bytes: int = 4096,
             break
         pinned.update((b, None) for b in blocks)
     return pinned
+
+
+class PinnedCache:
+    """User-space scratchpad: part of the capacity (half by default)
+    statically pins the hottest blocks, the rest is an app-managed LRU
+    for short-term reuse (the "manually orchestrate high-locality data
+    movements" runtime of §IV-C: the page cache's DRAM budget, informed
+    placement, no kernel maintenance costs)."""
+
+    def __init__(self, g, capacity_blocks: int, block_bytes: int = 4096,
+                 entry_bytes: int = EDGE_ENTRY_BYTES,
+                 pinned_budget: int | None = None):
+        """``g`` needs ``degrees()`` and ``edge_byte_range(u,
+        entry_bytes)``.  ``pinned_budget`` caps the pinned blocks (default
+        half the capacity); a budget above the capacity raises, since
+        pins are never evicted."""
+        capacity_blocks = max(2, int(capacity_blocks))
+        if pinned_budget is None:
+            pinned_budget = capacity_blocks // 2
+        if pinned_budget > capacity_blocks:
+            raise ValueError(
+                f"pinned budget {pinned_budget} exceeds cache capacity "
+                f"{capacity_blocks} blocks; pins are never evicted, so "
+                "shrink the pinned set or grow the cache")
+        self._pinned = select_pinned_blocks(g, pinned_budget, block_bytes,
+                                            entry_bytes)
+        self._lru = LRUCache(capacity_blocks - len(self._pinned))
+        self._pinned_hits = 0
+
+    def access(self, block: int) -> bool:
+        if block in self._pinned:
+            self._pinned_hits += 1
+            return True
+        return self._lru.access(block)
+
+    def access_run(self, first: int, n: int) -> int:
+        return sum(0 if self.access(first + i) else 1 for i in range(n))
+
+    @property
+    def hits(self) -> int:
+        return self._pinned_hits + self._lru.hits
+
+    @property
+    def misses(self) -> int:
+        return self._lru.misses
+
+    @property
+    def evictions(self) -> int:
+        return self._lru.evictions
+
+    def counters(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}

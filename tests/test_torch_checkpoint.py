@@ -315,7 +315,8 @@ def test_gnn_cli_resume(tmp_path, capsys):
     with pytest.raises(SystemExit, match="no checkpoints"):
         port_train.main(GNN_ARGV + ["--resume", "--ckpt-dir",
                                     str(tmp_path / "empty")])
-    flags = ["--graph-store", "disk", "--device-cache-rows", "24",
+    flags = ["--backend", "pallas", "--graph-store", "disk",
+             "--device-cache-rows", "24",
              "--edge-cache-blocks", "16", "--cache-mb", "0.25"]
     _, full, _ = port_train.main(GNN_ARGV + flags + [
         "--steps", "8", "--ckpt-dir", str(tmp_path / "a")])

@@ -380,7 +380,8 @@ def test_cli_trains_with_the_host_backend(flags):
 def test_cli_refuses_saint_on_pallas(capsys):
     from repro_torch.launch import train as port_train
     with pytest.raises(SystemExit) as e:
-        port_train.parse_args(["--device", "cpu", "--sampler", "saint"])
+        port_train.parse_args(["--device", "cpu", "--backend", "pallas",
+                               "--sampler", "saint"])
     assert e.value.code == 2
     assert "saint" in capsys.readouterr().err
     with warnings.catch_warnings():

@@ -48,7 +48,10 @@ PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
                 "repro_torch.obs.tracer", "repro_torch.obs.session",
                 "repro_torch.obs.summary", "repro_torch.isp",
                 "repro_torch.isp.protocol", "repro_torch.isp.transport",
-                "repro_torch.isp.server", "repro_torch.isp.client")
+                "repro_torch.isp.server", "repro_torch.isp.client",
+                "repro_torch.core.isp", "repro_torch.core.partition",
+                "repro_torch.launch.mesh", "repro_torch.storage.engines",
+                "repro_torch.storage.e2e")
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -117,11 +120,19 @@ def test_serve_cli_without_gpu_fails_loudly():
 
 
 def test_cli_rejects_flags_of_later_slices():
-    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-                "--backend", "isp"])
-    assert out.returncode == 2 and "invalid choice" in out.stderr
-    out = _run(["-m", "repro_torch.launch.train", "--device", "cpu",
-                "--graph-store", "disk", "--storage-engine", "mmap"])
+    """``--backend isp`` (ROADMAP item 14) and ``--storage-engine``
+    (item 13) run; ``--mesh`` (item 16) is still unknown."""
+    small = ["-m", "repro_torch.launch.train", "--device", "cpu", "--steps",
+             "2", "--batch", "8", "--fanouts", "3,2", "--hidden", "16",
+             "--log-every", "1"]
+    out = _run(small + ["--backend", "isp"])
+    assert out.returncode == 0, out.stderr
+    assert "backend=isp" in out.stdout and out.stdout.count("loss=") == 2
+    out = _run(small + ["--backend", "host", "--graph-store", "disk",
+                        "--storage-engine", "mmap"])
+    assert out.returncode == 0, out.stderr
+    assert "engine=mmap" in out.stdout and "measured-vs-simulated" in out.stdout
+    out = _run(small + ["--mesh", "4x1"])
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr
 
 

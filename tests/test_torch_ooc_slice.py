@@ -9,10 +9,11 @@ and every per-batch ``trace.io`` counter (store, devcache, edgecache) are
 bit-equal to the reference's ``build_pipeline``, and the ids equal the
 port's own in-memory loader's; the cached kernels launch at each planned
 chunk's and segment's own length, where the reference pads.  A 4-step fp32 loss trajectory matches
-within 1e-5, and the CLI trains out of core on the CPU and rejects the
-flags of later slices.
+within 1e-5, and the CLI trains out of core on the CPU and rejects
+invalid flag combinations.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -253,8 +254,9 @@ def test_loss_trajectory_matches_reference_fp32(graphs, tmp_path,
 
 
 SRC = Path(__file__).resolve().parent.parent / "src"
-SMALL = ["--device", "cpu", "--batch", "8", "--fanouts", "3,2",
-         "--hidden", "16", "--log-every", "1", "--steps", "2"]
+SMALL = ["--device", "cpu", "--backend", "pallas", "--batch", "8",
+         "--fanouts", "3,2", "--hidden", "16", "--log-every", "1", "--steps",
+         "2"]
 
 
 def _cli(args):
@@ -291,35 +293,37 @@ def test_cli_disk_without_device_tier_proceeds_in_memory(tmp_path):
                                    ["--prefetch", "-1"],
                                    ["--spec", "engine.json"],
                                    ["--fault-eio", "1.5"],
-                                   ["--storage-engine", "mmap"],
+                                   ["--storage-engine", "nvme"],
                                    ["--backend", "isp"],
                                    ["--cache-policy", "optimal"],
                                    ["--device-cache-policy", "optimal"],
                                    ["--device-cache-oracle-window", "4"],
-                                   ["--storage-engine", "isp_oracle"],
+                                   ["--backend", "isp", "--store-mode",
+                                    "isp"],
                                    ["--device-cache-pinned-fraction", "2"],
                                    ["--io-retries", "0"]])
 def test_cli_rejects_deferred_and_invalid_flags(flags, capsys, tmp_path):
-    """Flags and choices of later items (the storage engines, item 13;
-    the mesh backend, item 14) are unknown, invalid values fail
-    validation (``--overlap 1`` needs ``--prefetch``, an ``optimal`` tier
-    needs its oracle window and a window needs ``optimal``), and a spec
-    file that names a later feature is refused with its item."""
+    """Invalid values fail validation: an engine outside ``ENGINES`` (on
+    the command line, or in a spec file), a device cache tier on the isp
+    backend, the isp backend over the ISP service's store mode,
+    ``--overlap 1`` without ``--prefetch``, an ``optimal`` tier without
+    its oracle window and a window without ``optimal``."""
     if flags[0] == "--spec":
         spec = tmp_path / flags[1]
-        spec.write_text(port_config.PipelineSpec(
+        d = port_config.PipelineSpec(
             backend=port_config.BackendSpec(name="pallas"),
-            store=port_config.StoreSpec(kind="disk"),
-            engine="mmap").to_json())
+            store=port_config.StoreSpec(kind="disk")).to_dict()
+        spec.write_text(json.dumps(dict(d, engine="nvme")))
         flags = ["--spec", str(spec)]
     with pytest.raises(SystemExit) as e:
-        port_train.parse_args(["--device", "cpu", "--graph-store", "disk",
+        port_train.parse_args(["--device", "cpu", "--backend", "pallas",
+                               "--graph-store", "disk",
                                "--device-cache-rows", "8", *flags])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "error:" in err
     if flags[0] == "--spec":
-        assert "ROADMAP item 13" in err
+        assert "engine must be one of" in err
 
 
 def test_cli_defaults_are_the_references():

@@ -7,11 +7,9 @@ manifest's ``pipeline_spec`` load to equal dicts in both packages;
 generated flags build equal specs from a table of argvs, with and without
 ``--spec``; the four specs the port runs without overlap give hop ids,
 features, labels and every per-batch ``trace.io`` counter bit-equal to the
-reference's ``build_pipeline`` over the same spec on reddit; the one it
-does not run yet (``smoke_isp``) is refused, before anything is opened,
-with the ROADMAP item it waits on, and the five specs of the later
-slices that the port runs now (oracle, host backend, telemetry, the ISP
-service) parse and build.
+reference's ``build_pipeline`` over the same spec on reddit; and the six
+specs of the later slices (oracle, host backend, telemetry, the ISP
+service, the mesh ISP backend) parse and build.  No spec is refused.
 """
 
 import argparse
@@ -42,11 +40,11 @@ PORTED = ("smoke_pallas", "smoke_pallas_devcache_disk",
           "smoke_pallas_edgecache", "train_pallas_outofcore",
           "smoke_pallas_overlap", "smoke_pallas_overlap_faults",
           "smoke_pallas_optimal", "smoke_host", "smoke_disk_host",
-          "smoke_pallas_overlap_obs", "smoke_pallas_isp")
-#: spec file -> the ROADMAP item it waits on
-REFUSED = {"smoke_isp": 14}
-#: the specs refused before the oracle, the host backend, telemetry and
-#: the ISP service were ported
+          "smoke_pallas_overlap_obs", "smoke_pallas_isp", "smoke_isp")
+#: spec file -> the ROADMAP item it waits on (none: every spec runs)
+REFUSED = {}
+#: the specs refused before the oracle, the host backend, telemetry, the
+#: ISP service and the mesh ISP backend were ported
 LATER = ("smoke_host", "smoke_disk_host", "smoke_isp", "smoke_pallas_isp",
          "smoke_pallas_optimal", "smoke_pallas_overlap_obs")
 
@@ -214,13 +212,8 @@ def test_flag_table_is_the_references_for_the_ported_fields():
     ref = ref_config.FLAG_TABLE
     for flag, (path, kw) in port_config.FLAG_TABLE.items():
         assert ref[flag][0] == path, flag
-        narrowed = {"--backend": ("host", "pallas")}
-        want = dict(ref[flag][1])
-        if flag in narrowed:
-            want["choices"] = narrowed[flag]
-        assert _kwargs(kw) == _kwargs(want), flag
-    later = set(ref) - set(port_config.FLAG_TABLE)
-    assert later == {"--storage-engine"}
+        assert _kwargs(kw) == _kwargs(ref[flag][1]), flag
+    assert set(ref) == set(port_config.FLAG_TABLE)
 
 
 def _parse(config, argv):
@@ -295,9 +288,14 @@ def test_spec_from_args_matches_reference(argv):
 
 
 def test_cli_backend_default_is_pallas_and_flags_reach_the_spec():
-    args = port_train.parse_args(["--device", "cpu", "--graph-store",
-                                  "disk", "--prefetch", "2", "--overlap",
-                                  "1", "--edge-cache-blocks", "16"])
+    """The launcher's backend defaults to ``isp``, as the reference's
+    does; ``--backend pallas`` takes the device tiers."""
+    assert port_train.parse_args(
+        ["--device", "cpu"]).pipeline_spec.backend.name == "isp"
+    args = port_train.parse_args(["--device", "cpu", "--backend", "pallas",
+                                  "--graph-store", "disk", "--prefetch",
+                                  "2", "--overlap", "1",
+                                  "--edge-cache-blocks", "16"])
     spec = args.pipeline_spec
     assert spec.backend.name == "pallas"
     assert spec.prefetch.overlap and spec.prefetch.depth == 2
@@ -356,44 +354,26 @@ def test_ported_specs_match_reference(reddit, name):
 
 
 @pytest.mark.parametrize("name", LATER)
-def test_later_specs_are_refused_before_anything_opens(name, monkeypatch,
-                                                       capsys, tmp_path):
-    import repro_torch.storage.store as port_store
-
-    if name not in REFUSED:
-        # ported since: the spec parses and builds, and a batch comes out
-        # (the telemetry spec's files go to the test's directory)
-        files = (["--trace-out", str(tmp_path / "t.json"), "--metrics-out",
-                  str(tmp_path / "m.jsonl")]
-                 if name == "smoke_pallas_overlap_obs" else [])
-        args = port_train.parse_args(["--device", "cpu", "--spec",
-                                      _path(name), *files])
-        g = load_dataset("reddit")
-        with port_config.build_pipeline(args.pipeline_spec, g,
-                                        device="cpu") as pipe:
-            assert pipe.backend == args.pipeline_spec.backend.name
-            mb = pipe.get_batch(0)
-            assert mb.hop_feats[-1].shape == (
-                args.pipeline_spec.batch_size,
-                *args.pipeline_spec.sampler.fanouts, g.feat_dim)
-        if files:
-            assert (tmp_path / "t.json").exists()
-        return
-
-    def opened(*a, **kw):
-        raise AssertionError("a resource was opened")
-
-    monkeypatch.setattr(port_store, "open_store", opened)
-    monkeypatch.setattr(port_config.tempfile, "mkdtemp", opened)
-    spec = port_config.PipelineSpec.load(_path(name))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP item {REFUSED[name]}\\b"):
-        port_config.build_pipeline(spec, load_dataset("reddit"),
-                                   device="cpu")
-    with pytest.raises(SystemExit) as e:
-        port_train.parse_args(["--device", "cpu", "--spec", _path(name)])
-    assert e.value.code == 2
-    assert f"ROADMAP item {REFUSED[name]}" in capsys.readouterr().err
+def test_later_specs_are_refused_before_anything_opens(name, tmp_path):
+    """The specs of the later slices are refused no more: each parses,
+    builds and yields a batch (the telemetry spec's files go to the
+    test's directory)."""
+    assert name not in REFUSED
+    files = (["--trace-out", str(tmp_path / "t.json"), "--metrics-out",
+              str(tmp_path / "m.jsonl")]
+             if name == "smoke_pallas_overlap_obs" else [])
+    args = port_train.parse_args(["--device", "cpu", "--spec", _path(name),
+                                  *files])
+    g = load_dataset("reddit")
+    with port_config.build_pipeline(args.pipeline_spec, g,
+                                    device="cpu") as pipe:
+        assert pipe.backend == args.pipeline_spec.backend.name
+        mb = pipe.get_batch(0)
+        assert mb.hop_feats[-1].shape == (
+            args.pipeline_spec.batch_size,
+            *args.pipeline_spec.sampler.fanouts, g.feat_dim)
+    if files:
+        assert (tmp_path / "t.json").exists()
 
 
 def test_make_loader_shim_equals_build_pipeline(reddit, tmp_path):
@@ -422,7 +402,7 @@ def test_make_loader_shim_equals_build_pipeline(reddit, tmp_path):
         for st in stores:
             st.close()
     with pytest.raises(KeyError, match="unknown backend"):
-        make_loader("isp", g)
+        make_loader("mesh", g)
 
 
 @pytest.mark.parametrize("cache_mb", [0.25, 64.0])

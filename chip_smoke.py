@@ -35,15 +35,19 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``flash_attention_fwd`` (causal) at
      qwen2-0.5b's prefill (B 8, S 2048, 14 query over 2 kv heads, D 64),
      at D 128 (B 1, 32 over 8 heads) and D 256 (B 2, S 1024, 4 over 1) and
-     at a ragged S 1000, out within 2e-2 and lse within 1e-3;
-     ``decode_attention`` over qwen2-0.5b's 2,112-position cache at batch
-     8, valid_len 1, 1000 and 2112, window 0 and 512, within 2e-2, with
-     its achieved GB/s and the host's enqueue time per call; the
-     flash backward's ``flash_attention_bwd_dq`` and
-     ``flash_attention_bwd_dkv`` at the training shape (B 4, S 4096, 14
-     over 2 heads, D 64), at D 128 (32 over 8), D 256, a ragged S 1000
-     and one full (non-causal) case, dq, dk and dv within 1 % of the
-     plain version's largest entry; ``ssd_chunk_scan`` at the layer-0
+     at a ragged S 1000 and at moonshot-v1-16b-a3b's prefill (B 8, S
+     2048, 16 over 16 heads, group 1, D 128), out within 2e-2 and lse
+     within 1e-3; ``decode_attention`` over qwen2-0.5b's 2,112-position
+     cache at batch 8, valid_len 1, 1000 and 2112, window 0 and 512, and
+     over moonshot's 2,064-position cache (16 over 16 heads, D 128) at
+     valid_len 2063, within 2e-2, with its achieved GB/s and the host's
+     enqueue time per call; the flash backward's
+     ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` at the
+     training shape (B 4, S 4096, 14 over 2 heads, D 64), at D 128 (32
+     over 8), D 256, a ragged S 1000, one full (non-causal) case and
+     moonshot's training-parity step (B 1, S 512, 16 over 16 heads, D
+     128), dq, dk and dv within 1 % of the plain version's largest
+     entry; ``ssd_chunk_scan`` at the layer-0
      mixer inputs of mamba2-370m's and hymba-1.5b's serve entry points
      (B 8, S 2048; h 32, n 128 and h 50, n 16; p 64, chunk 256), at a
      group case (B 1, S 512, 8 heads over 2 groups) and at two ragged
@@ -86,8 +90,10 @@ Phases, in order; any failure raises and the script exits nonzero:
   9. where the out-of-core step's time goes: the wall time of each stage
      (sample, resolve, admit, train step) with a device synchronize at
      each boundary, then a profile of two steps;
-  10. serving on the card against the CPU's plain path: qwen2-0.5b at full
-     width cut to 2 layers, equal bf16 weights, batch 2, prompt 256, 8
+  10. serving on the card against the CPU's plain path: qwen2-0.5b's
+     first 2 layers at full width (the full model's weights and scales:
+     the reference scales a stacked leaf by 1/sqrt(its layers)), equal
+     bf16 weights drawn on the card, batch 2, prompt 256, 8
      tokens, ``attn_impl`` flash and chunked; logits within 0.125 and the
      greedy ids equal (up to near-ties of the bf16 logits);
   11. the serving path through its entry point,
@@ -98,11 +104,14 @@ Phases, in order; any failure raises and the script exits nonzero:
      ms per step and tok/s;
   12. where serving's time goes: a warm prefill and steady decode steps
      timed, then profiled (device time by kernel, device busy share);
-  13. training on the card against the CPU's plain path: qwen2-0.5b at
-     full width cut to 2 layers, equal float32 weights, batch 1, 512
+  13. training on the card against the CPU's plain path: qwen2-0.5b's
+     first 2 layers at full width, equal float32 weights, batch 1, 512
      tokens; ``attn_impl`` flash in bf16 and chunked in float32
      activations: the loss, the grad norm, each leaf's gradient and the
-     parameters after one AdamW step within stated tolerances;
+     parameters after one AdamW step within stated tolerances; the flash
+     run's launches (forward 2 a layer, each backward kernel 1); a
+     control, the float32 step with TF32 products, whose grad norm must
+     lie beyond the float32 limit;
   14. the training path through its entry point,
      ``repro_torch.launch.train.main``: qwen2-0.5b at full width, batch 4,
      4096 tokens (``train_4k``; its global batch of 256 cut to 4 for one
@@ -113,8 +122,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      tok/s and peak device memory;
   15. where a training step's time goes: steady steps timed, then one
      profiled (device time by kernel, device busy share);
-  16. SSM serving on the card against the CPU's plain path: mamba2-370m
-     and hymba-1.5b at full width cut to 2 layers, equal bf16 weights,
+  16. SSM serving on the card against the CPU's plain path: the first 2
+     layers of mamba2-370m and hymba-1.5b at full width, equal bf16
+     weights,
      batch 2, prompts 300 and 512, 8 tokens; logits within 0.125 and the
      greedy ids equal up to near-ties, as phase 10;
   17. the SSM serving paths through the entry point: ``--arch
@@ -227,8 +237,35 @@ Phases, in order; any failure raises and the script exits nonzero:
      each; then phase 8's command with ``--storage-engine isp``: a
      simulated storage delay above 0, losses and launches equal phase
      8's;
-  28. a JSON line of the kernels' numbers (the GNN's per launch, with
-     their sums per step beside them), the card line, and the result.
+  28. the MoE family.  a: serving on the card against the CPU's plain
+     path, the first 2 layers of moonshot-v1-16b-a3b and mixtral-8x7b at
+     full width, equal bf16 weights drawn on the card, batch 2, prompts
+     300 and 512, 8 tokens: the card's prefill with each layer's MoE and
+     the logits also run on the CPU on equal inputs (expert ids equal but
+     at near-ties of the CPU's float32 router scores, within 1e-4,
+     counted; with none, keep flags and slot tables bit-equal; outputs of
+     tokens routed alike within 2e-2 plus one bf16 ulp; logits within
+     0.125); the tokens each layer of the two devices' own prefills
+     routes apart, counted; greedy serving, the CPU fed the card's ids:
+     the ids equal up to near-ties, as phase 10, and each step's logits
+     reported (a token routed apart at a router near-tie moves by O(1)).
+     b: ``repro_torch.launch.serve.main --arch moonshot-v1-16b-a3b
+     --full-config --batch 8 --prompt-len 2048 --gen 16``, the counters
+     reset just before: ``flash_attention_fwd`` 48, ``decode_attention``
+     48 x 15, no other kernel; finite logits; the weights' draw on the
+     card (s), prefill ms, decode ms per step, tok/s, peak device
+     memory.  c: the same for mixtral-8x7b at full width cut to 8 layers
+     (its 87.0 GiB do not fit one card): ``decode_attention`` 8 x 15, no
+     flash launch (its sliding window takes the chunked prefill, as in
+     the reference).  d: moonshot's first 2 layers: layer 0's MoE
+     forward and backward on equal float32 inputs, card against CPU,
+     within 1e-4 relative L2, then phase 13's step card against CPU in
+     both activation types at phase 13's tolerances, its TF32 control
+     and its launches;
+  29. a JSON line of the kernels' numbers (the GNN's per launch, with
+     their sums per step beside them; the LM's launches in phase 28's
+     runs beside the serve and train entry points'), the card line, and
+     the result.
 
 It needs one CUDA device and exits nonzero without one.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -278,15 +315,15 @@ from repro_torch.kernels.ssd_chunk_scan import ssd_chunk_scan  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.shapes import make_batch  # noqa: E402
-from repro_torch.models.params import (cast_tree, init_params,  # noqa: E402
+from repro_torch.models.params import (init_params,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.models.registry import get_config  # noqa: E402
-from repro_torch.models import ssm, transformer  # noqa: E402
-from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.models import moe, ssm, transformer  # noqa: E402
+from repro_torch.models.layers import activation, rmsnorm  # noqa: E402
 from repro_torch.models.transformer import (COMPUTE_DTYPE,  # noqa: E402
                                             LM, build_defs)
-from repro_torch.train.steps import (build_prefill_step,  # noqa: E402
-                                     build_serve_step, cross_entropy,
+from repro_torch.train.steps import (MOE_AUX_WEIGHT,  # noqa: E402
+                                     build_prefill_step, build_serve_step,
                                      init_train_state)
 from repro_torch.train.steps import \
     build_train_step as build_lm_train_step  # noqa: E402
@@ -364,13 +401,13 @@ ISP_SPEC = "smoke_pallas_isp"
 UNIX_PATH_MAX = 107
 DEVICE = "cuda"
 # LM serving: the arch, the entry point's batch, prompt and generation,
-# and the card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
+# and the card-vs-CPU parity run (the first PARITY_LAYERS layers)
 LM_ARCH = "qwen2-0.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_GEN = 2, 2, 256, 8
 # LM training: the entry point's batch, tokens and steps (launch/shapes.py's
 # train_4k, its global batch of 256 cut to 4 for one card), and the
-# card-vs-CPU parity run (full width, cut to PARITY_LAYERS layers)
+# card-vs-CPU parity run (the first PARITY_LAYERS layers)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 5
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 1, 512
 # attention kernels against their plain versions: bf16 outputs within a
@@ -399,22 +436,49 @@ F32_TRAIN_REL_TOL, F32_GRAD_L2_TOL = 1e-4, 1e-2
 # bf16 (magnitude 4-8, one ulp 1/32) from activations that round apart
 # on the two devices; 4 ulps
 LOGIT_TOL = 0.125
+# the MoE family (phase 28): moonshot-v1-16b-a3b through the serve entry
+# point at full width and depth (52.3 GiB of bf16 weights) with MOE_GEN
+# tokens, mixtral-8x7b at full width cut to MIXTRAL_LAYERS layers (the
+# whole model's 87.0 GiB does not fit one card); both at their first
+# PARITY_LAYERS layers for the card-vs-CPU runs.  moonshot's attention is 16 query over 16 kv
+# heads (group 1), D 128
+MOE_ARCH, MIXTRAL = "moonshot-v1-16b-a3b", "mixtral-8x7b"
+MOE_GEN, MIXTRAL_LAYERS = 16, 8
 # flash forward cases (B, S, Hq, Hkv, D), causal: qwen2-0.5b's prefill at
-# the entry point's shape first, then head dims 128 and 256 and a ragged S
+# the entry point's shape first, then head dims 128 and 256, a ragged S and
+# moonshot's prefill at its entry point's shape
 FLASH_CASES = [(SERVE_BATCH, SERVE_PROMPT, 14, 2, 64), (1, 2048, 32, 8, 128),
-               (2, 1024, 4, 1, 256), (SERVE_BATCH, 1000, 14, 2, 64)]
+               (2, 1024, 4, 1, 256), (SERVE_BATCH, 1000, 14, 2, 64),
+               (SERVE_BATCH, SERVE_PROMPT, 16, 16, 128)]
 # flash backward cases (B, S, Hq, Hkv, D, causal): qwen2-0.5b's training
 # step at the entry point's shape first, then head dims 128 and 256, a
-# ragged S and a full (non-causal) case
+# ragged S, a full (non-causal) case and moonshot's training-parity step
+# (group 1)
 FLASH_BWD_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, True),
                    (1, 2048, 32, 8, 128, True), (2, 1024, 4, 1, 256, True),
                    (TRAIN_BATCH, 1000, 14, 2, 64, True),
-                   (1, 1000, 14, 2, 64, False)]
+                   (1, 1000, 14, 2, 64, False),
+                   (TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, 16, 16, 128, True)]
 # decode cases: qwen2-0.5b's cache at the entry point's shape, (valid_len,
-# window); the full cache without a window stands for a decode step
+# window); the full cache without a window stands for a decode step; and
+# moonshot's 2,064-position cache at its last decode step
 DECODE_SHAPE = (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, 14, 2, 64)
 DECODE_CASES = [(v, w) for v in (1, 1000, SERVE_PROMPT + SERVE_GEN)
                 for w in (0, 512)]
+MOE_DECODE_SHAPE = (SERVE_BATCH, SERVE_PROMPT + MOE_GEN, 16, 16, 128)
+MOE_DECODE_VALID = SERVE_PROMPT + MOE_GEN - 1
+# the MoE card-vs-CPU serving runs' prompts; a near-tie of the float32
+# router scores: where the card and the CPU route a token to different
+# experts on equal inputs, the CPU scores the two within this of each
+# other (their float32 sums differ in order only, ~1e-5 at moonshot's
+# logits); layer 0's MoE output on equal inputs, on the tokens routed
+# alike, within MOE_OUT_ATOL plus one bf16 ulp (2**-7) of the entry; its
+# float32 forward and backward on equal inputs within MOE_GRAD_REL_TOL
+# (relative L2 of the output and of each gradient)
+MOE_PARITY_PROMPTS = (300, 512)
+ROUTER_TIE_TOL = 1e-4
+MOE_OUT_ATOL = 2e-2
+MOE_GRAD_REL_TOL = 1e-4
 # SSM and hybrid serving: the archs and the entry point's generation length
 # (batch and prompt as above); the card-vs-CPU parity run's prompts (300
 # pads to the chunk of 256); the SSD kernel's y and final state within
@@ -1764,8 +1828,7 @@ def lm_full_ckpt_case(ckpt_dir: str) -> dict:
     (``save_async``'s device-to-host copy, which the trainer waits for),
     the whole save (to ``wait``'s return) and the restore."""
     cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
-    model = LM(cfg, tree_map(lambda t: t.to(DEVICE),
-                             init_params(build_defs(cfg), seed=0)),
+    model = LM(cfg, init_params(build_defs(cfg), seed=0, device=DEVICE),
                trainable=True)
     opt = adamw(warmup_cosine(1e-3, 10, 50))
     state = init_train_state(model, opt)
@@ -2911,8 +2974,8 @@ def ssd_model_inputs(arch: str) -> tuple:
     prompt (batch SERVE_BATCH, SERVE_PROMPT tokens): (x, dt, A, B, C) as
     ``models.ssm.apply_ssm`` hands them to the kernel, and the chunk."""
     cfg = get_config(arch)
-    model = LM(cfg, tree_map(lambda t: t.to(DEVICE), cast_tree(
-        init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)))
+    model = LM(cfg, init_params(build_defs(cfg), seed=0, device=DEVICE,
+                                dtype=COMPUTE_DTYPE))
     batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, kind="prefill",
                        device=DEVICE)
     p = model._layer(0)
@@ -2955,13 +3018,15 @@ def ssd_kernel_cases(timer, gen) -> list:
 
 def lm_kernel_phase(timer) -> dict:
     """Phase 3, the LM's kernels: flash_attention_fwd at FLASH_CASES,
-    decode_attention at DECODE_SHAPE x DECODE_CASES, the two flash
-    backward kernels at FLASH_BWD_CASES and ssd_chunk_scan
-    (``ssd_kernel_cases``), each against its plain version.  ``count`` is
-    the launches per prefill (flash forward, at the serve entry point's
-    shape; the SSD kernel, in mamba2-370m's), per decode step (decode,
-    full cache) and per training step (the backward kernels, at the train
-    entry point's shape)."""
+    decode_attention at DECODE_SHAPE x DECODE_CASES and at
+    MOE_DECODE_SHAPE, the two flash backward kernels at FLASH_BWD_CASES
+    and ssd_chunk_scan (``ssd_kernel_cases``), each against its plain
+    version.  ``count`` is the launches per prefill (flash forward, at
+    qwen2-0.5b's serve entry point's shape; the SSD kernel, in
+    mamba2-370m's), per decode step (decode, qwen2-0.5b's full cache) and
+    per training step (the backward kernels, at the train entry point's
+    shape); the moonshot cases count 0 in those sums (their launches are
+    phase 28's)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     layers = get_config(LM_ARCH).num_layers
     flash = [flash_case(timer, gen, *shape, count=layers if i == 0 else 0)
@@ -2972,6 +3037,10 @@ def lm_kernel_phase(timer) -> dict:
     dec = [decode_case(timer, q, k, v, vl, w,
                        count=layers if (vl, w) == (S, 0) else 0)
            for vl, w in DECODE_CASES]
+    B, S, Hq, Hkv, D = MOE_DECODE_SHAPE
+    q = _bf16_randn(gen, B, Hq, D)
+    k, v = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+    dec.append(decode_case(timer, q, k, v, MOE_DECODE_VALID, 0, count=0))
     del q, k, v
     torch.cuda.empty_cache()
     cases = {"flash_attention_fwd": flash, "decode_attention": dec,
@@ -3038,30 +3107,152 @@ def _greedy(model, batch, prompt: int, gen: int, device, feed=None):
     return torch.cat(ids, dim=1).cpu(), all_logits
 
 
-def _serve_parity(cfg, prompt: int, tag: str) -> dict:
-    """Serving ``cfg`` on the card against the CPU's plain path, equal bf16
-    weights, batch PARITY_BATCH, ``prompt`` tokens, PARITY_GEN tokens.  The
-    card decodes greedily; the CPU is fed the card's ids, so every step's
-    logits compare like with like: within LOGIT_TOL.  The greedy ids are
-    the card's and the CPU's argmax of the same step; they must be equal,
-    except where the CPU's top two logits lie within LOGIT_TOL of each
-    other (bf16 logits over a vocabulary of tens of thousands of words
-    tie) and the card's pick is within LOGIT_TOL of the CPU's maximum."""
-    params = cast_tree(init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)
+def _first_layers(arch: str, impl: str, dtype=None):
+    """(cfg, weights): ``arch`` at full width cut to PARITY_LAYERS layers,
+    ``attn_impl=impl``, and its seed-0 weights drawn on the card in
+    ``dtype`` (default float32): the full model's first PARITY_LAYERS
+    layers, at its depth's scales (the reference scales a stacked leaf
+    over its default fan-in axis, the layers, by 1/sqrt(num_layers))."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=PARITY_LAYERS, attn_impl=impl)
+    return cfg, init_params(build_defs(full), seed=0, device=DEVICE,
+                            dtype=dtype, layers=PARITY_LAYERS)
+
+
+def _moe_kw(cfg) -> dict:
+    return dict(top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor, routing=cfg.routing,
+                groups=cfg.moe_groups)
+
+
+def _moe_prefill(cfg, model, tokens, device, twin=None) -> dict:
+    """The prefill of ``tokens`` through ``model`` on ``device``, layer by
+    layer as ``transformer._apply_block`` runs it: each layer's
+    ``moe.route`` of its MoE input (the normalized residual after its
+    attention), and the last position's logits.  With ``twin`` (the same
+    model on the CPU), each layer's MoE and the logits also run on the
+    CPU on this run's inputs: the twin's routes, both MoE outputs, the
+    CPU's float32 router scores and the twin's logits."""
+    kw, act = _moe_kw(cfg), activation(cfg.act)
+    out = {"routes": [], "twin_routes": [], "moe": [], "twin_moe": [],
+           "scores": []}
+    with torch.no_grad():
+        x = model._embed(tokens.to(device))
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=device)
+        for i, window in enumerate(model._windows):
+            p = model._layer(i)
+            x = x + transformer._attn_block(cfg, p, x, pos, window)[0]
+            h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+            y = moe.apply_moe(p, h, act=act, **kw)[0]
+            out["routes"].append(moe.route(p["router"], h, **kw))
+            if twin is not None:
+                q, hc = twin._layer(i), h.cpu()
+                out["moe"].append(y.cpu())
+                out["twin_moe"].append(moe.apply_moe(q, hc, act=act,
+                                                     **kw)[0])
+                out["twin_routes"].append(moe.route(q["router"], hc, **kw))
+                logits = hc.reshape(-1, hc.shape[-1]).float() \
+                    @ q["router"].float()
+                out["scores"].append(logits if cfg.routing == "softmax"
+                                     else torch.sigmoid(logits))
+            x = x + y
+        out["logits"] = model._logits(x[:, -1:]).cpu()
+        if twin is not None:
+            out["twin_logits"] = twin._logits(x[:, -1:].cpu())
+    return out
+
+
+def _routed_apart(a, b) -> torch.Tensor:
+    """Per token, whether routes ``a`` and ``b`` differ in an expert id or
+    a keep flag."""
+    ea, eb = a.expert_idx.cpu(), b.expert_idx.cpu()
+    return ((ea != eb).any(-1) | (a.keep.cpu() != b.keep.cpu()).view_as(
+        ea).any(-1)).reshape(-1)
+
+
+def _moe_layers_case(cfg, card, cpu, tokens) -> dict:
+    """The card's prefill of ``tokens``, each layer's MoE and the logits
+    also run on the CPU on the same input (the card's normalized residual
+    after that layer's attention; the card's last residual): in every
+    layer the expert ids equal but at near-ties of the CPU's float32
+    router scores (ROUTER_TIE_TOL; counted); with none, the keep flags and
+    the (G, E, C) slot table bit-equal; the output, on the tokens routed
+    alike, within MOE_OUT_ATOL plus one bf16 ulp of the entry; the logits
+    within LOGIT_TOL.  Then the CPU's own prefill: the tokens each layer
+    of the two runs routes apart, counted (a near-tie that the two runs'
+    rounding tips, which moves a token by O(1))."""
+    run = _moe_prefill(cfg, card, tokens, DEVICE, twin=cpu)
+    own = _moe_prefill(cfg, cpu, tokens, "cpu")
+    k = cfg.experts_per_token
+    res = {"near_ties": [], "max_out_err": [], "slots_equal": [],
+           "dropped": []}
+    for i, (rc, rp, yc, yp, scores) in enumerate(zip(
+            run["routes"], run["twin_routes"], run["moe"], run["twin_moe"],
+            run["scores"])):
+        ec = rc.expert_idx.cpu().reshape(-1, k)
+        ep = rp.expert_idx.reshape(-1, k)
+        differ = (ec != ep).any(-1)
+        for t in differ.nonzero()[:, 0].tolist():
+            j = int((ec[t] != ep[t]).nonzero()[0, 0])
+            gap = abs(float(scores[t, ec[t, j]] - scores[t, ep[t, j]]))
+            check(gap <= ROUTER_TIE_TOL, f"{cfg.name} layer {i} on equal "
+                  f"inputs: token {t} routed to expert {int(ec[t, j])} on "
+                  f"the card and {int(ep[t, j])} on the CPU, {gap:g} apart "
+                  "in the CPU's scores")
+        slots_equal = torch.equal(rc.slot_tok.cpu(), rp.slot_tok)
+        if not differ.any():
+            check(torch.equal(rc.keep.cpu(), rp.keep) and slots_equal,
+                  f"{cfg.name} layer {i} on equal inputs: the same expert "
+                  "ids, other keep flags or slot tables")
+        alike = ~_routed_apart(rc, rp)
+        d = yp.shape[-1]
+        oc = yc.float().reshape(-1, d)[alike]
+        op = yp.float().reshape(-1, d)[alike]
+        err = (oc - op).abs()
+        check(bool((err <= MOE_OUT_ATOL + 2**-7 * op.abs()).all()),
+              f"{cfg.name} layer {i} on equal inputs: MoE outputs of tokens "
+              f"routed alike differ by up to {float(err.max())}")
+        res["near_ties"].append(int(differ.sum()))
+        res["max_out_err"].append(float(err.max()))
+        res["slots_equal"].append(slots_equal)
+        res["dropped"].append(int((~rp.keep).sum()))
+    logit_err = float((run["logits"] - run["twin_logits"]).abs().max())
+    check(logit_err <= LOGIT_TOL, f"{cfg.name} on equal inputs: logits "
+          f"differ by {logit_err}")
+    return {**res, "tokens": int(tokens.numel()),
+            "assignments": int(tokens.numel()) * k,
+            "max_logit_diff": logit_err,
+            "prefill_routed_apart": [
+                int(_routed_apart(a, b).sum())
+                for a, b in zip(run["routes"], own["routes"])]}
+
+
+def _greedy_pair(cfg, card_params, params, prompt: int):
+    """Greedy serving of ``cfg`` on the card (bf16 weights
+    ``card_params``) and on the CPU's plain path (their copy ``params``),
+    batch PARITY_BATCH, ``prompt`` tokens, PARITY_GEN tokens, the CPU fed
+    the card's ids, so every step's logits compare like with like: the
+    card's ids, both runs' logits and each step's largest difference."""
     batch = make_batch(cfg, PARITY_BATCH, prompt, kind="prefill")
-    card = LM(cfg, tree_map(lambda t: t.to(DEVICE), params))
-    ids, card_logits = _greedy(card, batch, prompt, PARITY_GEN, DEVICE)
-    del card
+    ids, card_logits = _greedy(LM(cfg, card_params), batch, prompt,
+                               PARITY_GEN, DEVICE)
     _, cpu_logits = _greedy(LM(cfg, params), batch, prompt, PARITY_GEN,
                             "cpu", feed=ids)
-    err = max(float((a - b).abs().max())
-              for a, b in zip(card_logits, cpu_logits))
+    torch.cuda.empty_cache()
+    return ids, card_logits, cpu_logits, [
+        float((a - b).abs().max()) for a, b in zip(card_logits, cpu_logits)]
+
+
+def _near_tie_picks(ids, card_logits, cpu_logits, tag: str) -> int:
+    """The card's logits finite, and its greedy ids the CPU's argmax of
+    the same step, except where the CPU's top two logits lie within
+    LOGIT_TOL of each other (bf16 logits over a vocabulary of tens of
+    thousands of words tie) and the card's pick is within LOGIT_TOL of the
+    CPU's maximum: the count of such picks."""
     check(all(torch.isfinite(a).all() for a in card_logits),
           f"serve parity ({tag}): non-finite logits on the card")
-    check(err <= LOGIT_TOL, f"serve parity ({tag}): card and CPU "
-          f"logits differ by {err}")
     ties = 0
-    for t, (a, b) in enumerate(zip(card_logits, cpu_logits)):
+    for t, b in enumerate(cpu_logits):
         top = torch.topk(b[:, -1], 2).values
         cpu_ids = torch.argmax(b[:, -1], -1)
         for r in range(PARITY_BATCH):
@@ -3073,19 +3264,31 @@ def _serve_parity(cfg, prompt: int, tag: str) -> dict:
                   - LOGIT_TOL,
                   f"serve parity ({tag}): step {t} row {r} card picks "
                   f"{int(ids[r, t])}, CPU {int(cpu_ids[r])}")
-    torch.cuda.empty_cache()
-    return {"max_logit_diff": err, "ids": ids.tolist(),
-            "near_tie_picks": ties}
+    return ties
+
+
+def _serve_parity(cfg, card_params, params, prompt: int, tag: str) -> dict:
+    """``_greedy_pair``: every step's logits within LOGIT_TOL, the greedy
+    ids equal up to ``_near_tie_picks``."""
+    ids, card_logits, cpu_logits, diffs = _greedy_pair(cfg, card_params,
+                                                       params, prompt)
+    check(max(diffs) <= LOGIT_TOL, f"serve parity ({tag}): card and CPU "
+          f"logits differ by {max(diffs)}")
+    return {"max_logit_diff": max(diffs), "ids": ids.tolist(),
+            "near_tie_picks": _near_tie_picks(ids, card_logits, cpu_logits,
+                                              tag)}
 
 
 def serve_parity_phase() -> dict:
-    """Phase 10: ``_serve_parity`` of LM_ARCH at full width cut to
-    PARITY_LAYERS layers, prompt PARITY_PROMPT, both ``attn_impl``s."""
+    """Phase 10: ``_serve_parity`` of LM_ARCH's first PARITY_LAYERS layers
+    (``_first_layers``), prompt PARITY_PROMPT, both ``attn_impl``s."""
     out = {}
     for impl in ("flash", "chunked"):
-        cfg = dataclasses.replace(get_config(LM_ARCH),
-                                  num_layers=PARITY_LAYERS, attn_impl=impl)
-        res = out[impl] = _serve_parity(cfg, PARITY_PROMPT, impl)
+        cfg, card_params = _first_layers(LM_ARCH, impl, COMPUTE_DTYPE)
+        res = out[impl] = _serve_parity(
+            cfg, card_params, tree_map(lambda t: t.cpu(), card_params),
+            PARITY_PROMPT, impl)
+        del card_params
         print(f"[smoke] phase 10 ({impl}): {PARITY_GEN} greedy ids x "
               f"{PARITY_BATCH} rows equal to the CPU's "
               f"({res['near_tie_picks']} near-tie picks), logits within "
@@ -3095,21 +3298,23 @@ def serve_parity_phase() -> dict:
 
 
 def ssm_parity_phase() -> dict:
-    """Phase 16: ``_serve_parity`` of each SSM arch at full width cut to
-    PARITY_LAYERS layers (hymba's attention on the flash path), at each
-    of SSM_PARITY_PROMPTS."""
+    """Phase 16: ``_serve_parity`` of each SSM arch's first PARITY_LAYERS
+    layers (``_first_layers``; hymba's attention on the flash path), at
+    each of SSM_PARITY_PROMPTS."""
     out = {}
     for arch in SSM_GEN:
-        cfg = dataclasses.replace(get_config(arch), num_layers=PARITY_LAYERS,
-                                  attn_impl="flash")
+        cfg, card_params = _first_layers(arch, "flash", COMPUTE_DTYPE)
+        params = tree_map(lambda t: t.cpu(), card_params)
         for prompt in SSM_PARITY_PROMPTS:
             tag = f"{arch}, prompt {prompt}"
-            res = out[tag] = _serve_parity(cfg, prompt, tag)
+            res = out[tag] = _serve_parity(cfg, card_params, params, prompt,
+                                           tag)
             print(f"[smoke] phase 16 ({tag}): {PARITY_GEN} greedy ids x "
                   f"{PARITY_BATCH} rows equal to the CPU's "
                   f"({res['near_tie_picks']} near-tie picks), logits within "
                   f"{res['max_logit_diff']:g} (tolerance {LOGIT_TOL}); card "
                   f"ids {res['ids'][0]}")
+        del card_params, params
     return out
 
 
@@ -3121,8 +3326,8 @@ def serve_profile_phase(arch: str = LM_ARCH, gen: int = SERVE_GEN,
     profiled (4 steps): device time by kernel and the device's busy
     share.  ``gen`` sizes the cache (22 steps fit when it is above 22)."""
     cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
-    model = LM(cfg, tree_map(lambda t: t.to(DEVICE), cast_tree(
-        init_params(build_defs(cfg), seed=0), COMPUTE_DTYPE)))
+    model = LM(cfg, init_params(build_defs(cfg), seed=0, device=DEVICE,
+                                dtype=COMPUTE_DTYPE))
     batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, kind="prefill",
                        device=DEVICE)
     prefill = build_prefill_step(model, SERVE_PROMPT + gen)
@@ -3170,60 +3375,86 @@ def serve_profile_phase(arch: str = LM_ARCH, gen: int = SERVE_GEN,
 
 
 def _train_one_step(cfg, params, batch, device) -> dict:
-    """A trainable LM of ``cfg`` on ``device`` from a copy of ``params``:
-    its gradients of the cross-entropy on ``batch``, then one AdamW step
-    (``warmup_cosine(1e-3, 10, 50)``): the step's loss, grad norm and lr
-    and the parameters after it, all on the CPU."""
+    """A trainable LM of ``cfg`` on ``device`` from a copy of ``params``,
+    one ``build_train_step`` step of AdamW (``warmup_cosine(1e-3, 10,
+    50)``) on ``batch``: the step's loss, aux loss, grad norm and lr, the
+    gradients it took (of the cross-entropy plus MOE_AUX_WEIGHT times the
+    MoE aux loss, 0 outside the moe family; read as the optimizer gets
+    them) and the parameters after it, all on the CPU."""
     model = LM(cfg, tree_map(lambda t: t.to(device, copy=True), params),
                trainable=True)
     batch = {k: v.to(device) for k, v in batch.items()}
-    logits, _ = model(batch)
-    grads = torch.autograd.grad(cross_entropy(logits, batch["labels"]),
-                                tree_leaves(model.param_tree()))
-    del logits
     opt = adamw(warmup_cosine(1e-3, 10, 50))
     state = init_train_state(model, opt)
+    grads = []
+
+    def recording(update):
+        def update_and_keep(tree, *args):
+            grads.extend(g.cpu() for g in tree_leaves(tree))
+            return update(tree, *args)
+        return update_and_keep
+
+    opt = dataclasses.replace(opt, update=recording(opt.update))
     state, m = build_lm_train_step(model, opt)(state, batch)
-    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "lr": float(m["lr"]), "grads": [g.cpu() for g in grads],
+    return {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
+            "grad_norm": float(m["grad_norm"]),
+            "lr": float(m["lr"]), "grads": grads,
             "params": [p.detach().cpu()
                        for p in tree_leaves(state["params"])]}
 
 
-def train_parity_phase() -> dict:
-    """Phase 13: one training step on the card against the CPU's plain
-    path, equal float32 weights, for LM_ARCH at full width cut to
-    PARITY_LAYERS layers, batch TRAIN_PARITY_BATCH of TRAIN_PARITY_SEQ
+def _train_parity(arch: str, phase: str) -> dict:
+    """One training step of ``arch``'s first PARITY_LAYERS layers
+    (``_first_layers``) on the card against the CPU's plain path, equal
+    float32 weights, batch TRAIN_PARITY_BATCH of TRAIN_PARITY_SEQ
     ``TokenPipeline`` tokens: ``attn_impl="flash"`` as trained, in bf16
     activations (the card's flash kernels take bf16), and
     ``attn_impl="chunked"`` in float32 activations on both sides
-    (``transformer.COMPUTE_DTYPE``; TF32 off).  The loss and the grad norm
-    within TRAIN_LOSS_TOL / GRAD_NORM_REL_TOL (bf16) or F32_TRAIN_REL_TOL
-    (float32); each leaf's gradient within TRAIN_GRAD_L2_TOL or
-    F32_GRAD_L2_TOL relative L2 distance; every parameter after the AdamW
-    step within Adam's bound of 2 lr.  At random weights the query/key
-    path's gradients are ill-conditioned (a near-uniform softmax), so
-    rounding moves them further than the others and Adam's sign-like
-    first step may take the other sign on their entries near 0; the
-    share of such entries and the largest entry-wise difference are
-    reported."""
+    (``transformer.COMPUTE_DTYPE``; TF32 off).  The loss, the MoE aux
+    loss and the grad norm within TRAIN_LOSS_TOL / GRAD_NORM_REL_TOL
+    (bf16) or F32_TRAIN_REL_TOL (float32); each leaf's gradient within
+    TRAIN_GRAD_L2_TOL or F32_GRAD_L2_TOL relative L2 distance; every
+    parameter after the AdamW step within Adam's bound of 2 lr.  A
+    control: the card's float32 step with TF32 products must put its grad
+    norm beyond the float32 limit, or the limit could not tell TF32 from
+    float32 arithmetic (the router's product stays float32).  The card
+    run's launches: with flash, the forward 2 a layer (the forward and its
+    remat recompute) and each backward kernel 1; with chunked, none.  At
+    random weights the query/key path's gradients are ill-conditioned (a
+    near-uniform softmax), so rounding moves them further than the others
+    and Adam's sign-like first step may take the other sign on their
+    entries near 0; the share of such entries and the largest entry-wise
+    difference are reported."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for impl, dtype in (("flash", torch.bfloat16),
                         ("chunked", torch.float32)):
-        cfg = dataclasses.replace(get_config(LM_ARCH),
-                                  num_layers=PARITY_LAYERS, attn_impl=impl)
-        params = init_params(build_defs(cfg), seed=0)
+        cfg, params = _first_layers(arch, impl)
         batch = TokenPipeline(vocab_size=cfg.vocab_size,
                               seq_len=TRAIN_PARITY_SEQ,
                               global_batch=TRAIN_PARITY_BATCH).torch_batch(0)
+        f32 = dtype == torch.float32
         transformer.COMPUTE_DTYPE = dtype
         try:
+            kernels.reset_launches()
             card = _train_one_step(cfg, params, batch, DEVICE)
+            launches = dict(kernels.LAUNCHES)
             torch.cuda.empty_cache()
             cpu = _train_one_step(cfg, params, batch, "cpu")
+            if f32:     # the control: the card's step with TF32 products
+                torch.backends.cuda.matmul.allow_tf32 = True
+                tf32_norm = _train_one_step(cfg, params, batch,
+                                            DEVICE)["grad_norm"]
         finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
             transformer.COMPUTE_DTYPE = COMPUTE_DTYPE
+        L = PARITY_LAYERS
+        want = ({"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkv": L} if impl == "flash" else {})
+        tag = f"train parity ({arch}, {impl})"
+        for kname, n in launches.items():
+            check(n == want.get(kname, 0), f"{tag}: {kname} launched {n} "
+                  f"times, not {want.get(kname, 0)}")
         lr = card["lr"]
         grad_l2, grad_max, param_err, beyond = [], [], 0.0, 0.0
         for ga, gb, pa, pb in zip(card["grads"], cpu["grads"],
@@ -3237,36 +3468,55 @@ def train_parity_phase() -> dict:
             beyond = max(beyond, float((diff > 0.05 * lr).float().mean()))
         res = {"compute_dtype": str(dtype),
                "loss": [card["loss"], cpu["loss"]],
+               "moe_aux": [card["moe_aux"], cpu["moe_aux"]],
                "grad_norm": [card["grad_norm"], cpu["grad_norm"]],
                "lr": lr, "grad_rel_l2": grad_l2, "grad_rel_max": grad_max,
                "max_param_diff": param_err,
-               "max_share_beyond_5pct_lr": beyond}
-        f32 = dtype == torch.float32
+               "max_share_beyond_5pct_lr": beyond, "launches": launches}
+        out[impl] = res
         loss_tol = F32_TRAIN_REL_TOL * abs(cpu["loss"]) if f32 \
             else TRAIN_LOSS_TOL
-        norm_tol = F32_TRAIN_REL_TOL if f32 else GRAD_NORM_REL_TOL
+        aux_tol = F32_TRAIN_REL_TOL * abs(cpu["moe_aux"]) if f32 \
+            else TRAIN_LOSS_TOL
+        norm_tol = (F32_TRAIN_REL_TOL if f32 else GRAD_NORM_REL_TOL) \
+            * cpu["grad_norm"]
         l2_tol = F32_GRAD_L2_TOL if f32 else TRAIN_GRAD_L2_TOL
         check(math.isfinite(card["loss"])
               and abs(card["loss"] - cpu["loss"]) <= loss_tol,
-              f"train parity ({impl}): losses {res['loss']}")
-        check(abs(card["grad_norm"] - cpu["grad_norm"])
-              <= norm_tol * cpu["grad_norm"],
-              f"train parity ({impl}): grad norms {res['grad_norm']}")
-        check(max(grad_l2) <= l2_tol, f"train parity ({impl}): gradients "
-              f"differ by {max(grad_l2)} relative L2 (tolerance {l2_tol})")
-        check(param_err <= 2 * lr * (1 + 1e-3), f"train parity ({impl}): "
-              f"parameters after a step differ by {param_err} (lr {lr})")
-        out[impl] = res
-        print(f"[smoke] phase 13 ({impl}, {dtype}): loss card "
-              f"{card['loss']:.6f} cpu {cpu['loss']:.6f}, |g| card "
+              f"{tag}: losses {res['loss']}")
+        check(abs(card["moe_aux"] - cpu["moe_aux"]) <= aux_tol,
+              f"{tag}: aux losses {res['moe_aux']} (tolerance {aux_tol})")
+        check(abs(card["grad_norm"] - cpu["grad_norm"]) <= norm_tol,
+              f"{tag}: grad norms {res['grad_norm']} (tolerance "
+              f"{norm_tol})")
+        if f32:
+            res["tf32_grad_norm"] = tf32_norm
+            check(abs(tf32_norm - cpu["grad_norm"]) > norm_tol, f"{tag}: "
+                  f"the TF32 control's grad norm {tf32_norm} lies within "
+                  f"{norm_tol} of the CPU's: the limit cannot tell float32 "
+                  "from TF32 products")
+        check(max(grad_l2) <= l2_tol, f"{tag}: gradients differ by "
+              f"{max(grad_l2)} relative L2 (tolerance {l2_tol})")
+        check(param_err <= 2 * lr * (1 + 1e-3), f"{tag}: parameters after "
+              f"a step differ by {param_err} (lr {lr})")
+        print(f"[smoke] phase {phase} ({arch}, {impl}, {dtype}): loss card "
+              f"{card['loss']:.6f} cpu {cpu['loss']:.6f}, aux card "
+              f"{card['moe_aux']:.6f} cpu {cpu['moe_aux']:.6f}, |g| card "
               f"{card['grad_norm']:.6f} cpu {cpu['grad_norm']:.6f}; "
               f"gradients' relative L2 per leaf up to {max(grad_l2):.4g} "
               f"(max-entry {max(grad_max):.4g}); parameters after one step "
               f"within {param_err:.3g} (lr {lr:.3g}), at most "
-              f"{beyond:.4%} of a leaf beyond 5 % of lr")
+              f"{beyond:.4%} of a leaf beyond 5 % of lr; card launches "
+              f"{ {k: n for k, n in launches.items() if n} }"
+              + (f"; TF32 control |g| {tf32_norm:.6f}" if f32 else ""))
         del card, cpu, params
         torch.cuda.empty_cache()
     return out
+
+
+def train_parity_phase() -> dict:
+    """Phase 13: ``_train_parity`` of LM_ARCH."""
+    return _train_parity(LM_ARCH, "13")
 
 
 def train_profile_phase() -> dict:
@@ -3274,8 +3524,7 @@ def train_profile_phase() -> dict:
     model and batch, 1 warm-up step, 2 steps timed, then 1 profiled
     (device time by kernel, device busy share)."""
     cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
-    model = LM(cfg, tree_map(lambda t: t.to(DEVICE),
-                             init_params(build_defs(cfg), seed=0)),
+    model = LM(cfg, init_params(build_defs(cfg), seed=0, device=DEVICE),
                trainable=True)
     opt = adamw(warmup_cosine(1e-3, 10, 50))
     state = init_train_state(model, opt)
@@ -3341,6 +3590,211 @@ def ssm_serve_phase() -> dict:
                      "ids": served["tokens"].tolist()}
         del served
         torch.cuda.empty_cache()
+    return out
+
+
+def moe_parity_phase() -> dict:
+    """Phase 28a: the first PARITY_LAYERS layers of MOE_ARCH and MIXTRAL
+    (``_first_layers``; moonshot's attention on the flash path; mixtral's
+    sliding window takes the chunked path, as in the reference), bf16
+    weights drawn once on the card and copied to the CPU, at each of
+    MOE_PARITY_PROMPTS: ``_moe_layers_case`` (every layer's MoE and the
+    logits on equal inputs, the tokens the two prefills route apart
+    counted), then ``_greedy_pair``: the greedy ids equal up to
+    ``_near_tie_picks``, and each step's logits reported beside the
+    routing flips that move them (a token routed apart in a layer moves
+    by O(1), and through attention the later ones)."""
+    out = {}
+    for arch in (MOE_ARCH, MIXTRAL):
+        cfg, card_params = _first_layers(arch, "flash", COMPUTE_DTYPE)
+        params = tree_map(lambda t: t.cpu(), card_params)
+        for prompt in MOE_PARITY_PROMPTS:
+            tag = f"{arch}, prompt {prompt}"
+            tokens = make_batch(cfg, PARITY_BATCH, prompt,
+                                kind="prefill")["tokens"]
+            r = _moe_layers_case(cfg, LM(cfg, card_params), LM(cfg, params),
+                                 tokens)
+            print(f"[smoke] phase 28a ({tag}): each layer on equal inputs: "
+                  f"{r['near_ties']} of {r['tokens']} tokens routed apart "
+                  f"at router near-ties, slot tables equal "
+                  f"{r['slots_equal']}, {r['dropped']} of "
+                  f"{r['assignments']} assignments dropped, MoE outputs "
+                  f"within {r['max_out_err']}, logits within "
+                  f"{r['max_logit_diff']:g} (tolerance {LOGIT_TOL}); each "
+                  f"device's own prefill routes {r['prefill_routed_apart']}"
+                  " tokens apart by layer")
+            ids, card_logits, cpu_logits, diffs = _greedy_pair(
+                cfg, card_params, params, prompt)
+            res = out[tag] = {
+                "layers": r, "ids": ids.tolist(), "step_logit_diff": diffs,
+                "near_tie_picks": _near_tie_picks(ids, card_logits,
+                                                  cpu_logits, tag)}
+            print(f"[smoke] phase 28a ({tag}): {PARITY_GEN} greedy ids x "
+                  f"{PARITY_BATCH} rows equal to the CPU's "
+                  f"({res['near_tie_picks']} near-tie picks); end to end "
+                  f"each step's logits within "
+                  f"{[float(f'{e:.3g}') for e in diffs]}; card ids "
+                  f"{res['ids'][0]}")
+        del card_params, params
+        torch.cuda.empty_cache()
+    return out
+
+
+class _ServedConfig:
+    """While installed, the serve entry point's ``get_config`` returns
+    ``cfg`` for ``cfg.name`` (a model cut in layers)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def __enter__(self):
+        self._real = serve.get_config
+        serve.get_config = lambda name: (self.cfg if name == self.cfg.name
+                                         else self._real(name))
+
+    def __exit__(self, *exc):
+        serve.get_config = self._real
+
+
+def moe_serve_phase() -> dict:
+    """Phases 28b and 28c: the serve entry point,
+    ``repro_torch.launch.serve.main``, ``--full-config --batch
+    SERVE_BATCH --prompt-len SERVE_PROMPT --gen MOE_GEN``: MOE_ARCH at
+    full width and depth (b), then MIXTRAL at full width cut to
+    MIXTRAL_LAYERS layers (c), the launch counters reset just before each
+    run and read just after: moonshot's prefill ``flash_attention_fwd``
+    once a layer, mixtral's none (its sliding window takes the chunked
+    path); ``decode_attention`` once a layer a decode step; no other
+    kernel.  Finite logits; the weights' draw on the card (s), prefill
+    ms, decode ms per step, tok/s and the peak device memory."""
+    out = {}
+    for phase, arch, layers in (("28b", MOE_ARCH, None),
+                                ("28c", MIXTRAL, MIXTRAL_LAYERS)):
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        L = cfg.num_layers
+        argv = ["--arch", arch, "--full-config", "--batch", str(SERVE_BATCH),
+                "--prompt-len", str(SERVE_PROMPT), "--gen", str(MOE_GEN),
+                "--device", DEVICE]
+        print(f"[smoke] phase {phase}: serve {' '.join(argv)}"
+              + (f" (cut to {L} layers)" if layers else ""))
+        kernels.reset_launches()
+        with _ServedConfig(cfg):
+            served = serve.main(argv)
+        launches = dict(kernels.LAUNCHES)
+        want = {"flash_attention_fwd": 0 if cfg.sliding_window else L,
+                "decode_attention": L * (MOE_GEN - 1)}
+        for kname, n in launches.items():
+            check(n == want.get(kname, 0), f"serve {arch}: {kname} launched "
+                  f"{n} times, not {want.get(kname, 0)}")
+        check(bool(torch.isfinite(served["prefill_logits"]).all()
+                   and torch.isfinite(served["logits"]).all()),
+              f"serve {arch}: non-finite logits")
+        check(served["tokens"].shape == (SERVE_BATCH, MOE_GEN),
+              f"serve {arch}: ids of shape {served['tokens'].shape}")
+        print(f"[smoke] phase {phase}: {arch} ({L} layers) weights drawn on "
+              f"the card in {served['init_s']:.2f} s, prefill "
+              f"{served['prefill_ms']:.3f} ms, decode "
+              f"{served['decode_ms_per_step']:.3f} ms/step, "
+              f"{served['tok_per_s']:.1f} tok/s, peak device memory "
+              f"{served['peak_bytes'] / 2**30:.2f} GiB, launches "
+              f"{ {k: n for k, n in launches.items() if n} }")
+        out[arch] = {"argv": argv, "layers": L, "launches": launches,
+                     **{k: served[k] for k in (
+                         "init_s", "prefill_ms", "decode_ms",
+                         "decode_ms_per_step", "tok_per_s", "peak_bytes")},
+                     "ids": served["tokens"].tolist()}
+        del served
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_grad_case(arch: str) -> dict:
+    """Layer 0's MoE forward and backward of ``arch``'s first layers
+    (``_first_layers``) on the card and on the CPU, float32 activations and
+    weights (drawn on the card), on the same input (the normalized
+    residual after layer 0's chunked attention over a TRAIN_PARITY_BATCH x
+    TRAIN_PARITY_SEQ ``TokenPipeline`` batch) and the same upstream
+    gradient: the routing equal (expert ids and keep flags), then the
+    output, the aux loss and the gradients of ``(out * upstream).sum() +
+    MOE_AUX_WEIGHT * aux`` with respect to the input, the router and the
+    three expert weights, each within MOE_GRAD_REL_TOL relative L2."""
+    cfg, params = _first_layers(arch, "chunked")
+    p = {k: w[0] for k, w in params["blocks"].items()}
+    tokens = TokenPipeline(vocab_size=cfg.vocab_size,
+                           seq_len=TRAIN_PARITY_SEQ,
+                           global_batch=TRAIN_PARITY_BATCH).torch_batch(
+                               0, DEVICE)["tokens"]
+    transformer.COMPUTE_DTYPE = torch.float32
+    try:
+        with torch.no_grad():
+            x = torch.nn.functional.embedding(tokens, params["embed"])
+            pos = torch.arange(x.shape[1], dtype=torch.int32, device=DEVICE)
+            x = x + transformer._attn_block(cfg, p, x, pos, -1)[0]
+            h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    finally:
+        transformer.COMPUTE_DTYPE = COMPUTE_DTYPE
+    upstream = torch.randn(h.shape, generator=torch.Generator(
+        device=DEVICE).manual_seed(5), device=DEVICE)
+    names = ("router", "w_gate", "w_up", "w_down")
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in [h] + [p[n] for n in names]]
+        out, aux = moe.apply_moe(dict(zip(names, leaves[1:])), leaves[0],
+                                 act=activation(cfg.act), **_moe_kw(cfg))
+        grads = torch.autograd.grad(
+            (out * upstream.to(dev)).sum()
+            + MOE_AUX_WEIGHT * aux["moe_aux_loss"], leaves)
+        with torch.no_grad():
+            r = moe.route(leaves[1], leaves[0], **_moe_kw(cfg))
+        runs[dev] = {"out": out.detach().cpu(),
+                     "aux": float(aux["moe_aux_loss"].detach()),
+                     "grads": [g.cpu() for g in grads], "route": r}
+        del leaves, grads, out
+    card, cpu = runs[DEVICE], runs["cpu"]
+    apart = int(_routed_apart(card["route"], cpu["route"]).sum())
+    check(apart == 0, f"MoE backward ({arch}): {apart} tokens routed apart "
+          "on equal float32 inputs")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    errs = {"out": rel(card["out"], cpu["out"]),
+            **{f"d_{n}": rel(a, b) for n, a, b in zip(
+                ("input",) + names, card["grads"], cpu["grads"])}}
+    aux_err = abs(card["aux"] - cpu["aux"])
+    check(max(errs.values()) <= MOE_GRAD_REL_TOL
+          and aux_err <= F32_TRAIN_REL_TOL * abs(cpu["aux"]),
+          f"MoE backward ({arch}): relative L2 {errs}, aux {card['aux']} "
+          f"against {cpu['aux']}")
+    keep = cpu["route"].keep
+    out = {"rel_l2": errs, "aux": [card["aux"], cpu["aux"]],
+           "dropped": int((~keep).sum()), "assignments": keep.numel()}
+    print(f"[smoke] phase 28d ({arch}, layer 0's MoE on equal float32 "
+          f"inputs): output and gradients within relative L2 "
+          f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } (tolerance "
+          f"{MOE_GRAD_REL_TOL}), aux {card['aux']:.6f} against "
+          f"{cpu['aux']:.6f}, {out['dropped']} of {out['assignments']} "
+          "assignments dropped")
+    del params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase() -> dict:
+    """Phase 28, the MoE family: card-vs-CPU serving (28a), the serve
+    entry point for moonshot (28b) and mixtral cut in layers (28c), and
+    moonshot's first PARITY_LAYERS layers in training, card against CPU
+    (28d): its MoE layer's backward on equal inputs
+    (``_moe_grad_case``), then one step (``_train_parity``)."""
+    t0 = time.perf_counter()
+    out = {"parity": moe_parity_phase(), "serve": moe_serve_phase(),
+           "grad": _moe_grad_case(MOE_ARCH),
+           "train_parity": _train_parity(MOE_ARCH, "28d")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[smoke] phase 28: {out['seconds']:.1f} s")
     return out
 
 
@@ -3539,6 +3993,8 @@ def main() -> int:
     telemetry = telemetry_phase(reddit, argv_ooc)
     isp = isp_phase(reddit, argv, argv_ooc, hosted)
     mesh = mesh_phase(argv, argv_ooc, ooc)
+    torch.cuda.empty_cache()
+    moe_run = moe_phase()
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -3591,6 +4047,15 @@ def main() -> int:
         if kname == "ssd_chunk_scan":
             table[-1]["launches_by_run"] = {
                 arch: r["launches"][kname] for arch, r in ssm_served.items()}
+        else:
+            # the MoE family's runs (phase 28): its two serve entry points
+            # and moonshot's training-parity step
+            table[-1]["launches_by_run"] = {
+                **{f"serve {arch} ({r['layers']} layers)":
+                   r["launches"][kname]
+                   for arch, r in moe_run["serve"].items()},
+                f"train parity {MOE_ARCH} (flash)":
+                    moe_run["train_parity"]["flash"]["launches"][kname]}
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "kernels": table,
@@ -3630,7 +4095,7 @@ def main() -> int:
                "specs": specs, "overlap": overlap, "faults": fault_run,
                "direct_io": dio, "resume": resumed, "oracle": oracle,
                "host": hosted, "telemetry": telemetry, "isp": isp,
-               "mesh": mesh,
+               "mesh": mesh, "moe": moe_run,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

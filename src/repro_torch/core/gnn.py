@@ -23,6 +23,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from repro_torch import rng
+
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -62,9 +64,11 @@ def build_defs(cfg: GNNConfig) -> dict[str, tuple[tuple[int, ...], str]]:
 class GraphSAGE(nn.Module):
     """GraphSAGE whose parameters are named as in the reference.
 
-    Weights are drawn N(0, 1/fan_in) from a CPU ``torch.Generator``
-    seeded with 0 and then moved to ``device``, so every device starts
-    from the same weights.  Biases start at zero."""
+    Weights are the reference's ``GraphSAGE.init(jax.random.key(0))``:
+    leaf ``i`` of the parameter names in sorted order (``cls``,
+    ``cls_bias``, ``l0_bias``, ``l0_neigh``, ...) takes key
+    ``split(key(0), n)[i]`` and ``rng.normal`` scaled by
+    1/sqrt(shape[0]), drawn on ``device``.  Biases start at zero."""
 
     def __init__(self, cfg: GNNConfig, *, device="cuda",
                  compute_dtype: torch.dtype = COMPUTE_DTYPE):
@@ -73,14 +77,15 @@ class GraphSAGE(nn.Module):
             raise ValueError(f"unknown aggregator {cfg.aggregator!r}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
-        generator = torch.Generator().manual_seed(0)
-        for name, (shape, init) in build_defs(cfg).items():
+        defs = build_defs(cfg)
+        keys = dict(zip(sorted(defs), rng.split(rng.key(0), len(defs))))
+        for name, (shape, init) in defs.items():
             if init == "zeros":
-                w = torch.zeros(shape)
+                w = torch.zeros(shape, device=device)
             else:
-                w = torch.randn(shape, generator=generator) / math.sqrt(
-                    max(1, shape[0]))
-            self.register_parameter(name, nn.Parameter(w.to(device)))
+                w = rng.normal(keys[name], shape, device=device,
+                               scale=1.0 / math.sqrt(max(1, shape[0])))
+            self.register_parameter(name, nn.Parameter(w))
 
     def _p(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         return getattr(self, name).to(dtype)

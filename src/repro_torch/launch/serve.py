@@ -1,8 +1,10 @@
 """The port's serving entry point: batched prefill + greedy decode for the
-dense, ssm and hybrid LM families.
+dense, moe, ssm and hybrid LM families.
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --full-config \\
       --batch 8 --prompt-len 2048 --gen 64
+  python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \\
+      --full-config --batch 8 --prompt-len 2048 --gen 16
   python -m repro_torch.launch.serve --arch mamba2-370m --full-config
   python -m repro_torch.launch.serve --arch hymba-1.5b --full-config
 
@@ -12,14 +14,20 @@ flash``, the default, on full-causal archs) or the chunked plain path
 (``--attn-impl chunked``), decode attention through the hand-written
 decode kernel, and the SSM mixer's prefill scan (mamba2, hymba's SSM
 branch) through the hand-written SSD chunked-scan kernel; the SSM decode
-step is plain PyTorch, as in the reference.  The cache holds each
+step is plain PyTorch, as in the reference.  The moe family
+(moonshot-v1-16b-a3b, mixtral-8x7b) routes and dispatches its tokens in
+plain PyTorch (``models/moe.py``, as the reference's jnp code), decode at
+the reference's decode capacity factor; mixtral's sliding window takes
+the chunked prefill path, as in the reference, and its whole 87 GiB of
+bf16 weights does not fit one 80 GB card.  The cache holds each
 family's leaves (``LM.init_cache``): the SSM state and conv tail have no
 sequence axis.  ``--device cpu`` runs the plain PyTorch versions; without
 a GPU and without ``--device cpu`` it stops with an error.  Without
 ``--full-config`` it serves the reduced config, as the reference's
-``repro.launch.serve`` does.  Weights are drawn from seed 0, as the
-reference's are, and cast to bf16 once before serving; prompt tokens are
-the reference's ``make_batch`` draws.
+``repro.launch.serve`` does.  Weights are the reference's seed-0 draws
+(``jax.random.normal``'s stream, ``models.params.init_params``), drawn
+on the serving device straight into bf16 (the MoE router in float32);
+prompt tokens are the reference's ``make_batch`` draws.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import time
 import torch
 
 from repro_torch.launch.shapes import make_batch
-from repro_torch.models.params import cast_tree, init_params, tree_map
+from repro_torch.models.params import init_params
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import COMPUTE_DTYPE, LM, build_defs
 from repro_torch.train.steps import build_prefill_step, build_serve_step
@@ -57,10 +65,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def serve(args) -> dict:
-    """Prefill the prompt, then ``gen - 1`` greedy decode steps.  Returns
-    the times (prefill and decode, each ending in a device synchronize),
-    the generated ids (B, gen), the prefill's last logits and the last
-    decode step's logits (on the CPU)."""
+    """Draw the weights, prefill the prompt, then ``gen - 1`` greedy
+    decode steps.  Returns the times (the draw, prefill and decode, each
+    ending in a device synchronize), the generated ids (B, gen), the
+    prefill's last logits and the last decode step's logits (on the CPU)
+    and the peak device memory (None on the CPU)."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[serve] no CUDA device: the port serves on the "
                          "GPU; pass --device cpu to run the plain PyTorch "
@@ -70,19 +79,23 @@ def serve(args) -> dict:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     dev = torch.device(args.device)
-    params = cast_tree(init_params(build_defs(cfg), seed=0),
-                       COMPUTE_DTYPE)
-    model = LM(cfg, tree_map(lambda t: t.to(dev), params))
-    del params
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = LM(cfg, init_params(build_defs(cfg), seed=0, device=dev,
+                                dtype=COMPUTE_DTYPE))
+    sync()
+    t_init = time.perf_counter() - t0
     S_total = args.prompt_len + args.gen
     prefill = build_prefill_step(model, cache_len=S_total)
     serve_step = build_serve_step(model)
     batch = make_batch(cfg, args.batch, args.prompt_len, kind="prefill",
                        device=dev)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     sync()
     t0 = time.perf_counter()
@@ -102,17 +115,22 @@ def serve(args) -> dict:
     t_decode = time.perf_counter() - t0
 
     steps = args.gen - 1
-    out = {"arch": cfg.name, "prefill_ms": 1e3 * t_prefill,
+    out = {"arch": cfg.name, "init_s": t_init, "prefill_ms": 1e3 * t_prefill,
            "decode_ms": 1e3 * t_decode,
            "decode_ms_per_step": 1e3 * t_decode / steps if steps else None,
            "tok_per_s": steps * args.batch / t_decode if steps else None,
            "tokens": torch.cat(toks, dim=1).cpu().numpy(),
-           "prefill_logits": prefill_logits.cpu(), "logits": logits.cpu()}
-    print(f"[serve] {cfg.name} on {args.device}: prefill({args.batch}x"
+           "prefill_logits": prefill_logits.cpu(), "logits": logits.cpu(),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else None)}
+    print(f"[serve] {cfg.name} on {args.device}: weights drawn in "
+          f"{t_init:.2f} s; prefill({args.batch}x"
           f"{args.prompt_len}) {out['prefill_ms']:.1f} ms; decode {steps} "
           f"steps {out['decode_ms']:.1f} ms"
           + (f" ({out['decode_ms_per_step']:.3f} ms/step, "
-             f"{out['tok_per_s']:.1f} tok/s)" if steps else ""))
+             f"{out['tok_per_s']:.1f} tok/s)" if steps else "")
+          + (f"; peak device memory {out['peak_bytes'] / 2**30:.2f} GiB"
+             if out["peak_bytes"] is not None else ""))
     print("[serve] sample token ids:", out["tokens"][0, :16].tolist())
     return out
 

@@ -1,4 +1,5 @@
-"""Training entry point of the port: GraphSAGE and the dense-family LMs.
+"""Training entry point of the port: GraphSAGE and the dense- and
+moe-family LMs.
 
 GraphSAGE with near-data (ISP) subgraph generation, the graph partitioned
 over a mesh of 4 shards (the default backend is ``isp``, as in the
@@ -67,6 +68,14 @@ step), attention through the flash forward and backward kernels:
   python -m repro_torch.launch.train --arch qwen2-0.5b --batch 4 \\
       --seq-len 4096 --steps 5 --log-every 1
 
+The moe family (mixtral-8x7b, moonshot-v1-16b-a3b) trains alike, its
+load-balancing loss added to the cross-entropy at the reference's
+weight (``train.steps.MOE_AUX_WEIGHT``); at full width neither fits one
+card's optimizer state, so ``--reduced`` trains the small config:
+
+  python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \\
+      --reduced --batch 4 --seq-len 32 --steps 4 --log-every 1
+
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 CUDA kernels, or on the CPU through their plain PyTorch versions with
 ``--device cpu``.  Without a GPU and without ``--device cpu`` it stops
@@ -80,12 +89,16 @@ ROADMAP item 16.  Every run goes through
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
 and reads it through a ``DiskStore``; without a device cache tier the
 pallas backend never reads through the store and proceeds in memory, as
-the reference does.  The LM branch is the reference's ``run_lm``: weights
-from seed 0, ``TokenPipeline`` batches (``--batch`` through
+the reference does.  The LM branch is the reference's ``run_lm``: the
+reference's seed-0 weights (``jax.random.normal``'s stream, drawn on the
+device), ``TokenPipeline`` batches (``--batch`` through
 ``fill_pipeline_flag_defaults``), AdamW on ``warmup_cosine(lr, 10,
 steps)``; ``--reduced`` trains the small same-family config,
 ``--attn-impl`` picks the flash kernels (default) or the chunked plain
-path; archs outside the dense family raise ``NotImplementedError``.
+path; archs outside the dense and moe families raise
+``NotImplementedError``.  GraphSAGE starts from the reference's
+``GraphSAGE.init(jax.random.key(0))`` weights, so the same flags log the
+reference launcher's losses.
 
 Checkpoints, for the GNN and the LM alike, as the reference's launcher
 writes them (``repro_torch.checkpoint``, the reference's format):
@@ -119,7 +132,7 @@ from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE, PipelineSpec,
                               load_dataset, spec_from_args, train_loop)
 from repro_torch.data import TokenPipeline
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models.params import count_params, init_params, tree_map
+from repro_torch.models.params import count_params, init_params
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import LM, build_defs
 from repro_torch.optim import adamw, warmup_cosine
@@ -382,7 +395,8 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
 
 
 def run_lm(args) -> dict:
-    """Train an LM of the dense family (the reference's ``run_lm``).
+    """Train an LM of the dense or moe family (the reference's
+    ``run_lm``).
     Returns the per-step losses, grad norms and wall ms (each step ends
     in a device synchronize), tok/s over the run, and the peak device
     memory on the card."""
@@ -393,9 +407,10 @@ def run_lm(args) -> dict:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     defs = build_defs(cfg)
-    params = tree_map(lambda t: t.to(device), init_params(defs, seed=0))
+    params = init_params(defs, seed=0, device=device)
     model = LM(cfg, params, trainable=True)
-    print(f"[train] {cfg.name}: {count_params(defs) / 1e6:.2f}M params, "
+    print(f"[train] {cfg.name}: {count_params(defs) / 1e6:.2f}M params "
+          f"({model.active_param_count() / 1e6:.2f}M active), "
           f"attn_impl={cfg.attn_impl}, remat={cfg.remat}, on {device}")
     opt = adamw(warmup_cosine(args.lr, 10, args.steps))
     step_fn = lm_steps.build_train_step(model, opt,

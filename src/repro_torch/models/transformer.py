@@ -1,9 +1,11 @@
-"""The LM: parameters, the training forward of the dense family, and
-prefill and greedy decode of the dense, SSM and hybrid families.
+"""The LM: parameters, the training forward of the dense and MoE
+families, and prefill and greedy decode of the dense, MoE, SSM and hybrid
+families.
 
 The port of the reference's ``repro/models/transformer.py`` for training
-the dense family and serving the dense, ssm (mamba2) and hybrid (hymba)
-families on one card (no mesh, no sharding constraints).
+the dense and moe (mixtral, moonshot) families and serving them and the
+ssm (mamba2) and hybrid (hymba) families on one card (no mesh, no
+sharding constraints).
 Parameters keep the reference tree's names and stacked layer shapes
 (``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
 carries the reference's weights over as a copy; ``lax.scan`` over the
@@ -20,6 +22,11 @@ are cast to bf16 at each use, as the reference's; ``forward`` slices
 layer ``i`` inside the graph on every call and, for ``cfg.remat ==
 "full"`` (the reference's default ``jax.checkpoint`` of each layer),
 recomputes each block in the backward (``torch.utils.checkpoint``).
+The moe family's feed-forward is ``models/moe.py``'s ``apply_moe``; its
+load-balancing losses, one a layer, are summed into ``forward``'s
+``moe_aux_loss`` (through the checkpoint under ``remat="full"``); prefill
+drops them, and decode dispatches at the reference's decode capacity
+factor, ``max(2, cfg.capacity_factor)``.
 
 The cache holds each family's leaves (``init_cache``).  The KV cache is
 (L, B, S_total, Hkv, Dh) bf16, allocated once for prompt + generation:
@@ -32,7 +39,7 @@ by each decode step.  The SSM mixer (``models/ssm.py``) runs its prefill
 scan through the SSD kernel on the card.
 
 ``build_defs`` declares every family, so ``count_params`` counts all ten
-archs; ``LM`` itself refuses what the port does not run (MoE, enc-dec,
+archs; ``LM`` itself refuses what the port does not run (enc-dec,
 M-RoPE, embedding inputs, the ``"dots"`` remat policy, and training of
 the ssm and hybrid families, which needs an SSD backward) with
 ``NotImplementedError``.
@@ -48,12 +55,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import decode_attention_local, mha_chunked
 from repro_torch.models.layers import (activation, apply_rope, embed_def,
                                        embed_lookup, rmsnorm, rmsnorm_def,
                                        unembed_def)
-from repro_torch.models.params import ParamDef, init_params, tree_map
+from repro_torch.models.params import (ParamDef, count_params, init_params,
+                                       tree_map)
 from repro_torch.models.registry import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -103,17 +112,6 @@ def _ssm_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
                             n_groups=cfg.ssm_groups)
 
 
-def _moe_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
-    """The reference's ``models/moe.py:moe_defs`` (shapes only here)."""
-    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
-    return {
-        "router": ParamDef((L, d, E)),
-        "w_gate": ParamDef((L, E, d, f), fan_in_axes=(2,)),
-        "w_up": ParamDef((L, E, d, f), fan_in_axes=(2,)),
-        "w_down": ParamDef((L, E, f, d), fan_in_axes=(2,)),
-    }
-
-
 def _cross_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
     d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
@@ -132,7 +130,8 @@ def _block_defs(cfg: ModelConfig, L: int, *, decoder_of_encdec=False) -> dict:
     defs = _attn_defs(cfg, L)
     if fam == "moe":
         defs["mlp_norm"] = rmsnorm_def(cfg.d_model, L)
-        defs.update(_moe_defs(cfg, L))
+        defs.update(moe_lib.moe_defs(cfg.d_model, cfg.moe_d_ff,
+                                     cfg.num_experts, L))
     elif fam == "hybrid":
         defs.update(_ssm_defs(cfg, L))
         defs["attn_branch_norm"] = rmsnorm_def(cfg.d_model, L)
@@ -161,8 +160,8 @@ def build_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-SERVED_FAMILIES = ("dense", "ssm", "hybrid")
-TRAINED_FAMILIES = ("dense",)
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "moe")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -263,42 +262,59 @@ def _branch_mix(cfg: ModelConfig, p, attn_out, ssm_out):
                   + rmsnorm(ssm_out, p["ssm_branch_norm"], cfg.norm_eps))
 
 
+def _moe_block(cfg: ModelConfig, p, x, capacity_factor: float):
+    """The moe family's feed-forward: (out, {"moe_aux_loss": ...})."""
+    h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+    return moe_lib.apply_moe(p, h, top_k=cfg.experts_per_token,
+                             capacity_factor=capacity_factor,
+                             act=activation(cfg.act), routing=cfg.routing,
+                             groups=cfg.moe_groups)
+
+
 def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
     """One decoder block, training and prefill path.  Returns (x, the
-    family's cache seeds): (k, v) for dense, (state, conv_tail) for ssm,
-    (k, v, state, conv_tail) for hybrid."""
+    family's cache seeds, the MoE aux loss or None): seeds (k, v) for
+    dense and moe, (state, conv_tail) for ssm, (k, v, state, conv_tail)
+    for hybrid."""
     if cfg.family == "ssm":
         h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
         out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
                                        **_ssm_kw(cfg))
-        return x + out, seeds
+        return x + out, seeds, None
     attn_out, kv = _attn_block(cfg, p, x, positions, window)
     if cfg.family == "hybrid":
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         ssm_out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
                                            **_ssm_kw(cfg))
         x = x + _branch_mix(cfg, p, attn_out, ssm_out)
-        return x + _mlp_block(cfg, p, x), kv + seeds
+        return x + _mlp_block(cfg, p, x), kv + seeds, None
     x = x + attn_out
-    return x + _mlp_block(cfg, p, x), kv
+    if cfg.family == "moe":
+        out, aux = _moe_block(cfg, p, x, cfg.capacity_factor)
+        return x + out, kv, aux["moe_aux_loss"]
+    return x + _mlp_block(cfg, p, x), kv, None
 
 
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
 
-CACHE_LEAVES = {"dense": ("k", "v"), "ssm": ("state", "conv"),
+CACHE_LEAVES = {"dense": ("k", "v"), "moe": ("k", "v"),
+                "ssm": ("state", "conv"),
                 "hybrid": ("k", "v", "state", "conv")}
 
 
 class LM(nn.Module):
-    """The LM: the training forward (dense family), prefill and decode.
+    """The LM: the training forward (dense and moe families), prefill and
+    decode.
 
     ``params`` is a tree like the reference's (``convert.lm_params_from_jax``
     or ``params.init_params(build_defs(cfg), seed)``); without it the
     weights are drawn from ``seed`` on ``device``.  Parameters are kept in
-    their given dtype.  Frozen by default (serving: cast the tree with
-    ``params.cast_tree`` first to serve in bf16); ``trainable=True`` makes
+    their given dtype.  Frozen by default (serving: draw the tree with
+    ``init_params(..., dtype=COMPUTE_DTYPE)`` to serve in bf16, the MoE
+    router staying float32, or cast a dense tree with
+    ``params.cast_tree``); ``trainable=True`` makes
     them require grad, for float32 master parameters as the reference
     trains them."""
 
@@ -336,6 +352,17 @@ class LM(nn.Module):
         self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
                                                dtype=COMPUTE_DTYPE))
 
+    def active_param_count(self) -> int:
+        """Parameters a token uses: the expert weights of the
+        ``num_experts - experts_per_token`` experts it is not routed to
+        taken off (the reference's ``LM.active_param_count``)."""
+        cfg = self.cfg
+        total = count_params(self.defs)
+        if cfg.num_experts:
+            expert = 3 * cfg.d_model * cfg.moe_d_ff * cfg.num_layers
+            total -= expert * (cfg.num_experts - cfg.experts_per_token)
+        return total
+
     def param_tree(self) -> dict:
         """The parameters as the reference's tree (``embed``,
         ``final_norm``, ``blocks``, ``unembed`` when untied): what the
@@ -367,25 +394,30 @@ class LM(nn.Module):
         return logits.float()
 
     def _train_block(self, x, positions, i: int):
-        return _apply_block(self.cfg, self._layer(i), x, positions,
-                            self._windows[i])[0]
+        x, _, aux = _apply_block(self.cfg, self._layer(i), x, positions,
+                                 self._windows[i])
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     def forward(self, batch: dict):
         """Training forward: ``batch["tokens"]`` (B, S) -> (logits (B, S,
-        V) float32, {"moe_aux_loss": 0.0}), the reference's
+        V) float32, {"moe_aux_loss": the layers' summed load-balancing
+        losses, 0 outside the moe family}), the reference's
         ``LM.forward``.  With ``cfg.remat == "full"`` each block is
         recomputed in the backward."""
         x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        auxes = []
         for i in range(self.cfg.num_layers):
             if self.cfg.remat == "full":
-                x = checkpoint(self._train_block, x, positions, i,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._train_block, x, positions, i,
+                                    use_reentrant=False)
             else:
-                x = self._train_block(x, positions, i)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._logits(x), {"moe_aux_loss": aux}
+                x, aux = self._train_block(x, positions, i)
+            auxes.append(aux)
+        return self._logits(x), {"moe_aux_loss": torch.stack(auxes).sum()}
 
     def init_cache(self, B: int, S: int) -> dict:
         """A zero bf16 cache of the family's leaves on the model's device:
@@ -416,8 +448,8 @@ class LM(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         cache = self.init_cache(B, S if cache_len is None else cache_len)
         for i, window in enumerate(self._windows):
-            x, seeds = _apply_block(self.cfg, self._layer(i), x, positions,
-                                    window)
+            x, seeds, _ = _apply_block(self.cfg, self._layer(i), x,
+                                       positions, window)
             for name, seed in zip(CACHE_LEAVES[self.cfg.family], seeds):
                 if name in ("k", "v"):
                     cache[name][i, :, :S] = seed
@@ -455,7 +487,12 @@ class LM(nn.Module):
                 # the SSM branch reads the same normalized input
                 ssm_out = _ssm_decode(cfg, p, h, cache, i)
                 x = x + _branch_mix(cfg, p, attn_out, ssm_out)
+                x = x + _mlp_block(cfg, p, x)
+                continue
+            x = x + attn_out
+            if cfg.family == "moe":
+                out, _ = _moe_block(cfg, p, x, max(2.0, cfg.capacity_factor))
+                x = x + out
             else:
-                x = x + attn_out
-            x = x + _mlp_block(cfg, p, x)
+                x = x + _mlp_block(cfg, p, x)
         return self._logits(x), cache

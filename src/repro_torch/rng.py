@@ -3,19 +3,28 @@
 The reference samples neighbours with
 ``jax.random.randint(fold_in(fold_in(key(seed), batch), hop), shape, 0,
 2**31 - 1)`` under partitionable threefry (``kernels/ops.py``
-``sample_khop_kernel``).  This module reproduces that stream outside JAX,
-so the port samples the same node ids as the reference at equal seeds.
+``sample_khop_kernel``), and draws its initial weights with
+``jax.random.normal`` under ``split(key(seed), n_leaves)[i]``
+(``models/params.py``).  This module reproduces both streams outside JAX,
+so the port samples the same node ids and starts from the same weights
+as the reference at equal seeds.
 
 A key is a pair of Python ints ``(k0, k1)``, each < 2**32: ``key``,
 ``fold_in`` and ``split`` are a handful of scalar rounds and run on the
-host.  ``random_bits`` and ``randint`` run on whatever device they are
-given, on int64 tensors masked to 32 bits (torch's ``uint32`` has no
-shifts or remainders on CUDA).  ``threefry2x32`` itself is written once
-over the operators ``+ ^ | << >> &``, so it takes either ints or tensors.
+host.  ``random_bits``, ``randint`` and ``normal`` run on whatever device
+they are given, on int64 tensors masked to 32 bits (torch's ``uint32``
+has no shifts or remainders on CUDA).  The counter of flat index ``i`` is
+the pair ``(i >> 32, i & MASK32)``, as JAX's ``iota_2x32_shape`` builds
+it, so leaves past 2**32 entries (the MoE experts) draw JAX's numbers
+too.  ``threefry2x32`` is written over the operators ``+ ^ | << >> &``,
+so it takes the host's ints and int64 tensors alike.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -58,15 +67,27 @@ def split(k: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
     return [threefry2x32(k, 0, i) for i in range(num)]
 
 
-def random_bits(k: tuple[int, int], shape, device=None) -> torch.Tensor:
+def random_bits(k: tuple[int, int], shape, device=None, *, start: int = 0,
+                count: int | None = None) -> torch.Tensor:
     """Partitionable 32-bit ``jax.random.bits``: ``x0 ^ x1`` of threefry
-    over the row-major flat index.  Returns int64 values < 2**32."""
-    n = 1
-    for d in shape:
-        n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(k, torch.zeros_like(idx), idx)
-    return (x0 ^ x1).reshape(tuple(shape))
+    over the row-major flat index ``i``, counter ``(i >> 32, i &
+    MASK32)``.  Returns int64 values < 2**32 of ``shape``; with ``count``,
+    only the flat entries ``[start, start + count)`` of that draw, as a
+    1-d tensor (a chunk of a leaf too large to draw at once)."""
+    n = math.prod(int(d) for d in shape)
+    whole = count is None
+    if whole:
+        if start:
+            raise ValueError("random_bits: start needs count")
+        count = n
+    if not 0 <= start <= start + count <= n:
+        raise ValueError(f"random_bits: chunk [{start}, {start + count}) "
+                         f"outside a draw of {n}")
+    idx = torch.arange(start, start + count, dtype=torch.int64,
+                       device=device)
+    x0, x1 = threefry2x32(k, idx >> 32, idx & MASK32)
+    bits = x0 ^ x1
+    return bits.reshape(tuple(shape)) if whole else bits
 
 
 def randint(k: tuple[int, int], shape, minval: int, maxval: int,
@@ -86,3 +107,44 @@ def randint(k: tuple[int, int], shape, minval: int, maxval: int,
     off = (((hi % span) * mult) & MASK32) + lo % span
     off = (off & MASK32) % span
     return (off + minval).to(torch.int32)
+
+
+# ``jax.random.normal``'s constants for float32 (``_normal_real``,
+# ``_uniform``): the uniform's lower bound nextafter(-1, 0), its span
+# 1 - lo rounded to float32 (2.0), and sqrt(2) in float32
+_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SPAN = float(np.float32(1.0) - np.float32(_LO))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(k: tuple[int, int], shape, *, device=None, out=None,
+           scale: float = 1.0, chunk: int = 2**26) -> torch.Tensor:
+    """``scale * jax.random.normal(k, shape, float32)``, drawn ``chunk``
+    entries at a time into ``out`` (a new float32 tensor on ``device``
+    when None; any float dtype, contiguous).  As JAX draws it: the top 23
+    bits of ``random_bits`` as the mantissa of a float in [1, 2), minus
+    1, times the span plus ``lo = nextafter(-1, 0)``, clamped below at
+    ``lo``; then ``float32(sqrt 2) * erfinv(u)`` and, as the reference's
+    ``init_params`` multiplies by its float scale, ``* scale``, all in
+    float32.  A bf16 ``out`` holds the round-to-nearest of the float32
+    draw, what the reference's ``astype`` at use gives.  ``erfinv`` may
+    round apart from XLA's in the last bits (a few float32 ulps)."""
+    shape = tuple(int(d) for d in shape)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+    if tuple(out.shape) != shape or not out.is_contiguous():
+        raise ValueError(f"normal: out must be contiguous of shape {shape}")
+    flat = out.view(-1)
+    n = flat.numel()
+    for start in range(0, n, chunk):
+        c = min(chunk, n - start)
+        bits = random_bits(k, shape, flat.device, start=start, count=c)
+        u = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(
+            torch.int32).view(torch.float32)
+        u = u.sub_(1.0).mul_(_SPAN).add_(_LO).clamp_min_(_LO)
+        x = torch.special.erfinv(u).mul_(_SQRT2)
+        if scale != 1.0:
+            x.mul_(scale)
+        flat[start:start + c].copy_(x)
+        del bits, u, x
+    return out

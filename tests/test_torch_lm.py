@@ -189,11 +189,11 @@ def test_count_params_full_configs(arch):
 
 
 @pytest.mark.parametrize("arch,trainable", [
-    ("mamba2-370m", True), ("mixtral-8x7b", False), ("hymba-1.5b", True),
+    ("mamba2-370m", True), ("hymba-1.5b", True),
     ("seamless-m4t-large-v2", False), ("qwen2-vl-7b", False)])
 def test_lm_refuses_what_this_slice_does_not_run(arch, trainable):
-    """The moe, enc-dec and M-RoPE archs are not ported; the ssm and
-    hybrid families serve but do not train (no SSD backward)."""
+    """The enc-dec and M-RoPE archs are not ported; the ssm and hybrid
+    families serve but do not train (no SSD backward)."""
     with pytest.raises(NotImplementedError):
         transformer.LM(get_config(arch).reduced(), device="cpu",
                        trainable=trainable)

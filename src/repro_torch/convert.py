@@ -40,9 +40,11 @@ def lm_cache_from_jax(cache: dict, S_total: int) -> dict:
     (L, B, S, Hkv, Dh) at ``S_total`` positions, the prompt's S first and
     zeros after (the reference's right pad); the SSM ``state`` (L, B, H,
     P, N) and ``conv`` tail (L, B, d_conv - 1, conv_dim) as they are (they
-    have no sequence axis)."""
+    have no sequence axis); the encdec family's ``cross_k`` and
+    ``cross_v`` (L, B, S_src, Hkv, Dh) as they are (decode reads them
+    whole)."""
     out = {}
-    for name in ("k", "v", "state", "conv"):
+    for name in ("k", "v", "state", "conv", "cross_k", "cross_v"):
         if name not in cache:
             continue
         a = torch.from_numpy(np.array(cache[name], np.float32))

@@ -5,9 +5,10 @@ A CUDA tensor launches the hand-written kernel (``kernels.neighbor_sample``,
 through a device cache's slot table; ``kernels.flash_attention`` and
 ``kernels.decode_attention`` for the LM, the forward under an autograd
 ``FlashAttention`` whose backward is the flash backward kernels;
-``kernels.ssd_chunk_scan`` for the SSM mixer), which
-raises on what it does not take; a CPU tensor takes the plain version in
-``kernels.ref``.
+``kernels.ssd_chunk_scan`` for the SSM mixer, under an autograd
+``SSDChunkScan`` whose backward is autograd of the plain scan on either
+device), which raises on what it does not take; a CPU tensor takes the
+plain version in ``kernels.ref``.
 There is no switch and no fallback between the two: the device of the
 data decides.
 """
@@ -178,14 +179,52 @@ def decode_attention(q, k, v, valid_len: int, window: int = 0):
     return ref.decode_attention(q, k, v, valid_len, window)
 
 
+def _ssd_scan(x, dt, A, B, C, chunk: int):
+    if x.is_cuda:
+        return _ssd.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    return ref.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """The SSD scan with a backward: the forward is the kernel (on a CPU
+    tensor its plain version), the backward recomputes the plain
+    ``ref.ssd_chunk_scan`` on the saved inputs and takes its
+    vector-Jacobian product, as the reference trains its SSM (autodiff of
+    the plain ``ssd_chunked``; its Pallas kernel has no VJP).  On the
+    CPU that is autograd of the plain scan, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        y, state = _ssd_scan(x, dt, A, B, C, chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = ref.ssd_chunk_scan(*inputs, chunk=ctx.chunk)
+        outs, grads_out = [], []
+        for out, g in ((y, dy), (state, dstate)):
+            if g is not None:
+                outs.append(out)
+                grads_out.append(g)
+        grads = torch.autograd.grad(outs, inputs, grads_out,
+                                    allow_unused=True)
+        return (*grads, None)
+
+
 def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 128):
     """The Mamba-2 SSD chunked scan: x (b, s, h, p), dt (b, s, h)
     post-softplus, A (h,) negative, B and C (b, s, g, n) -> (y (b, s, h,
     p), final_state (b, h, p, n)), float32.  The reference dispatcher's
     rule: a chunk longer than a sequence it divides is cut to the
     sequence, and otherwise the sequence is padded (dt = 0) up to a chunk
-    multiple and y cut back.  On the card the kernel takes float32 and
-    chunks up to 256."""
+    multiple and y cut back (outside ``SSDChunkScan``, so autograd takes
+    the padding).  Through ``SSDChunkScan`` on either device: on the card
+    the kernel (float32, chunks up to 256), on the CPU the plain
+    version."""
     s = x.shape[1]
     chunk = min(chunk, s) if s % chunk == 0 else chunk
     pad = -s % chunk
@@ -193,8 +232,5 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 128):
         x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
                        for t in (x, dt, B, C))
     args = [t.contiguous() for t in (x, dt, A, B, C)]
-    if x.is_cuda:
-        y, state = _ssd.ssd_chunk_scan(*args, chunk=chunk)
-    else:
-        y, state = ref.ssd_chunk_scan(*args, chunk=chunk)
+    y, state = SSDChunkScan.apply(*args, chunk)
     return y[:, :s], state

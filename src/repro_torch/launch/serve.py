@@ -1,5 +1,5 @@
-"""The port's serving entry point: batched prefill + greedy decode for the
-dense, moe, ssm and hybrid LM families.
+"""The port's serving entry point: batched prefill + greedy decode for
+every LM family (dense, moe, ssm, hybrid, encdec).
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --full-config \\
       --batch 8 --prompt-len 2048 --gen 64
@@ -7,6 +7,10 @@ dense, moe, ssm and hybrid LM families.
       --full-config --batch 8 --prompt-len 2048 --gen 16
   python -m repro_torch.launch.serve --arch mamba2-370m --full-config
   python -m repro_torch.launch.serve --arch hymba-1.5b --full-config
+  python -m repro_torch.launch.serve --arch qwen2-vl-7b --full-config \\
+      --batch 8 --prompt-len 2048 --gen 16
+  python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \\
+      --full-config --batch 8 --prompt-len 2048 --gen 16
 
 Runs on the GPU (``--device cuda``, the default): prefill attention
 through the hand-written flash-attention forward kernel (``--attn-impl
@@ -19,15 +23,23 @@ step is plain PyTorch, as in the reference.  The moe family
 plain PyTorch (``models/moe.py``, as the reference's jnp code), decode at
 the reference's decode capacity factor; mixtral's sliding window takes
 the chunked prefill path, as in the reference, and its whole 87 GiB of
-bf16 weights does not fit one 80 GB card.  The cache holds each
+bf16 weights does not fit one 80 GB card.  qwen2-vl-7b's prompt is
+``embeds`` (its vision frontend is a stub, as in the reference: random
+embeddings), rotated with M-RoPE; its decode steps embed the greedy ids.
+seamless-m4t-large-v2 encodes ``src_embeds`` (``--prompt-len //
+enc_seq_divisor`` frames; a shorter prompt is an error) with the
+non-causal encoder on the chunked path and cross-attends to it: in
+prefill through the chunked path, in decode through the decode kernel
+over the cross K and V, a second launch a layer.  The cache holds each
 family's leaves (``LM.init_cache``): the SSM state and conv tail have no
-sequence axis.  ``--device cpu`` runs the plain PyTorch versions; without
-a GPU and without ``--device cpu`` it stops with an error.  Without
-``--full-config`` it serves the reduced config, as the reference's
-``repro.launch.serve`` does.  Weights are the reference's seed-0 draws
-(``jax.random.normal``'s stream, ``models.params.init_params``), drawn
-on the serving device straight into bf16 (the MoE router in float32);
-prompt tokens are the reference's ``make_batch`` draws.
+sequence axis, the cross K and V the source's length.  ``--device cpu``
+runs the plain PyTorch versions; without a GPU and without ``--device
+cpu`` it stops with an error.  Without ``--full-config`` it serves the
+reduced config, as the reference's ``repro.launch.serve`` does.  Weights
+are the reference's seed-0 draws (``jax.random.normal``'s stream,
+``models.params.init_params``), drawn on the serving device straight
+into bf16 (the MoE router in float32); prompts are the reference's
+``make_batch`` draws.
 """
 
 from __future__ import annotations
@@ -61,6 +73,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if min(args.batch, args.prompt_len, args.gen) < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
+    cfg = get_config(args.arch)
+    if cfg.family == "encdec" and args.prompt_len < cfg.enc_seq_divisor:
+        ap.error(f"--prompt-len must be >= {cfg.enc_seq_divisor} for "
+                 f"{args.arch}: its encoder reads --prompt-len // "
+                 f"{cfg.enc_seq_divisor} source frames")
     return args
 
 

@@ -1,5 +1,5 @@
-"""Training entry point of the port: GraphSAGE and the dense- and
-moe-family LMs.
+"""Training entry point of the port: GraphSAGE and the LMs (the dense,
+moe, ssm and hybrid families, and qwen2-vl-7b).
 
 GraphSAGE with near-data (ISP) subgraph generation, the graph partitioned
 over a mesh of 4 shards (the default backend is ``isp``, as in the
@@ -76,6 +76,14 @@ card's optimizer state, so ``--reduced`` trains the small config:
   python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b \\
       --reduced --batch 4 --seq-len 32 --steps 4 --log-every 1
 
+The ssm and hybrid families (mamba2-370m, hymba-1.5b) train at full
+width, the SSD scan through its kernel in the forward (and in each
+layer's recompute under ``remat="full"``) and autograd of its plain
+version in the backward (``ops.SSDChunkScan``):
+
+  python -m repro_torch.launch.train --arch mamba2-370m --batch 4 \\
+      --seq-len 4096 --steps 5 --log-every 1
+
 Runs on the GPU (``--device cuda``, the default) through the hand-written
 CUDA kernels, or on the CPU through their plain PyTorch versions with
 ``--device cpu``.  Without a GPU and without ``--device cpu`` it stops
@@ -95,8 +103,13 @@ device), ``TokenPipeline`` batches (``--batch`` through
 ``fill_pipeline_flag_defaults``), AdamW on ``warmup_cosine(lr, 10,
 steps)``; ``--reduced`` trains the small same-family config,
 ``--attn-impl`` picks the flash kernels (default) or the chunked plain
-path; archs outside the dense and moe families raise
-``NotImplementedError``.  GraphSAGE starts from the reference's
+path.  qwen2-vl-7b trains on the pipeline's int32 tokens, which its
+``embed`` table looks up, as the reference's does.  seamless-m4t-large-v2
+exits 2: ``TokenPipeline`` batches carry no ``src_embeds`` for its
+encoder, where the reference's ``run_lm`` raises ``KeyError:
+'src_embeds'`` (the port trains the encdec family through
+``train.steps.build_train_step`` on ``launch.shapes.make_batch``
+batches).  GraphSAGE starts from the reference's
 ``GraphSAGE.init(jax.random.key(0))`` weights, so the same flags log the
 reference launcher's losses.
 
@@ -188,6 +201,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     elif args.devices > 1:
         ap.error("--devices > 1 shards the GNN's mesh; an LM's mesh is "
                  "not part of the port yet (ROADMAP item 16)")
+    elif get_config(args.arch).family == "encdec":
+        ap.error(f"{args.arch} has an encoder over src_embeds, and "
+                 "TokenPipeline batches carry no src_embeds (the "
+                 "reference's run_lm raises KeyError: 'src_embeds' here); "
+                 "train it through train.steps.build_train_step on "
+                 "launch.shapes.make_batch(kind='train') batches")
     # resolve the "not given" sentinels for code that reads flags directly
     # (the LM's --batch); after the spec is assembled
     fill_pipeline_flag_defaults(args)
@@ -395,7 +414,7 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
 
 
 def run_lm(args) -> dict:
-    """Train an LM of the dense or moe family (the reference's
+    """Train an LM on ``TokenPipeline`` batches (the reference's
     ``run_lm``).
     Returns the per-step losses, grad norms and wall ms (each step ends
     in a device synchronize), tok/s over the run, and the peak device

@@ -1,10 +1,10 @@
-"""Shared layer primitives of the LM: norms, activations, RoPE, embeddings.
+"""Shared layer primitives of the LM: norms, activations, RoPE and
+M-RoPE, embeddings.
 
-The port of the reference's ``repro/models/layers.py`` for the dense
-family (M-RoPE waits for the multimodal slice).  Same arithmetic: the
-RMS norm runs in float32 and casts back, RoPE rotates split halves (not
-interleaved pairs) with float32 angles, and gelu is the tanh
-approximation that ``jax.nn.gelu`` defaults to.
+The port of the reference's ``repro/models/layers.py``.  Same
+arithmetic: the RMS norm runs in float32 and casts back, RoPE and M-RoPE
+rotate split halves (not interleaved pairs) with float32 angles, and gelu
+is the tanh approximation that ``jax.nn.gelu`` defaults to.
 """
 
 from __future__ import annotations
@@ -46,12 +46,36 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
 def apply_rope(x, positions, theta: float = 1e4):
     """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
     freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
-    angles = positions[..., None].float() * freqs   # (..., seq, hd/2)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x, angles):
+    """x (..., seq, heads, head_dim) rotated by float32 ``angles`` (...,
+    seq, head_dim/2), split halves, cast back to x's dtype."""
     angles = angles[..., None, :]                    # broadcast heads
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections, theta: float = 1e4):
+    """Multimodal RoPE (Qwen2-VL): the rotary frequencies split into (t,
+    h, w) sections, each taking its position from its own row.
+
+    x: (..., seq, heads, head_dim); positions3: (3, ..., seq) int;
+    sections: 3 ints summing to head_dim // 2.  With the three rows equal
+    it is ``apply_rope`` bit for bit (the same float32 products)."""
+    head_dim = x.shape[-1]
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    freqs = rope_frequencies(head_dim, theta, device=x.device)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))     # (hd/2,)
+    pos = positions3.movedim(0, -1)[..., sec_ids]    # (..., seq, hd/2)
+    return _rotate(x, pos.float() * freqs)
 
 
 def embed_def(vocab: int, d_model: int) -> ParamDef:

@@ -63,7 +63,8 @@ def init_scale(d: ParamDef) -> float:
 
 def init_params(defs, seed: int = 0, device="cpu",
                 dtype: torch.dtype | None = None,
-                layers: int | None = None) -> dict:
+                layers: int | None = None,
+                enc_layers: int | None = None) -> dict:
     """Materialize the parameters of a ``ParamDef`` tree on ``device``, in
     ``dtype`` (default, and for a ``keep_dtype`` leaf: the leaf's own,
     float32): the reference's
@@ -74,28 +75,30 @@ def init_params(defs, seed: int = 0, device="cpu",
     drawn over its first ``layers`` rows only, at its full scale: the
     first layers of the model that ``defs`` declares (the draw's counter
     is the flat index, so a leading slice draws as that slice of the
-    whole leaf)."""
+    whole leaf).  ``enc_layers`` cuts the leaves under ``enc_blocks``,
+    the encdec family's encoder stack, alike."""
     leaves = tree_leaves(defs)
     keys = iter(rng.split(rng.key(seed), len(leaves)))
 
-    def draw(d: ParamDef, cut: bool) -> torch.Tensor:
+    cuts = {"blocks": layers, "enc_blocks": enc_layers}
+
+    def draw(d: ParamDef, cut: int | None) -> torch.Tensor:
         k = next(keys)
         dt = d.dtype if dtype is None or d.keep_dtype else dtype
-        shape = (layers,) + d.shape[1:] if cut else d.shape
+        shape = d.shape if cut is None else (cut,) + d.shape[1:]
         if d.init in ("zeros", "ones"):
             fill = torch.zeros if d.init == "zeros" else torch.ones
             return fill(shape, dtype=dt, device=device)
         out = torch.empty(shape, dtype=dt, device=device)
         return rng.normal(k, shape, out=out, scale=init_scale(d))
 
-    def walk(tree, cut: bool):     # sorted keys: the reference's draw order
+    def walk(tree, cut: int | None):  # sorted keys: the reference's order
         if isinstance(tree, dict):
-            return {k: walk(tree[k], cut or (layers is not None
-                                             and k == "blocks"))
+            return {k: walk(tree[k], cuts.get(k) if cut is None else cut)
                     for k in sorted(tree)}
         return draw(tree, cut)
 
-    return walk(defs, False)
+    return walk(defs, None)
 
 
 def count_params(defs) -> int:

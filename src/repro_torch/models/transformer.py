@@ -1,11 +1,8 @@
-"""The LM: parameters, the training forward of the dense and MoE
-families, and prefill and greedy decode of the dense, MoE, SSM and hybrid
-families.
+"""The LM: parameters, the training forward, prefill and greedy decode of
+every family: dense, moe, ssm, hybrid and encdec.
 
-The port of the reference's ``repro/models/transformer.py`` for training
-the dense and moe (mixtral, moonshot) families and serving them and the
-ssm (mamba2) and hybrid (hymba) families on one card (no mesh, no
-sharding constraints).
+The port of the reference's ``repro/models/transformer.py`` on one card
+(no mesh, no sharding constraints).
 Parameters keep the reference tree's names and stacked layer shapes
 (``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
 carries the reference's weights over as a copy; ``lax.scan`` over the
@@ -26,7 +23,21 @@ The moe family's feed-forward is ``models/moe.py``'s ``apply_moe``; its
 load-balancing losses, one a layer, are summed into ``forward``'s
 ``moe_aux_loss`` (through the checkpoint under ``remat="full"``); prefill
 drops them, and decode dispatches at the reference's decode capacity
-factor, ``max(2, cfg.capacity_factor)``.
+factor, ``max(2, cfg.capacity_factor)``.  The ssm and hybrid families'
+mixer (``models/ssm.py``) scans through the SSD kernel on the card, in
+training through ``ops.SSDChunkScan``, whose backward is autograd of the
+plain scan (the reference trains the SSM by autodiff of its plain
+``ssd_chunked``).
+
+qwen2-vl-7b rotates with M-RoPE (``layers.apply_mrope``, its three
+position rows equal, as the reference passes them) and takes float
+``embeds`` in place of ``tokens`` (``cfg.embeds_input``; int32 ids are
+still looked up, as the reference's ``_embed`` does).  The encdec family
+(seamless-m4t-large-v2) runs a non-causal encoder over ``src_embeds``
+(the decoder's blocks as the dense family without post-norms, no window,
+always the chunked path, as the reference routes it) and, after each
+decoder block's self-attention, cross-attention to the encoder's output
+(``mha_chunked``, no mask, no RoPE).
 
 The cache holds each family's leaves (``init_cache``).  The KV cache is
 (L, B, S_total, Hkv, Dh) bf16, allocated once for prompt + generation:
@@ -35,13 +46,12 @@ position in place (the reference pads the prefill cache and
 ``dynamic_update_slice``s it, which gives the same values).  The SSM
 cache has no sequence axis: the state (L, B, H, P, N) and the conv tail
 (L, B, d_conv - 1, conv_dim), both bf16, written by prefill and replaced
-by each decode step.  The SSM mixer (``models/ssm.py``) runs its prefill
-scan through the SSD kernel on the card.
+by each decode step.  The encdec family's cross K and V, (L, B, S_src,
+Hkv, Dh) bf16, are computed once by prefill from the encoder's output and
+read whole by each decode step (a second decode-kernel launch a layer,
+``valid_len`` S_src, no window).
 
-``build_defs`` declares every family, so ``count_params`` counts all ten
-archs; ``LM`` itself refuses what the port does not run (enc-dec,
-M-RoPE, embedding inputs, the ``"dots"`` remat policy, and training of
-the ssm and hybrid families, which needs an SSD backward) with
+``LM`` refuses only the ``"dots"`` remat policy in training, with
 ``NotImplementedError``.
 """
 
@@ -58,9 +68,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import decode_attention_local, mha_chunked
-from repro_torch.models.layers import (activation, apply_rope, embed_def,
-                                       embed_lookup, rmsnorm, rmsnorm_def,
-                                       unembed_def)
+from repro_torch.models.layers import (activation, apply_mrope, apply_rope,
+                                       embed_def, embed_lookup, rmsnorm,
+                                       rmsnorm_def, unembed_def)
 from repro_torch.models.params import (ParamDef, count_params, init_params,
                                        tree_map)
 from repro_torch.models.registry import ModelConfig
@@ -160,21 +170,13 @@ def build_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-TRAINED_FAMILIES = ("dense", "moe")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port's LM does not run yet."""
-    if cfg.family not in SERVED_FAMILIES:
+def check_supported(cfg: ModelConfig, trainable: bool) -> None:
+    """Refuse what the port's LM does not run yet: in training, a remat
+    policy other than "none" and "full"."""
+    if trainable and cfg.remat not in ("none", "full"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet (the "
-            f"port's LM serves the {', '.join(SERVED_FAMILIES)} families)")
-    for field, what in (("mrope_sections", "M-RoPE"),
-                        ("embeds_input", "embedding inputs")):
-        if getattr(cfg, field):
-            raise NotImplementedError(f"{cfg.name}: {what} ({field}) is not "
-                                      "ported yet")
+            f"{cfg.name}: remat={cfg.remat!r} has no counterpart in "
+            "torch (the port takes 'none' and 'full')")
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +203,12 @@ def _project_qkv(cfg: ModelConfig, p, x):
 
 
 def _rope_qk(cfg: ModelConfig, q, k, positions):
+    """RoPE, or M-RoPE with its three position rows equal to
+    ``positions`` (B, S), as the reference's LM passes them."""
+    if cfg.mrope_sections:
+        pos3 = positions[None].expand(3, *positions.shape)
+        return (apply_mrope(q, pos3, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, pos3, cfg.mrope_sections, cfg.rope_theta))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -215,23 +223,48 @@ def _out_proj(cfg: ModelConfig, p, out):
     return out
 
 
-def _attn_block(cfg: ModelConfig, p, x, positions, window: int):
-    """Full-sequence causal attention sub-block (training and prefill).
-    Returns (out, (k, v)), the roped k and v for the cache."""
+def _attn_block(cfg: ModelConfig, p, x, positions, window: int, *,
+                causal: bool = True):
+    """Full-sequence attention sub-block (training, prefill and the
+    encoder, which is not causal).  Returns (out, (k, v)), the roped k and
+    v for the cache."""
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, h)
     bpos = positions.expand(x.shape[0], -1)
     q, kr = _rope_qk(cfg, q, k, bpos)
-    if (cfg.attn_impl == "flash" and cfg.sliding_window == 0
+    if (cfg.attn_impl == "flash" and causal and cfg.sliding_window == 0
             and cfg.local_global_ratio == 0):
         out = ops.flash_attention_bshd(q, kr, v, causal=True)
     else:
         out = mha_chunked(q, kr, v, q_positions=positions,
-                          k_positions=positions, window=window, causal=True,
+                          k_positions=positions, window=window, causal=causal,
                           chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
                           remat_chunks=cfg.attn_remat,
                           scores_bf16=cfg.attn_scores_bf16)
     return _out_proj(cfg, p, out), (kr, v)
+
+
+def _cross_attn_block(cfg: ModelConfig, p, x, enc_out):
+    """The encdec decoder's cross-attention to the encoder's output (no
+    mask, no RoPE, the chunked path).  Returns (out, (k, v)), the cross K
+    and V for the cache."""
+    h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+    q = _proj(h, p["wq_c"])
+    k, v = _proj(enc_out, p["wk_c"]), _proj(enc_out, p["wv_c"])
+    out = mha_chunked(q, k, v,
+                      q_positions=torch.arange(x.shape[1], device=x.device),
+                      k_positions=torch.arange(enc_out.shape[1],
+                                               device=x.device), window=0,
+                      causal=False, chunk_q=cfg.attn_chunk_q,
+                      chunk_k=cfg.attn_chunk_k)
+    return _cross_out(p, out), (k, v)
+
+
+def _cross_out(p, out):
+    """(B, S, H, Dh) @ wo_c (H, Dh, d)."""
+    H, Dh, d = p["wo_c"].shape
+    return _proj(out.reshape(*out.shape[:-2], H * Dh),
+                 p["wo_c"].reshape(H * Dh, d))
 
 
 def _mlp_block(cfg: ModelConfig, p, x):
@@ -271,17 +304,19 @@ def _moe_block(cfg: ModelConfig, p, x, capacity_factor: float):
                              groups=cfg.moe_groups)
 
 
-def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
-    """One decoder block, training and prefill path.  Returns (x, the
-    family's cache seeds, the MoE aux loss or None): seeds (k, v) for
+def _apply_block(cfg: ModelConfig, p, x, positions, window: int, *,
+                 causal: bool = True, enc_out=None):
+    """One block, training and prefill path (an encoder block with
+    ``causal=False``; the encdec decoder's with ``enc_out``).  Returns (x,
+    the family's cache seeds, the MoE aux loss or None): seeds (k, v) for
     dense and moe, (state, conv_tail) for ssm, (k, v, state, conv_tail)
-    for hybrid."""
+    for hybrid, (k, v, cross_k, cross_v) for encdec."""
     if cfg.family == "ssm":
         h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
         out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
                                        **_ssm_kw(cfg))
         return x + out, seeds, None
-    attn_out, kv = _attn_block(cfg, p, x, positions, window)
+    attn_out, kv = _attn_block(cfg, p, x, positions, window, causal=causal)
     if cfg.family == "hybrid":
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
         ssm_out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
@@ -289,6 +324,10 @@ def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
         x = x + _branch_mix(cfg, p, attn_out, ssm_out)
         return x + _mlp_block(cfg, p, x), kv + seeds, None
     x = x + attn_out
+    if enc_out is not None:
+        out, cross_kv = _cross_attn_block(cfg, p, x, enc_out)
+        x = x + out
+        kv = kv + cross_kv
     if cfg.family == "moe":
         out, aux = _moe_block(cfg, p, x, cfg.capacity_factor)
         return x + out, kv, aux["moe_aux_loss"]
@@ -301,12 +340,16 @@ def _apply_block(cfg: ModelConfig, p, x, positions, window: int):
 
 CACHE_LEAVES = {"dense": ("k", "v"), "moe": ("k", "v"),
                 "ssm": ("state", "conv"),
-                "hybrid": ("k", "v", "state", "conv")}
+                "hybrid": ("k", "v", "state", "conv"),
+                "encdec": ("k", "v", "cross_k", "cross_v")}
+
+
+def _layer_views(blocks, n: int) -> list[dict]:
+    return [{k: w[i] for k, w in blocks.items()} for i in range(n)]
 
 
 class LM(nn.Module):
-    """The LM: the training forward (dense and moe families), prefill and
-    decode.
+    """The LM: the training forward, prefill and decode.
 
     ``params`` is a tree like the reference's (``convert.lm_params_from_jax``
     or ``params.init_params(build_defs(cfg), seed)``); without it the
@@ -321,15 +364,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
                  seed: int = 0, device="cuda", trainable: bool = False):
         super().__init__()
-        check_supported(cfg)
-        if trainable and cfg.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family!r} family is not "
-                "ported yet (the SSD scan has no backward kernel)")
-        if trainable and cfg.remat not in ("none", "full"):
-            raise NotImplementedError(
-                f"{cfg.name}: remat={cfg.remat!r} has no counterpart in "
-                "torch (the port takes 'none' and 'full')")
+        check_supported(cfg, trainable)
         self.cfg = cfg
         self.defs = build_defs(cfg)
         if params is None:
@@ -340,13 +375,25 @@ class LM(nn.Module):
         self.final_norm = tree["final_norm"]
         self.unembed = tree.get("unembed")
         self.blocks = nn.ParameterDict(tree["blocks"])
+        # the encdec family's encoder: the decoder's blocks as the dense
+        # family without post-norms (the reference's ``enc_cfg``)
+        self.enc_cfg = None
+        self.enc_blocks = self.enc_final_norm = None
+        if cfg.family == "encdec":
+            self.enc_cfg = dataclasses.replace(cfg, family="dense",
+                                               post_norms=False)
+            self.enc_blocks = nn.ParameterDict(tree["enc_blocks"])
+            self.enc_final_norm = tree["enc_final_norm"]
         # serving: per-layer views of the stacked tensors, made once (the
         # decode loop is host-bound; views of parameters that are never
         # replaced).  Training slices layer i inside the graph on every
         # forward, so no view carries autograd state across steps.
-        self._layers = None if trainable else [
-            {k: w[i] for k, w in self.blocks.items()}
-            for i in range(cfg.num_layers)]
+        self._layers = self._enc_layers = None
+        if not trainable:
+            self._layers = _layer_views(self.blocks, cfg.num_layers)
+            if self.enc_blocks is not None:
+                self._enc_layers = _layer_views(self.enc_blocks,
+                                                cfg.encoder_layers)
         self._windows = [int(w) for w in cfg.window_pattern()]
         # the reference multiplies by sqrt(d) rounded to bf16
         self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
@@ -365,12 +412,16 @@ class LM(nn.Module):
 
     def param_tree(self) -> dict:
         """The parameters as the reference's tree (``embed``,
-        ``final_norm``, ``blocks``, ``unembed`` when untied): what the
-        optimizer updates in place."""
+        ``final_norm``, ``blocks``, ``unembed`` when untied, ``enc_blocks``
+        and ``enc_final_norm`` for encdec): what the optimizer updates in
+        place."""
         tree = {"embed": self.embed, "final_norm": self.final_norm,
                 "blocks": dict(self.blocks)}
         if self.unembed is not None:
             tree["unembed"] = self.unembed
+        if self.enc_blocks is not None:
+            tree["enc_blocks"] = dict(self.enc_blocks)
+            tree["enc_final_norm"] = self.enc_final_norm
         return tree
 
     def _layer(self, i: int) -> dict:
@@ -378,8 +429,18 @@ class LM(nn.Module):
             return self._layers[i]
         return {k: w[i] for k, w in self.blocks.items()}
 
-    def _embed(self, tokens):
-        x = embed_lookup(self.embed, tokens, COMPUTE_DTYPE)
+    def _enc_layer(self, i: int) -> dict:
+        if self._enc_layers is not None:
+            return self._enc_layers[i]
+        return {k: w[i] for k, w in self.enc_blocks.items()}
+
+    def _embed(self, x):
+        """Token ids, or (with ``cfg.embeds_input``) float embeddings
+        taken as they are, in the compute dtype."""
+        if self.cfg.embeds_input and x.is_floating_point():
+            x = x.to(COMPUTE_DTYPE)
+        else:
+            x = embed_lookup(self.embed, x, COMPUTE_DTYPE)
         if self.cfg.embed_scale:
             x = x * self._embed_scale
         return x
@@ -393,40 +454,67 @@ class LM(nn.Module):
             logits = x @ self.unembed.to(COMPUTE_DTYPE)
         return logits.float()
 
-    def _train_block(self, x, positions, i: int):
+    def _enc_block(self, x, positions, i: int):
+        return _apply_block(self.enc_cfg, self._enc_layer(i), x, positions,
+                            -1, causal=False)[0]
+
+    def _encode(self, batch: dict):
+        """The encdec family's encoder over ``batch["src_embeds"]`` (B,
+        S_src, d): the non-causal stack, then ``enc_final_norm``; None for
+        the other families.  Under ``remat == "full"`` in training each
+        block is recomputed in the backward, as the decoder's."""
+        if self.enc_cfg is None:
+            return None
+        x = batch["src_embeds"].to(COMPUTE_DTYPE)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        for i in range(self.cfg.encoder_layers):
+            if remat:
+                x = checkpoint(self._enc_block, x, positions, i,
+                               use_reentrant=False)
+            else:
+                x = self._enc_block(x, positions, i)
+        return rmsnorm(x, self.enc_final_norm, self.cfg.norm_eps)
+
+    def _train_block(self, x, positions, i: int, enc_out):
         x, _, aux = _apply_block(self.cfg, self._layer(i), x, positions,
-                                 self._windows[i])
+                                 self._windows[i], enc_out=enc_out)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
 
     def forward(self, batch: dict):
-        """Training forward: ``batch["tokens"]`` (B, S) -> (logits (B, S,
-        V) float32, {"moe_aux_loss": the layers' summed load-balancing
-        losses, 0 outside the moe family}), the reference's
-        ``LM.forward``.  With ``cfg.remat == "full"`` each block is
-        recomputed in the backward."""
-        x = self._embed(batch["tokens"])
+        """Training forward: ``batch["tokens"]`` (B, S) or
+        ``batch["embeds"]`` (B, S, d), and ``batch["src_embeds"]`` for
+        encdec -> (logits (B, S, V) float32, {"moe_aux_loss": the layers'
+        summed load-balancing losses, 0 outside the moe family}), the
+        reference's ``LM.forward``.  With ``cfg.remat == "full"`` each
+        block is recomputed in the backward."""
+        enc_out = self._encode(batch)
+        x = self._embed(batch.get("embeds", batch.get("tokens")))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         auxes = []
         for i in range(self.cfg.num_layers):
             if self.cfg.remat == "full":
                 x, aux = checkpoint(self._train_block, x, positions, i,
-                                    use_reentrant=False)
+                                    enc_out, use_reentrant=False)
             else:
-                x, aux = self._train_block(x, positions, i)
+                x, aux = self._train_block(x, positions, i, enc_out)
             auxes.append(aux)
         return self._logits(x), {"moe_aux_loss": torch.stack(auxes).sum()}
 
-    def init_cache(self, B: int, S: int) -> dict:
+    def init_cache(self, B: int, S: int, src_len: int = 0) -> dict:
         """A zero bf16 cache of the family's leaves on the model's device:
         K and V (L, B, S, Hkv, Dh); the SSM state (L, B, H, P, N) and conv
-        tail (L, B, d_conv - 1, conv_dim), which do not depend on S."""
+        tail (L, B, d_conv - 1, conv_dim), which do not depend on S; the
+        cross K and V (L, B, ``src_len``, Hkv, Dh)."""
         cfg = self.cfg
         L = cfg.num_layers
         kv = (L, B, S, cfg.num_kv_heads, cfg.head_dim)
-        shapes = {"k": kv, "v": kv}
+        cross = (L, B, src_len, cfg.num_kv_heads, cfg.head_dim)
+        shapes = {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
         if cfg.ssm_heads:
             shapes["state"] = (L, B, cfg.ssm_heads,
                                cfg.d_inner // cfg.ssm_heads, cfg.ssm_state)
@@ -438,18 +526,21 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict, cache_len: int | None = None):
-        """Forward over the prompt, writing each layer's cache seeds into
-        a fresh cache: K and V at the first S of ``cache_len`` positions
-        (default: the prompt length), the SSM state and conv tail whole.
+        """Forward over the prompt (``tokens`` or ``embeds``; the encdec
+        family's encoder over ``src_embeds``), writing each layer's cache
+        seeds into a fresh cache: K and V at the first S of ``cache_len``
+        positions (default: the prompt length), the SSM state and conv
+        tail whole, the cross K and V at the source's S_src positions.
         Returns (last-position logits (B, 1, V) float32, cache)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self._embed(tokens)
+        enc_out = self._encode(batch)
+        x = self._embed(batch.get("embeds", batch.get("tokens")))
+        B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        cache = self.init_cache(B, S if cache_len is None else cache_len)
+        cache = self.init_cache(B, S if cache_len is None else cache_len,
+                                0 if enc_out is None else enc_out.shape[1])
         for i, window in enumerate(self._windows):
             x, seeds, _ = _apply_block(self.cfg, self._layer(i), x,
-                                       positions, window)
+                                       positions, window, enc_out=enc_out)
             for name, seed in zip(CACHE_LEAVES[self.cfg.family], seeds):
                 if name in ("k", "v"):
                     cache[name][i, :, :S] = seed
@@ -459,11 +550,12 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens, cache: dict, position: int):
-        """One-token decode: tokens (B, 1); ``position`` is the host int
-        index the new K and V are written at (attention sees [0,
-        position]); the SSM state and conv tail advance one step.
-        Updates ``cache`` in place; returns (logits (B, 1, V) float32,
-        cache)."""
+        """One-token decode: token ids (B, 1) or, with
+        ``cfg.embeds_input``, embeddings (B, 1, d); ``position`` is the
+        host int index the new K and V are written at (attention sees [0,
+        position]); the SSM state and conv tail advance one step; the
+        encdec family attends to its whole cross K and V.  Updates
+        ``cache`` in place; returns (logits (B, 1, V) float32, cache)."""
         cfg = self.cfg
         x = self._embed(tokens)
         pos = torch.full((x.shape[0], 1), position, dtype=torch.int32,
@@ -490,6 +582,13 @@ class LM(nn.Module):
                 x = x + _mlp_block(cfg, p, x)
                 continue
             x = x + attn_out
+            if cfg.family == "encdec":
+                xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+                qc = _proj(rmsnorm(x, p["cross_norm"], cfg.norm_eps),
+                           p["wq_c"])
+                out = decode_attention_local(qc[:, 0], xk, xv, xk.shape[1],
+                                             window=0)
+                x = x + _cross_out(p, out[:, None])
             if cfg.family == "moe":
                 out, _ = _moe_block(cfg, p, x, max(2.0, cfg.capacity_factor))
                 x = x + out

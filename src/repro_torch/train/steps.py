@@ -45,7 +45,8 @@ def build_train_step(model: LM, optimizer: Optimizer, *,
     """Returns ``train_step(state, batch) -> (state, metrics)`` over the
     model's parameters (``state`` from ``init_train_state``).
 
-    ``microbatches > 1`` splits the batch on its leading dim and sums the
+    ``microbatches > 1`` splits the batch (every leaf: ``tokens`` or
+    ``embeds``, ``src_embeds``, ``labels``) on its leading dim and sums the
     microbatches' gradients and metrics in order before dividing, as the
     reference's ``lax.scan`` does.  ``ce`` picks the cross-entropy
     ("gather" or "sharded").  Metrics: ``loss``, ``moe_aux``,
@@ -56,7 +57,13 @@ def build_train_step(model: LM, optimizer: Optimizer, *,
         logits, aux = model(batch)
         loss = ce_fn(logits, batch["labels"])
         moe_aux = aux["moe_aux_loss"]
-        grads = torch.autograd.grad(loss + MOE_AUX_WEIGHT * moe_aux, params)
+        # a leaf the loss does not reach (the untied ``embed`` table under
+        # an ``embeds`` batch) gets a zero gradient, as jax.value_and_grad
+        # gives it
+        grads = torch.autograd.grad(loss + MOE_AUX_WEIGHT * moe_aux, params,
+                                    allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
         return grads, {"loss": loss.detach(), "moe_aux": moe_aux.detach()}
 
     def train_step(state: dict, batch: dict):

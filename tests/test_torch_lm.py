@@ -30,7 +30,8 @@ from repro.train.steps import build_serve_step as jbuild_serve
 from repro_torch.convert import lm_cache_from_jax, lm_params_from_jax
 from repro_torch.launch.shapes import make_batch
 from repro_torch.models import transformer
-from repro_torch.models.params import cast_tree, count_params, init_params
+from repro_torch.models.params import (cast_tree, count_params,
+                                       init_params, tree_leaves)
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.train.steps import build_prefill_step, build_serve_step
 
@@ -188,12 +189,19 @@ def test_count_params_full_configs(arch):
         JLM(jget_config(arch)).param_count()
 
 
-@pytest.mark.parametrize("arch,trainable", [
-    ("mamba2-370m", True), ("hymba-1.5b", True),
-    ("seamless-m4t-large-v2", False), ("qwen2-vl-7b", False)])
-def test_lm_refuses_what_this_slice_does_not_run(arch, trainable):
-    """The enc-dec and M-RoPE archs are not ported; the ssm and hybrid
-    families serve but do not train (no SSD backward)."""
-    with pytest.raises(NotImplementedError):
-        transformer.LM(get_config(arch).reduced(), device="cpu",
-                       trainable=trainable)
+@pytest.mark.parametrize("trainable", [False, True])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_constructs_every_arch(arch, trainable):
+    """Every arch serves and trains in the port: the reduced config's LM
+    constructs, frozen or trainable; only the "dots" remat policy is
+    refused, in training."""
+    cfg = get_config(arch).reduced()
+    model = transformer.LM(cfg, device="cpu", trainable=trainable)
+    assert all(p.requires_grad == trainable
+               for p in tree_leaves(model.param_tree()))
+    dots = dataclasses.replace(cfg, remat="dots")
+    if trainable:
+        with pytest.raises(NotImplementedError, match="dots"):
+            transformer.LM(dots, device="cpu", trainable=True)
+    else:
+        transformer.LM(dots, device="cpu")

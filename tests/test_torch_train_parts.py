@@ -132,8 +132,8 @@ def test_lm_cli_without_gpu_fails_loudly():
 
 
 def test_lm_cli_refuses_other_families_and_checkpoints():
-    out = _run(["--device", "cpu", "--arch", "mamba2-370m", "--reduced",
-                "--steps", "1"])
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
+    out = _run(["--device", "cpu", "--arch", "seamless-m4t-large-v2",
+                "--reduced", "--steps", "1"])
+    assert out.returncode == 2 and "src_embeds" in out.stderr
     out = _run(["--device", "cpu", "--arch", ARCH, "--mesh", "4x1"])
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr

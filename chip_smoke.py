@@ -63,7 +63,7 @@ Phases, in order; any failure raises and the script exits nonzero:
      tensor-core rate (three TF32 products for each of its four).  An
      empty kernel's time (``torch.cuda._sleep(0)``) is the card's launch
      floor.
-     Each kernel is timed (median of 20
+     Each kernel is timed (median of 10
      launches, L2 flushed before each) beside its plain version, one
      PyTorch library call for the same function
      (``scaled_dot_product_attention`` for the LM's, its backward through
@@ -165,9 +165,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      interleave over the shared page cache (devcache, edgecache, faults,
      store requests and blocks touched); equal losses; the kernels
      launched from the lanes only; no lane restart and no degrade; then
-     3 timed runs of each mode in turns (steps/s, consumer idle, host
-     seconds per stage), again with one pread thread, and both modes'
-     device busy share over two profiled steps;
+     one timed run of each mode (steps/s, consumer idle, host
+     seconds per stage), and both modes'
+     device busy share over one profiled step;
   21. faults: ``smoke_pallas_overlap_faults.json`` (EIO, short reads,
      bit flips, stalls, verify, and a 2.5 s sample-lane stall at batch 4
      against a 1 s lane timeout) against its fault-free twin
@@ -214,7 +214,7 @@ Phases, in order; any failure raises and the script exits nonzero:
      optimal losses equal; steps/s and consumer idle beside phases 5
      and 8 (the paper's Fig. 7 comparison);
   25. telemetry: phase 20's overlapped command (4 pread threads) with and
-     without ``--trace-out --metrics-out --metrics-interval 0.5``, 3 runs
+     without ``--trace-out --metrics-out --metrics-interval 0.5``, one run
      of each in turns: losses repr-equal; each trace JSON of complete and
      metadata events only, with the ``sample``, ``resolve``, ``admit``,
      ``consume.step``, ``devcache.plan`` and ``disk.pread`` spans (a
@@ -244,7 +244,7 @@ Phases, in order; any failure raises and the script exits nonzero:
   28. the MoE family.  a: serving on the card against the CPU's plain
      path, the first 2 layers of moonshot-v1-16b-a3b and mixtral-8x7b at
      full width, equal bf16 weights drawn on the card, batch 2, prompt
-     300, 8 tokens: the card's prefill with each layer's MoE and
+     128, 8 tokens: the card's prefill with each layer's MoE and
      the logits also run on the CPU on equal inputs (expert ids equal but
      at near-ties of the CPU's float32 router scores, within 1e-4,
      counted; with none, keep flags and slot tables bit-equal; outputs of
@@ -254,15 +254,15 @@ Phases, in order; any failure raises and the script exits nonzero:
      the ids equal up to near-ties, as phase 10, and each step's logits
      reported (a token routed apart at a router near-tie moves by O(1)).
      b: ``repro_torch.launch.serve.main --arch moonshot-v1-16b-a3b
-     --full-config --batch 8 --prompt-len 2048 --gen 16`` cut to 8 of
+     --full-config --batch 8 --prompt-len 2048 --gen 16`` cut to 4 of
      its 48 layers, the counters reset just before:
-     ``flash_attention_fwd`` 8, ``decode_attention`` 8 x 15, no other
+     ``flash_attention_fwd`` 4, ``decode_attention`` 4 x 15, no other
      kernel; finite logits; the weights' draw on the
      card (s), prefill ms, decode ms per step, tok/s, peak device
-     memory.  c: the same for mixtral-8x7b at full width cut to 8 layers
-     (its 87.0 GiB do not fit one card): ``decode_attention`` 8 x 15, no
+     memory.  c: the same for mixtral-8x7b at full width cut to 4 layers
+     (its 87.0 GiB do not fit one card): ``decode_attention`` 4 x 15, no
      flash launch (its sliding window takes the chunked prefill, as in
-     the reference).  d: moonshot's first 2 layers: layer 0's MoE
+     the reference).  d: moonshot's first layer: its MoE
      forward and backward on equal float32 inputs, card against CPU,
      within 1e-4 relative L2, then phase 13's step card against CPU in
      both activation types at phase 13's tolerances, its TF32 control
@@ -271,7 +271,7 @@ Phases, in order; any failure raises and the script exits nonzero:
      families.  a: serving on the card against the CPU's plain path, the
      first 2 layers of qwen2-vl and the first 2 encoder and 2 decoder
      layers of seamless at full width, equal bf16 weights drawn on the
-     card, batch 2, prompts 256 and 300 (qwen2-vl's ``embeds``,
+     card, batch 2, prompt 256 (qwen2-vl's ``embeds``,
      seamless's tokens and ``src_embeds``), 8 tokens: logits within
      0.125 and the greedy ids equal up to near-ties, qwen2-vl's end to
      end, seamless's in its decode steps, each run on the CPU from a
@@ -295,14 +295,14 @@ Phases, in order; any failure raises and the script exits nonzero:
      then phase 13's step card against CPU in both activation types, its
      TF32 control and its launches for qwen2-vl's first 2 layers on an
      ``embeds`` batch (``embed``'s gradient 0 on both) and seamless's
-     first 2 + 2 layers on ``make_batch(kind="train")``, both at 256
+     first 2 + 2 layers on ``make_batch(kind="train")``, both at 64
      tokens, and the first 2 layers of mamba2-370m and hymba-1.5b at
      phase 13's 512 (``ssd_chunk_scan`` 2 a layer); seamless's bf16
      step stage by stage (each encoder and decoder block, the norms, the
      embedding and the head), the CPU's backward of each stage on the
      card's inputs and output cotangent, at phase 13's tolerances.  e:
      the train entry point for mamba2-370m and hymba-1.5b at
-     full width and depth, ``--batch 4 --seq-len 4096 --steps 5``:
+     full width and depth, ``--batch 4 --seq-len 4096 --steps 3``:
      ``ssd_chunk_scan`` 2 a layer a step (hymba also the flash forward 2
      and each backward kernel 1 a layer a step), no other kernel; finite
      losses; step ms, tok/s, peak memory.  f: ``build_train_step`` for 3
@@ -311,7 +311,32 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``TokenPipeline`` tokens at B 1, S 4096 (its whole float32 state
      does not fit one card): the flash kernels' launches, finite losses,
      step ms, peak memory;
-  30. a JSON line of the kernels' numbers (the GNN's per launch, with
+  30. the LM on a process mesh and the "dots" remat policy.  a:
+     qwen2-0.5b at full width, phase 14's B 4 x S 4096, 3 steps through
+     ``build_train_step`` under ``remat="full"`` and ``"dots"`` (the
+     reference's ``checkpoint_dots_with_no_batch_dims``): losses within
+     1e-3 relative, the flash kernels' launches (the forward recomputed
+     under both), step ms and peak memory of each.  b: the train entry
+     point on the data mesh: phase 14's command with ``--mesh Nx1``, N
+     the card count (one process a card, NCCL; the state sharded as the
+     reference's rules give), 3 steps: losses within 1e-3 relative of
+     phase 14's first 3, each rank's flash launches, each rank's peak
+     memory, step ms and the world size; at 2 ranks too where there are
+     2 cards, and at 4 where there are 4.  c: the sequence-sharded decode
+     on a (1, 2) mesh (two processes that share the one card under gloo,
+     or NCCL where each has a card): qwen2-0.5b at full width, phase
+     11's batch, prompt and generation, the cache (2,112 positions) split
+     on S; the greedy ids equal phase 11's up to near-ties; the sharded
+     attention on equal random inputs (a rank wholly past the position,
+     a window) within DECODE_CALL_REL_TOL of the plain version's; in
+     float32 activations, each decode step's logits within F32_LOGIT_TOL
+     of the unsharded decode fed the same ids; in bf16 the gap to the
+     unsharded decode through the kernel reported (a 1-ulp flip of a
+     bf16 attention output moves the logits downstream); no
+     ``decode_attention`` launch (the partials are plain ops, as the
+     reference's); decode ms/step beside phase 11's and the partial
+     bytes that cross a step;
+  31. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them; the LM's launches in phases 28's
      and 29's runs beside the serve and train entry points'), the card
      line, and the result.  Each phase's start, in seconds from the
@@ -364,6 +389,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ssd_chunk_scan import ssd_chunk_scan  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import rank_device, run_on_mesh  # noqa: E402
 from repro_torch.launch.shapes import make_batch  # noqa: E402
 from repro_torch.models.params import (init_params,  # noqa: E402
                                        tree_leaves, tree_map)
@@ -422,23 +448,25 @@ GNN_KERNELS = ("neighbor_sample", "neighbor_sample_cached",
                "feature_gather_rows", "feature_gather_cached")
 OVERLAP_FLAGS = ["--prefetch", "2", "--overlap", "1", "--stage-depth", "2",
                  "--plan-ahead", "2"]
-OVERLAP_RUNS = ("sync", "overlap", "overlap", "sync", "sync", "overlap")
-# the pread pool sizes timed: the checked configuration's 4, and 1 (phase
-# 8's), which separates the pool's threads from the lanes' in the timing
-PREAD_THREADS = (4, 1)
+# one timed run a mode (three until the script outgrew its time limit
+# with phase 30)
+OVERLAP_RUNS = ("sync", "overlap")
+# the pread pool sizes timed: the checked configuration's 4 (1, phase
+# 8's, was timed too until the script outgrew its time limit)
+PREAD_THREADS = (4,)
 # phase 24: the Belady oracle on phase 8's command (window 8), on the
 # R-MAT graph out of core (window 4, 4 steps), and the host backend at
-# phase 5's width (8 steps on the card, 4 on the CPU; batches 0-2
+# phase 5's width (8 steps on the card, 2 on the CPU; batches 0-2
 # compared)
 ORACLE_FLAGS = ["--cache-policy", "optimal", "--cache-oracle-window", "8",
                 "--device-cache-policy", "optimal",
                 "--device-cache-oracle-window", "8"]
 RMAT_WINDOW, RMAT_STEPS = 4, 4
-HOST_CPU_STEPS, HOST_COMPARED = 4, 3
-# phase 25: phase 20's overlapped command with telemetry on and off, 3
-# runs of each in turns, and the JSONL snapshot interval; the spans and
+HOST_CPU_STEPS, HOST_COMPARED = 2, 3
+# phase 25: phase 20's overlapped command with telemetry on and off, one
+# run of each, and the JSONL snapshot interval; the spans and
 # lane tracks the trace must hold, and the metrics its last snapshot must
-OBS_RUNS = ("off", "on", "on", "off", "off", "on")
+OBS_RUNS = ("off", "on")
 OBS_INTERVAL = 0.5
 OBS_SPANS = ("sample", "resolve", "admit", "consume.step", "devcache.plan",
              "disk.pread")
@@ -509,11 +537,15 @@ CACHE_REL_TOL = 0.02
 # runs.  moonshot's attention is 16 query over 16 kv heads (group 1), D
 # 128
 MOE_ARCH, MIXTRAL = "moonshot-v1-16b-a3b", "mixtral-8x7b"
-MOE_GEN, MIXTRAL_LAYERS = 16, 8
+MOE_GEN, MIXTRAL_LAYERS = 16, 4
 # moonshot through the serve entry point at full width cut to
 # MOE_SERVE_LAYERS of its 48 layers (its whole 52.3 GiB served, the
 # script would pass its time limit)
-MOE_SERVE_LAYERS = 8
+MOE_SERVE_LAYERS = 4
+# moonshot's card-vs-CPU training step (28d) on its first layer (two
+# until the script outgrew its time limit: its CPU step and AdamW over
+# a 1.8 B-parameter tree took ~100 s on the card host)
+MOE_TRAIN_LAYERS = 1
 # qwen2-vl-7b (M-RoPE, embedding inputs; 28 query over 4 kv heads, D 128)
 # and seamless-m4t-large-v2 (the encdec family; 16 over 16, D 64), phase
 # 29: served whole with MM_GEN tokens, their first PARITY_LAYERS layers
@@ -527,17 +559,27 @@ MOE_SERVE_LAYERS = 8
 # SSD_GRAD_REL_TOL relative L2 of autograd through the plain scan
 VL_ARCH, ENCDEC_ARCH = "qwen2-vl-7b", "seamless-m4t-large-v2"
 MM_GEN = 16
-MM_PARITY_PROMPTS = (256, 300)
+MM_PARITY_PROMPTS = (256,)
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ = 2, 2048
 VL_TRAIN_LAYERS, VL_TRAIN_BATCH, VL_TRAIN_SEQ = 4, 1, 4096
 MM_TRAIN_STEPS = 3
-SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 4096, 5
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 4, 4096, 3
 SSD_GRAD_SEQ, SSD_GRAD_REL_TOL = 512, 1e-4
-# qwen2-vl's and seamless's card-vs-CPU training steps (29d) take 256
-# tokens, half of phase 13's, to keep the script in its time limit: their
-# CPU steps (an AdamW update over 1.5 B parameters, bf16 products at
+# qwen2-vl's and seamless's card-vs-CPU training steps (29d) take 64
+# tokens, an eighth of phase 13's, to keep the script in its time limit:
+# their CPU steps (an AdamW update over 1.5 B parameters, bf16 products at
 # their widths and vocabularies) take most of phase 29
-MM_TRAIN_PARITY_SEQ = 256
+MM_TRAIN_PARITY_SEQ = 64
+# phase 30: "dots" against "full" at phase 14's shape, and the train
+# entry point on the data mesh, DOTS_STEPS steps each, losses within
+# MESH_LOSS_REL_TOL relative (the same products in another grouping)
+DOTS_STEPS, MESH_LOSS_REL_TOL = 3, 1e-3
+# phase 30c in float32 activations: the sharded decode's logits against
+# the unsharded decode's (the same float32 arithmetic summed in another
+# order through 24 layers, ~1e-5 relative at logits of magnitude ~5; a
+# wrong slice or mask moves them by O(1))
+F32_LOGIT_TOL = 1e-3
+F32_DECODE_STEPS = 8
 # flash forward cases (B, S, Hq, Hkv, D), causal: qwen2-0.5b's prefill at
 # the entry point's shape first, then head dims 128 and 256, a ragged S,
 # moonshot's prefill at its entry point's shape, and qwen2-vl's and
@@ -580,7 +622,7 @@ MM_DECODE_CASES = [((SERVE_BATCH, SERVE_PROMPT + MM_GEN, 28, 4, 128),
 # alike, within MOE_OUT_ATOL plus one bf16 ulp (2**-7) of the entry; its
 # float32 forward and backward on equal inputs within MOE_GRAD_REL_TOL
 # (relative L2 of the output and of each gradient)
-MOE_PARITY_PROMPTS = (300,)
+MOE_PARITY_PROMPTS = (128,)
 ROUTER_TIE_TOL = 1e-4
 MOE_OUT_ATOL = 2e-2
 MOE_GRAD_REL_TOL = 1e-4
@@ -648,7 +690,7 @@ class Timer:
     stays busy (~0.1 ms) while the host enqueues the call, so the events
     time the device's work rather than the host's launch overhead."""
 
-    def __init__(self, reps: int = 20, warmup: int = 3):
+    def __init__(self, reps: int = 10, warmup: int = 3):
         self.reps, self.warmup = reps, warmup
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device=DEVICE)
 
@@ -1700,9 +1742,9 @@ def overlap_phase(g, argv_ooc: list) -> dict:
                 step = build_train_step(pipe, model, opt)
                 state = {"opt": opt.init(dict(model.named_parameters())),
                          "step": 0}
-                state, _ = train_loop(pipe, step, state, steps=4)
+                state, _ = train_loop(pipe, step, state, steps=2)
                 profiles[mode] = device_profile(lambda: train_loop(
-                    pipe, step, state, start=4, steps=6), 2)
+                    pipe, step, state, start=2, steps=3), 1)
             finally:
                 pipe.close()
     for key, m in medians.items():
@@ -2467,7 +2509,7 @@ def _check_trace(trace_path: str, metrics_path: str, what: str) -> dict:
 
 def telemetry_phase(g, argv_ooc: list) -> dict:
     """Phase 25: phase 20's overlapped out-of-core command with telemetry
-    on (``--trace-out/--metrics-out/--metrics-interval``) and off, 3 runs
+    on (``--trace-out/--metrics-out/--metrics-interval``) and off, one run
     of each in turns: losses repr-equal, the files whole, steps/s of
     each beside the other."""
     t0 = time.perf_counter()
@@ -3229,19 +3271,20 @@ def _greedy(model, batch, prompt: int, gen: int, device, feed=None,
     return torch.cat(ids, dim=1).cpu(), all_logits
 
 
-def _first_layers(arch: str, impl: str, dtype=None):
-    """(cfg, weights): ``arch`` at full width cut to PARITY_LAYERS layers
-    (and PARITY_LAYERS encoder layers, for encdec), ``attn_impl=impl``,
-    and its seed-0 weights drawn on the card in ``dtype`` (default
-    float32): the full model's first PARITY_LAYERS layers of each stack,
-    at its depth's scales (the reference scales a stacked leaf over its
-    default fan-in axis, the layers, by 1/sqrt(num_layers))."""
+def _first_layers(arch: str, impl: str, dtype=None,
+                  layers: int = PARITY_LAYERS):
+    """(cfg, weights): ``arch`` at full width cut to ``layers`` layers
+    (and ``layers`` encoder layers, for encdec), ``attn_impl=impl``, and
+    its seed-0 weights drawn on the card in ``dtype`` (default float32):
+    the full model's first ``layers`` layers of each stack, at its
+    depth's scales (the reference scales a stacked leaf over its default
+    fan-in axis, the layers, by 1/sqrt(num_layers))."""
     full = get_config(arch)
-    enc = PARITY_LAYERS if full.encoder_layers else 0
-    cfg = dataclasses.replace(full, num_layers=PARITY_LAYERS,
+    enc = layers if full.encoder_layers else 0
+    cfg = dataclasses.replace(full, num_layers=layers,
                               encoder_layers=enc, attn_impl=impl)
     return cfg, init_params(build_defs(full), seed=0, device=DEVICE,
-                            dtype=dtype, layers=PARITY_LAYERS,
+                            dtype=dtype, layers=layers,
                             enc_layers=enc or None)
 
 
@@ -3611,14 +3654,15 @@ def serve_profile_phase(arch: str = LM_ARCH, gen: int = SERVE_GEN,
             "decode_steady_ms_per_step": steady_ms, "decode": dec}
 
 
-def _train_one_step(cfg, params, batch, device, host: bool = True) -> dict:
+def _train_one_step(cfg, params, batch, device) -> dict:
     """A trainable LM of ``cfg`` on ``device`` from a copy of ``params``,
     one ``build_train_step`` step of AdamW (``warmup_cosine(1e-3, 10,
     50)``) on ``batch``: the step's loss, aux loss, grad norm and lr, the
     gradients it took (of the cross-entropy plus MOE_AUX_WEIGHT times the
     MoE aux loss, 0 outside the moe family; read as the optimizer gets
-    them) and the parameters after it, all on the CPU (with ``host``
-    False, the gradients kept on ``device`` and no parameters)."""
+    them) and the parameters after it, on ``device`` (the leaf-wise
+    comparisons run on the card: over a vocabulary table a round trip
+    through the host takes seconds)."""
     model = LM(cfg, tree_map(lambda t: t.to(device, copy=True), params),
                trainable=True)
     batch = {k: v.to(device) for k, v in batch.items()}
@@ -3628,8 +3672,7 @@ def _train_one_step(cfg, params, batch, device, host: bool = True) -> dict:
 
     def recording(update):
         def update_and_keep(tree, *args):
-            grads.extend(g.cpu() if host else g.detach().clone()
-                         for g in tree_leaves(tree))
+            grads.extend(g.detach().clone() for g in tree_leaves(tree))
             return update(tree, *args)
         return update_and_keep
 
@@ -3638,9 +3681,7 @@ def _train_one_step(cfg, params, batch, device, host: bool = True) -> dict:
     return {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
             "grad_norm": float(m["grad_norm"]),
             "lr": float(m["lr"]), "grads": grads,
-            "params": [p.detach().cpu()
-                       for p in tree_leaves(state["params"])] if host
-            else None}
+            "params": [p.detach() for p in tree_leaves(state["params"])]}
 
 
 def _token_batch(cfg) -> dict:
@@ -3798,8 +3839,8 @@ def _staged_parity(cfg, params, batch, tag: str, phase: str) -> dict:
 
 
 def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
-                  staged: bool = False) -> dict:
-    """One training step of ``arch``'s first PARITY_LAYERS layers
+                  staged: bool = False, layers: int = PARITY_LAYERS) -> dict:
+    """One training step of ``arch``'s first ``layers`` layers
     (``_first_layers``) on the card against the CPU's plain path, equal
     float32 weights, on ``batch_fn(cfg)`` (default: TRAIN_PARITY_BATCH
     rows of TRAIN_PARITY_SEQ ``TokenPipeline`` tokens); a leaf the loss
@@ -3832,7 +3873,7 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
     out = {}
     for impl, dtype in (("chunked", torch.float32),
                         ("flash", torch.bfloat16)):
-        cfg, params = _first_layers(arch, impl)
+        cfg, params = _first_layers(arch, impl, layers=layers)
         batch = batch_fn(cfg)
         f32 = dtype == torch.float32
         tag = f"train parity ({arch}, {impl})"
@@ -3848,12 +3889,12 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
             cpu = _train_one_step(cfg, params, batch, "cpu")
             if f32:     # the control: the card's step with TF32 products
                 torch.backends.cuda.matmul.allow_tf32 = True
-                tf32 = _train_one_step(cfg, params, batch, DEVICE,
-                                       host=False)
+                tf32 = _train_one_step(cfg, params, batch, DEVICE)
+                tf32["params"] = None
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
             transformer.COMPUTE_DTYPE = COMPUTE_DTYPE
-        L = PARITY_LAYERS
+        L = layers
         want = ({"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                  "flash_attention_bwd_dkv": L}
                 if impl == "flash" and cfg.family != "ssm" else {})
@@ -4228,15 +4269,25 @@ def _moe_grad_case(arch: str) -> dict:
 def moe_phase() -> dict:
     """Phase 28, the MoE family: card-vs-CPU serving (28a), the serve
     entry point for moonshot (28b) and mixtral cut in layers (28c), and
-    moonshot's first PARITY_LAYERS layers in training, card against CPU
+    moonshot's first MOE_TRAIN_LAYERS layers in training, card against CPU
     (28d): its MoE layer's backward on equal inputs
     (``_moe_grad_case``), then one step (``_train_parity``)."""
     t0 = time.perf_counter()
-    out = {"parity": moe_parity_phase(), "serve": moe_serve_phase(),
-           "grad": _moe_grad_case(MOE_ARCH),
-           "train_parity": _train_parity(MOE_ARCH, "28d")}
-    out["seconds"] = time.perf_counter() - t0
-    print(f"[smoke] phase 28: {out['seconds']:.1f} s")
+    split = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out[name] = fn()
+        split[name] = round(time.perf_counter() - t, 1)
+
+    out = {}
+    part("parity", moe_parity_phase)
+    part("serve", moe_serve_phase)
+    part("grad", lambda: _moe_grad_case(MOE_ARCH))
+    part("train_parity", lambda: _train_parity(MOE_ARCH, "28d",
+                                               layers=MOE_TRAIN_LAYERS))
+    out["seconds"], out["seconds_by_part"] = time.perf_counter() - t0, split
+    print(f"[smoke] phase 28: {out['seconds']:.1f} s {split}")
     return out
 
 
@@ -4480,6 +4531,338 @@ def mm_phase() -> dict:
     return out
 
 
+def dots_phase() -> dict:
+    """Phase 30a: LM_ARCH at full width through ``build_train_step`` at
+    phase 14's B x S, DOTS_STEPS steps under ``remat="full"`` and
+    ``"dots"``, each from the seed-0 weights: losses within
+    MESH_LOSS_REL_TOL relative, the flash kernels' launches (2 forward a
+    layer a step: the forward is recomputed under both policies), step ms
+    and peak memory."""
+    out = {}
+    full = get_config(LM_ARCH)
+    pipe = TokenPipeline(vocab_size=full.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    for remat in ("full", "dots"):
+        cfg = dataclasses.replace(full, attn_impl="flash", remat=remat)
+        model = LM(cfg, init_params(build_defs(cfg), seed=0, device=DEVICE),
+                   trainable=True)
+        opt = adamw(warmup_cosine(1e-3, 10, TRAIN_STEPS))
+        state = init_train_state(model, opt)
+        step = build_lm_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        losses, step_ms = [], []
+        for i in range(DOTS_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, pipe.torch_batch(i, DEVICE))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+        launches = dict(kernels.LAUNCHES)
+        L = cfg.num_layers
+        want = {"flash_attention_fwd": 2 * L * DOTS_STEPS,
+                "flash_attention_bwd_dq": L * DOTS_STEPS,
+                "flash_attention_bwd_dkv": L * DOTS_STEPS}
+        for kname, k in launches.items():
+            check(k == want.get(kname, 0), f"phase 30a ({remat}): {kname} "
+                  f"launched {k} times, not {want.get(kname, 0)}")
+        check(all(math.isfinite(x) for x in losses),
+              f"phase 30a ({remat}): losses {losses}")
+        out[remat] = {"losses": losses, "step_ms": step_ms,
+                      "steady_ms": statistics.median(step_ms[1:]),
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": launches}
+        print(f"[smoke] phase 30a: remat={remat}: step ms "
+              f"{[round(t, 3) for t in step_ms]}, peak device memory "
+              f"{out[remat]['peak_bytes'] / 2**30:.2f} GiB, losses {losses}")
+        del model, state, step, opt
+        torch.cuda.empty_cache()
+    for a, b in zip(out["full"]["losses"], out["dots"]["losses"]):
+        check(abs(a - b) <= MESH_LOSS_REL_TOL * abs(a),
+              f"phase 30a: dots losses {out['dots']['losses']} vs full "
+              f"{out['full']['losses']}")
+    out["none"] = ("not run: remat='none' keeps every activation of 24 "
+                   "layers beside phase 14's ~53 GiB")
+    return out
+
+
+def data_mesh_phase(argv_lm: list, phase14: dict) -> dict:
+    """Phase 30b: the train entry point on the data mesh, phase 14's
+    command with ``--mesh Nx1`` and DOTS_STEPS steps at N = the card
+    count (NCCL), and at 2 and 4 where there are as many cards: losses
+    within MESH_LOSS_REL_TOL relative of phase 14's first steps, each
+    rank's flash launches, its peak memory, step ms."""
+    out = {}
+    count = torch.cuda.device_count()
+    layers = get_config(LM_ARCH).num_layers
+    want = {"flash_attention_fwd": 2 * layers * DOTS_STEPS,
+            "flash_attention_bwd_dq": layers * DOTS_STEPS,
+            "flash_attention_bwd_dkv": layers * DOTS_STEPS}
+    for world in sorted({count} | {n for n in (2, 4) if n <= count}):
+        argv = [a for a in argv_lm] + ["--mesh", f"{world}x1"]
+        argv[argv.index("--steps") + 1] = str(DOTS_STEPS)
+        print(f"[smoke] phase 30b: train {' '.join(argv)}")
+        kernels.reset_launches()
+        got = train.main(argv)
+        check(got["world"] == world, f"phase 30b: world {got['world']}")
+        for a, b in zip(got["losses"], phase14["losses"]):
+            check(abs(a - b) <= MESH_LOSS_REL_TOL * abs(b),
+                  f"phase 30b ({world} ranks): losses {got['losses']} vs "
+                  f"phase 14's {phase14['losses'][:DOTS_STEPS]}")
+        for r, launches in enumerate(got["launches_per_rank"]):
+            for kname, n in want.items():
+                check(launches[kname] == n, f"phase 30b: rank {r} launched "
+                      f"{kname} {launches[kname]} times, not {n}")
+        steady = statistics.median(got["step_ms"][1:])
+        out[world] = {k: got[k] for k in (
+            "losses", "grad_norms", "step_ms", "peak_bytes_per_rank",
+            "launches_per_rank", "world")} | {"steady_ms": steady}
+        print(f"[smoke] phase 30b: {world} rank(s): step ms "
+              f"{[round(t, 3) for t in got['step_ms']]} (median after the "
+              f"first {steady:.3f}), peak device memory per rank "
+              f"{[p and round(p / 2**30, 2) for p in got['peak_bytes_per_rank']]}"
+              f" GiB, losses {got['losses']} (phase 14: "
+              f"{phase14['losses'][:DOTS_STEPS]})")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _decode_runs(model, batch, prompt: int, gen: int, mesh, dev):
+    """The decode runs of phase 30c on one model: returns ``run(prefill,
+    step, feed=None, steps=gen - 1) -> (ids, per-step logits on the CPU,
+    cache, ms/step)``.  ``feed`` (B, gen) ids replace the run's own
+    picks."""
+    import torch.distributed as dist
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(prefill, step, feed=None, steps=gen - 1):
+        sync()
+        logits, cache = prefill(batch)
+        if feed is None:   # the model group's first collective, untimed
+            dist.all_reduce(torch.zeros(1, device=dev),
+                            group=mesh.get_group("model"))
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        ids, all_logits = [tok], []
+        sync()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            if feed is not None:
+                tok = feed[:, i:i + 1].to(dev)
+            logits, cache, nxt = step(tok, cache, prompt + i)
+            tok = nxt[:, None]
+            ids.append(tok)
+            all_logits.append(logits[:, -1].float().cpu())
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        return torch.cat(ids, 1).cpu(), all_logits, cache, ms
+
+    return run
+
+
+class _Plain:
+    """While installed, the LM's decode attention is the decode kernel's
+    plain version (float32 scores, softmax and PV products: the
+    partials' arithmetic; the kernel rounds its probabilities to bf16)."""
+
+    def __enter__(self):
+        self._real = transformer.decode_attention_local
+        transformer.decode_attention_local = (
+            lambda q, k, v, valid_len, *, window=0:
+            ref.decode_attention(q, k, v, int(valid_len), int(window)))
+
+    def __exit__(self, *exc):
+        transformer.decode_attention_local = self._real
+
+
+def _equal_input_calls(mesh, dev, B: int, S: int, Hq: int, Hkv: int,
+                       D: int) -> list:
+    """``sharded_decode_attention`` against the plain decode attention
+    over the whole cache on equal random bf16 inputs: a position in rank
+    0's slice (rank 1 adds nothing), two in rank 1's, the last, and a
+    window that leaves rank 0's slice out.  -> (position, window, largest
+    |difference|, largest |value|) a call."""
+    from repro_torch.models.attention import sharded_decode_attention
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=dev, generator=g)
+                ).to(COMPUTE_DTYPE)
+
+    ck, cv = randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    fn = sharded_decode_attention(mesh)
+    r, half = mesh.get_local_rank("model"), S // 2
+    out = []
+    for pos, window in ((5, 0), (half + half // 2, 0), (S - 1, 0),
+                        (S - 3, half // 2)):
+        q, nk, nv = (randn(B, Hq, D, scale=3.0), randn(B, 1, Hkv, D),
+                     randn(B, 1, Hkv, D))
+        got = fn(q, nk, nv, ck[:, r * half:(r + 1) * half].clone(),
+                 cv[:, r * half:(r + 1) * half].clone(), pos, window)
+        fk, fv = ck.clone(), cv.clone()
+        fk[:, pos], fv[:, pos] = nk[:, 0], nv[:, 0]
+        want = ref.decode_attention(q, fk, fv, pos + 1, window).float()
+        out.append((pos, window, float((got.float() - want).abs().max()),
+                    float(want.abs().max())))
+    return out
+
+
+def _sharded_decode_rank(mesh, cfg, device: str, B: int, prompt: int,
+                         gen: int) -> dict | None:
+    """One rank of phase 30c (a spawned rank imports this script afresh,
+    so everything it reads is an argument).  ``cfg`` served at batch
+    ``B``, ``prompt`` and ``gen`` tokens on the (1, 2) mesh, the cache
+    split on S: in bf16 (the served model) and in float32 activations
+    (``attn_impl`` chunked: the flash kernel is bf16 only).  Rank 0 then
+    decodes unsharded, fed the sharded runs' ids: in bf16 through the
+    decode kernel, in float32 (F32_DECODE_STEPS steps) through its plain
+    version (float32 scores, softmax and PV products: the partials'
+    arithmetic).  Both ranks run the equal-input attention calls.  Rank 0
+    returns every run's numbers."""
+    import torch.distributed as dist
+
+    dev = rank_device(device)
+    S_total = prompt + gen
+    model = LM(cfg, init_params(build_defs(cfg), seed=0, device=dev,
+                                dtype=COMPUTE_DTYPE))
+    batch = make_batch(cfg, B, prompt, kind="prefill", device=dev)
+    run = _decode_runs(model, batch, prompt, gen, mesh, dev)
+    kernels.reset_launches()
+    ids, logits, cache, ms = run(build_prefill_step(model, S_total, mesh),
+                                 build_serve_step(model, mesh))
+    out = {"ids": ids, "logits": logits, "ms_per_step": ms,
+           "launches": dict(kernels.LAUNCHES),
+           "local_s": cache["k"].to_local().shape[2],
+           "backend": dist.get_backend(),
+           "calls": _equal_input_calls(mesh, dev, B, S_total, cfg.num_heads,
+                                       cfg.num_kv_heads, cfg.head_dim)}
+    del cache
+    if dist.get_rank() == 0:
+        kernels.reset_launches()
+        u_ids, u_logits, _, u_ms = run(build_prefill_step(model, S_total),
+                                       build_serve_step(model), feed=ids)
+        out["unsharded"] = {"argmax": u_ids, "logits": u_logits,
+                            "ms_per_step": u_ms,
+                            "launches": dict(kernels.LAUNCHES)}
+    del model
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    # float32 activations: no bf16 rounding to flip, the sums' order only
+    saved = transformer.COMPUTE_DTYPE
+    transformer.COMPUTE_DTYPE = torch.float32
+    try:
+        cfg32 = dataclasses.replace(cfg, attn_impl="chunked")
+        model = LM(cfg32, init_params(build_defs(cfg32), seed=0, device=dev))
+        batch32 = make_batch(cfg32, B, prompt, kind="prefill", device=dev)
+        run = _decode_runs(model, batch32, prompt, gen, mesh, dev)
+        ids32, logits32, _, _ = run(build_prefill_step(model, S_total, mesh),
+                                    build_serve_step(model, mesh),
+                                    steps=min(F32_DECODE_STEPS, gen - 1))
+        if dist.get_rank() == 0:
+            with _Plain():
+                out["float32"] = {"logits": logits32, "plain": run(
+                    build_prefill_step(model, S_total),
+                    build_serve_step(model), feed=ids32,
+                    steps=min(F32_DECODE_STEPS, gen - 1))[1]}
+    finally:
+        transformer.COMPUTE_DTYPE = saved
+    return out if dist.get_rank() == 0 else None
+
+
+def sharded_decode_phase(served: dict) -> dict:
+    """Phase 30c: the sequence-sharded decode on a (1, 2) mesh against
+    phase 11's run (``served``) and the unsharded decodes fed its ids."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    t0 = time.perf_counter()
+    got = run_on_mesh((1, 2), ("data", "model"), DEVICE,
+                      _sharded_decode_rank, cfg, DEVICE, SERVE_BATCH,
+                      SERVE_PROMPT, SERVE_GEN)
+    seconds = time.perf_counter() - t0
+    S_total = SERVE_PROMPT + SERVE_GEN
+    check(got["local_s"] == S_total // 2,
+          f"phase 30c: each rank holds {got['local_s']} of {S_total} "
+          "positions")
+    check(got["launches"]["decode_attention"] == 0
+          and got["launches"]["flash_attention_fwd"] == cfg.num_layers,
+          f"phase 30c: launches {got['launches']}")
+    # each attention call on equal inputs: within DECODE_CALL_REL_TOL of
+    # the largest value, as phase 29a holds a decode attention call
+    for pos, window, diff, top in got["calls"]:
+        check(diff <= DECODE_CALL_REL_TOL * top, f"phase 30c: the sharded "
+              f"attention at position {pos} window {window} is {diff} from "
+              f"the plain version's on equal inputs (largest value {top})")
+    # float32 activations: the sharded decode's logits within
+    # F32_LOGIT_TOL of the unsharded plain decode's, every step
+    f32 = max(float((a - b).abs().max()) for a, b in zip(
+        got["float32"]["logits"], got["float32"]["plain"]))
+    check(f32 <= F32_LOGIT_TOL, f"phase 30c: float32 logits {f32} from the "
+          f"unsharded decode's (limit {F32_LOGIT_TOL})")
+    # bf16, as served: finite logits; their gap to the unsharded decode
+    # through the kernel reported: a 1-ulp flip of a bf16 attention output
+    # (the partials' float32 arithmetic against the kernel's bf16
+    # probabilities) moves the logits downstream
+    gaps = []
+    for t, a in enumerate(got["logits"]):
+        check(bool(torch.isfinite(a).all()), f"phase 30c: step {t} logits")
+        gaps.append(float((a - got["unsharded"]["logits"][t]).abs().max()))
+    # the ids against phase 11's: equal until a row's first difference,
+    # which must be a near-tie of the unsharded logits at that step
+    want = torch.from_numpy(np.asarray(served["tokens"]))
+    ids, ties = got["ids"], 0
+    for r in range(ids.shape[0]):
+        apart = (ids[r] != want[r]).nonzero()
+        if len(apart) == 0:
+            continue
+        t = int(apart[0])
+        check(t >= 1, f"phase 30c: row {r} differs at the prefill's pick")
+        b = got["unsharded"]["logits"][t - 1][r]
+        top = torch.topk(b, 2).values
+        check(float(top[0] - top[1]) <= LOGIT_TOL
+              and float(b[int(ids[r, t])]) >= float(top[0]) - LOGIT_TOL,
+              f"phase 30c: row {r} step {t} picks {int(ids[r, t])}, "
+              f"phase 11 {int(want[r, t])}")
+        ties += 1
+    partial_bytes = (SERVE_BATCH * cfg.num_heads * (cfg.head_dim + 2) * 4
+                     * cfg.num_layers)
+    out = {"ms_per_step": got["ms_per_step"],
+           "unsharded_ms_per_step": got["unsharded"]["ms_per_step"],
+           "phase11_ms_per_step": served["decode_ms_per_step"],
+           "calls": got["calls"], "float32_max_logit_diff": f32,
+           "bf16_logit_diff_by_step": gaps,
+           "bf16_steps_past_logit_tol": sum(g > LOGIT_TOL for g in gaps),
+           "near_tie_rows": ties, "partial_bytes_per_step": partial_bytes,
+           "backend": got["backend"], "launches": got["launches"],
+           "seconds": seconds}
+    print(f"[smoke] phase 30c: (1, 2) mesh ({got['backend']}): decode "
+          f"{got['ms_per_step']:.3f} ms/step (unsharded in the same run "
+          f"{got['unsharded']['ms_per_step']:.3f}, phase 11 "
+          f"{served['decode_ms_per_step']:.3f}); equal-input calls "
+          f"{[(p, w, round(d, 6)) for p, w, d, _ in got['calls']]}; "
+          f"float32 logits within {f32:.3g}; bf16 logits from the "
+          f"decode kernel's run up to {max(gaps):.4g} "
+          f"({out['bf16_steps_past_logit_tol']} of {len(gaps)} steps past "
+          f"{LOGIT_TOL}); "
+          f"{ties} row(s) apart from phase 11 at a near-tie; "
+          f"{partial_bytes} partial bytes cross a step "
+          f"({partial_bytes // cfg.num_layers} a layer); {seconds:.1f} s")
+    return out
+
+
+def mesh_lm_phase(argv_lm: list, phase14: dict, served: dict) -> dict:
+    """Phase 30: the "dots" policy (a), the train entry point on the data
+    mesh (b) and the sequence-sharded decode (c)."""
+    t0 = time.perf_counter()
+    out = {"dots": dots_phase(), "data_mesh": data_mesh_phase(argv_lm,
+                                                              phase14),
+           "sharded_decode": sharded_decode_phase(served)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[smoke] phase 30: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4493,6 +4876,11 @@ def main() -> int:
         kept for the details file."""
         stamps[phase] = time.perf_counter() - t_all
         print(f"[smoke] t+{stamps[phase]:.1f} s: phase {phase}")
+        # kept as the run goes, so that a run cut short shows its phases
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out",
+                               "chip_smoke_progress.json"), "w") as f:
+            json.dump(stamps, f)
 
     card = card_line()
     print(f"[smoke] phase 1: {card}; {torch.cuda.get_device_name(0)}, "
@@ -4707,7 +5095,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("29")
     mm_run = mm_phase()
+    torch.cuda.empty_cache()
     stamp("30")
+    mesh_lm = mesh_lm_phase(argv_lm, trained, served)
+    stamp("31")
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -4820,6 +5211,7 @@ def main() -> int:
                "direct_io": dio, "resume": resumed, "oracle": oracle,
                "host": hosted, "telemetry": telemetry, "isp": isp,
                "mesh": mesh, "moe": moe_run, "multimodal": mm_run,
+               "mesh_lm": mesh_lm,
                "phase_start_s": stamps,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

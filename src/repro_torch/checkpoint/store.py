@@ -21,8 +21,15 @@ returns (on the calling thread's current stream, after the work queued
 there), so the optimizers' in-place updates of the next step cannot tear
 the snapshot; the file is then written on a background thread that
 touches host memory only.  ``restore`` returns the tree as tensors on
-``device`` (the mesh placement of the reference's ``shardings`` is not
-part of the port).
+``device``.
+
+On a process mesh (``launch.mesh``) a state's leaves are DTensors: a
+save gathers each whole (``full_tensor``, a collective every rank makes
+in the same order) and rank 0 alone writes, so arrays are stored whole,
+as the reference stores them.  ``restore(..., placements=tree)`` (the
+reference's ``shardings``) gives back DTensors with those placements,
+each rank keeping its shard of the whole array it read, so a checkpoint
+written at one world size restores at another.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree, prefix=""):
@@ -63,6 +71,8 @@ def _unflatten(flat: dict):
 def _host_leaf(key: str, x) -> np.ndarray:
     """One leaf as a numpy array that shares no memory with ``x``."""
     if isinstance(x, torch.Tensor):
+        if hasattr(x, "full_tensor"):           # a DTensor: gather it
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             raise TypeError(
                 f"checkpoint leaf {key!r} is bfloat16, which npz cannot "
@@ -78,10 +88,18 @@ def _to_host(state) -> dict:
     return {k: _host_leaf(k, v) for k, v in _flatten(state).items()}
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process
+    group, or a process outside one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _write(ckpt_dir: str, step: int, flat: dict,
            manifest_extra: dict | None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    if not _writes():
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = path + f".tmp-{os.getpid()}"
     with open(tmp, "wb") as f:
         np.savez(f, **flat)
@@ -169,11 +187,14 @@ def read_manifest(ckpt_dir: str, step: int | None = None) -> dict:
 
 
 def restore(ckpt_dir: str, step: int | None = None, *, device="cuda",
-            like=None):
+            like=None, placements=None):
     """Restore a checkpoint (the latest by default) as nested dicts of
     tensors on ``device``.  ``like``: an optional tree of the same
     structure whose leaves' dtypes the restored leaves are cast to.
-    Returns ``(tree, step)``."""
+    ``placements``: an optional tree of ``(DeviceMesh, placements)``
+    pairs, one a leaf it names: those leaves come back as DTensors, this
+    rank keeping its shard of the whole array.  Returns ``(tree,
+    step)``."""
     step = _resolve_step(ckpt_dir, step)
     with np.load(os.path.join(ckpt_dir, f"step_{step:08d}.npz")) as z:
         flat = {k: z[k] for k in z.files}
@@ -189,7 +210,23 @@ def restore(ckpt_dir: str, step: int | None = None, *, device="cuda",
     for k, a in flat.items():
         t = torch.from_numpy(a)
         tensors[k] = t.to(device=device, dtype=dtypes.get(k, t.dtype))
+    if placements is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        for k, (mesh, pl) in _flatten_pairs(placements).items():
+            tensors[k] = distribute_tensor(tensors[k], mesh, pl,
+                                           src_data_rank=None)
     return _unflatten(tensors), step
+
+
+def _flatten_pairs(tree, prefix="") -> dict:
+    """``_flatten`` of a tree whose leaves are (mesh, placements) pairs."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in sorted(tree.items()):
+            out.update(_flatten_pairs(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
 
 
 def prune(ckpt_dir: str, keep: int = 3) -> None:

@@ -91,8 +91,9 @@ with an error.  The data-plane flags are generated from the spec's field
 table (``core.config.FLAG_TABLE``, ``add_pipeline_args``) and have the
 reference's names and defaults, ``--backend`` defaulting to ``isp`` as
 the reference's launcher sets it.  ``--devices N`` sets the GNN mesh's
-``data`` axis (``launch.mesh``); an LM's mesh, and ``--mesh``, belong to
-ROADMAP item 16.  Every run goes through
+``data`` axis (``launch.mesh``: single-controller, shards sharing a card
+when there are fewer cards), and ``--mesh Dx1`` builds that same mesh of
+D shards.  Every run goes through
 ``core.config.build_pipeline``: ``--graph-store disk`` writes the
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
 and reads it through a ``DiskStore``; without a device cache tier the
@@ -112,6 +113,24 @@ encoder, where the reference's ``run_lm`` raises ``KeyError:
 batches).  GraphSAGE starts from the reference's
 ``GraphSAGE.init(jax.random.key(0))`` weights, so the same flags log the
 reference launcher's losses.
+
+An LM on a process mesh: ``--devices N`` trains on the (N, 1) mesh, as
+the reference's launcher does, and ``--mesh DxM`` on (D, M); one process
+a mesh position (``launch.mesh.run_on_mesh``: under ``torchrun`` the
+ranks it started, otherwise this process as rank 0 and the others
+spawned), NCCL when each rank has a card of its own, gloo on the CPU.
+Each parameter and its AdamW moments are sharded over ``data`` as the
+reference's rules give (``train.steps``), each rank trains on its rows
+of the global batch (``TokenPipeline.torch_batch(..., rank=)``), the MoE
+family routes globally across the ranks, and rank 0 logs the global
+loss and grad norm and writes the checkpoints, whole, so a checkpoint
+written at one world size resumes at another.  ``M > 1`` in training
+needs tensor parallelism (ROADMAP item 16, part 2) and exits 2:
+
+  python -m repro_torch.launch.train --device cpu --arch qwen2-0.5b \
+      --reduced --devices 2 --batch 8 --seq-len 32 --steps 4
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen2-0.5b --devices 4 --batch 8 --seq-len 4096 --steps 5
 
 Checkpoints, for the GNN and the LM alike, as the reference's launcher
 writes them (``repro_torch.checkpoint``, the reference's format):
@@ -136,6 +155,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint as ckpt
 from repro_torch import kernels, obs
@@ -144,8 +164,9 @@ from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE, PipelineSpec,
                               build_train_step, fill_pipeline_flag_defaults,
                               load_dataset, spec_from_args, train_loop)
 from repro_torch.data import TokenPipeline
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.models.params import count_params, init_params
+from repro_torch.distributed.sharding import ShardingRules, tree_placements
+from repro_torch.launch.mesh import make_mesh, rank_device, run_on_mesh
+from repro_torch.models.params import count_params, init_params, tree_map
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import LM, build_defs
 from repro_torch.optim import adamw, warmup_cosine
@@ -169,8 +190,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--devices", type=int, default=1,
-                    help="shards of the GNN mesh's 'data' axis (the isp "
-                         "backend partitions the graph over them)")
+                    help="the mesh's 'data' axis: the GNN's shards (the "
+                         "isp backend partitions the graph over them), an "
+                         "LM's data-parallel ranks")
+    ap.add_argument("--mesh", default=None,
+                    help="mesh shape, e.g. 4x1 (default: devices x 1)")
     # the LM's flags, with the reference's names and defaults
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--reduced", action="store_true",
@@ -193,14 +217,25 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--resume needs --ckpt-dir (where would the checkpoint "
                  "come from?)")
     args.pipeline_spec = None
+    try:
+        args.mesh_dims = (tuple(int(x) for x in args.mesh.split("x"))
+                          if args.mesh else (args.devices, 1))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh!r}: give it as DxM, e.g. 4x1")
+    if len(args.mesh_dims) != 2 or min(args.mesh_dims) < 1:
+        ap.error(f"--mesh {args.mesh!r}: give it as DxM, e.g. 4x1")
     if args.arch == "graphsage":
+        if args.mesh_dims[1] != 1:
+            ap.error(f"--mesh {args.mesh}: the GNN's mesh shards the graph "
+                     "on 'data' only (give Dx1)")
+        args.devices = args.mesh_dims[0]
         try:
             args.pipeline_spec = spec_from_args(args)
         except (ValueError, OSError) as e:
             ap.error(str(e))
-    elif args.devices > 1:
-        ap.error("--devices > 1 shards the GNN's mesh; an LM's mesh is "
-                 "not part of the port yet (ROADMAP item 16)")
+    elif args.mesh_dims[1] > 1:
+        ap.error(f"--mesh {args.mesh}: training on a 'model' axis larger "
+                 "than 1 needs tensor parallelism (ROADMAP item 16, part 2)")
     elif get_config(args.arch).family == "encdec":
         ap.error(f"{args.arch} has an encoder over src_embeds, and "
                  "TokenPipeline batches carry no src_embeds (the "
@@ -220,6 +255,11 @@ def parse_args(argv=None) -> argparse.Namespace:
             or args.batch % args.microbatches:
         ap.error("--seq-len and --microbatches must be >= 1, and "
                  "--microbatches must divide --batch")
+    if args.arch != "graphsage" \
+            and args.batch % (args.microbatches * args.mesh_dims[0]):
+        ap.error(f"--batch {args.batch} does not split into "
+                 f"{args.microbatches} microbatches over "
+                 f"{args.mesh_dims[0]} data ranks")
     return args
 
 
@@ -255,17 +295,24 @@ def _copy_into(dst: dict, src: dict, where: str = "") -> None:
             v.copy_(src[k])
 
 
-def _restore_latest(args, state: dict, device) -> int:
+def _restore_latest(args, state: dict, device, placements=None,
+                    log=print) -> int:
     """Restore the latest checkpoint of ``--ckpt-dir`` into ``state`` (its
     ``params`` and ``opt`` trees in place) and return its step, or 0
-    when there is none."""
+    when there is none.  ``placements``: the ``(mesh, placements)`` tree
+    of the parameters on a process mesh (the moments share it)."""
     if not args.ckpt_dir or ckpt.latest_step(args.ckpt_dir) is None:
         return 0
-    restored, start = ckpt.restore(args.ckpt_dir, device=device)
+    full = None
+    if placements is not None:
+        full = {"params": placements,
+                "opt": {k: placements for k in state["opt"]}}
+    restored, start = ckpt.restore(args.ckpt_dir, device=device,
+                                   placements=full)
     _copy_into(state["params"], restored["params"], "/params")
     _copy_into(state["opt"], restored["opt"], "/opt")
     state["step"] = int(restored["step"])
-    print(f"[train] resumed from step {start}")
+    log(f"[train] resumed from step {start}")
     return int(start)
 
 
@@ -415,33 +462,65 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
 
 def run_lm(args) -> dict:
     """Train an LM on ``TokenPipeline`` batches (the reference's
-    ``run_lm``).
+    ``run_lm``), in this process or, with ``--devices N > 1`` or
+    ``--mesh``, on a process mesh (rank 0's result comes back).
     Returns the per-step losses, grad norms and wall ms (each step ends
     in a device synchronize), tok/s over the run, and the peak device
-    memory on the card."""
-    device = _device(args)
+    memory on the card; on a mesh also the world size, and each rank's
+    peak memory and kernel launches."""
+    _device(args)
     _check_resume(args)
+    if args.mesh is None and args.devices == 1:
+        return _train_lm(None, args)
+    return run_on_mesh(args.mesh_dims, ("data", "model"), args.device,
+                       _train_lm, args)
+
+
+def _quiet(*_args, **_kwargs) -> None:
+    pass
+
+
+def _train_lm(mesh, args) -> dict | None:
+    """``run_lm``'s loop on one rank of ``mesh`` (None: one process).
+    Only rank 0 logs; it returns the results, the other ranks None."""
+    rank0 = mesh is None or dist.get_rank() == 0
+    log = print if rank0 else _quiet
+    device = (torch.device(args.device) if mesh is None
+              else rank_device(args.device))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     defs = build_defs(cfg)
+    # every rank draws the whole leaves (the reference's seed-0 weights)
     params = init_params(defs, seed=0, device=device)
     model = LM(cfg, params, trainable=True)
-    print(f"[train] {cfg.name}: {count_params(defs) / 1e6:.2f}M params "
-          f"({model.active_param_count() / 1e6:.2f}M active), "
-          f"attn_impl={cfg.attn_impl}, remat={cfg.remat}, on {device}")
+    where = device if mesh is None else (
+        f"a {'x'.join(map(str, args.mesh_dims))} mesh of "
+        f"{dist.get_world_size()} ranks ({dist.get_backend()}, "
+        f"{device.type})")
+    log(f"[train] {cfg.name}: {count_params(defs) / 1e6:.2f}M params "
+        f"({model.active_param_count() / 1e6:.2f}M active), "
+        f"attn_impl={cfg.attn_impl}, remat={cfg.remat}, on {where}")
     opt = adamw(warmup_cosine(args.lr, 10, args.steps))
-    step_fn = lm_steps.build_train_step(model, opt,
+    rules = ShardingRules.default()
+    step_fn = lm_steps.build_train_step(model, opt, mesh, rules,
                                         microbatches=args.microbatches)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                          global_batch=args.batch)
-    state = lm_steps.init_train_state(model, opt)
+    state = lm_steps.init_train_state(model, opt, mesh, rules)
+    rows = {"rank": 0, "ranks": 1, "microbatches": args.microbatches}
+    placements = None
+    if mesh is not None:
+        rows.update(rank=mesh.get_local_rank("data"),
+                    ranks=mesh.size(mesh.mesh_dim_names.index("data")))
+        placements = tree_map(lambda pl: (mesh, pl),
+                              tree_placements(defs, rules, mesh))
     saver = None
     start = 0
     if args.ckpt_dir:
         saver = ckpt.AsyncSaver(args.ckpt_dir)
-        start = _restore_latest(args, state, device)
+        start = _restore_latest(args, state, device, placements, log)
 
     def sync():
         if device.type == "cuda":
@@ -454,15 +533,15 @@ def run_lm(args) -> dict:
     t0 = time.perf_counter()
     for i in range(start, args.steps):
         t1 = time.perf_counter()
-        state, metrics = step_fn(state, pipe.torch_batch(i, device))
+        state, metrics = step_fn(state, pipe.torch_batch(i, device, **rows))
         sync()
         out["step_ms"].append(1e3 * (time.perf_counter() - t1))
         out["losses"].append(metrics["loss"])
         out["grad_norms"].append(metrics["grad_norm"])
         if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
             m = {k: float(v) for k, v in metrics.items()}
-            print(f"  step {i+1:5d} loss={m['loss']:.4f} "
-                  f"|g|={m['grad_norm']:.3f} lr={m['lr']:.2e}")
+            log(f"  step {i+1:5d} loss={m['loss']:.4f} "
+                f"|g|={m['grad_norm']:.3f} lr={m['lr']:.2e}")
         if saver and (i + 1) % args.ckpt_every == 0:
             saver.save_async(i + 1, state)
     if saver:
@@ -475,12 +554,19 @@ def run_lm(args) -> dict:
                wall_s=dt, tok_per_s=tokens / max(dt, 1e-9),
                peak_bytes=(torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None))
-    print(f"[train] {args.steps - start} steps in {dt:.1f}s "
-          f"({out['tok_per_s']:.0f} tok/s)"
-          + (f", peak device memory {out['peak_bytes'] / 2**30:.2f} GiB"
-             if out["peak_bytes"] is not None else ""))
-    print(f"[train] kernel launches: {dict(kernels.LAUNCHES)}")
-    return out
+    launches = dict(kernels.LAUNCHES)
+    if mesh is not None:
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, (out["peak_bytes"], launches))
+        out.update(world=len(per_rank), mesh=args.mesh_dims,
+                   peak_bytes_per_rank=[p for p, _ in per_rank],
+                   launches_per_rank=[n for _, n in per_rank])
+    log(f"[train] {args.steps - start} steps in {dt:.1f}s "
+        f"({out['tok_per_s']:.0f} tok/s)"
+        + (f", peak device memory {out['peak_bytes'] / 2**30:.2f} GiB"
+           if out["peak_bytes"] is not None else ""))
+    log(f"[train] kernel launches: {launches}")
+    return out if rank0 else None
 
 
 def main(argv=None):

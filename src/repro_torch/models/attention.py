@@ -10,8 +10,17 @@ window archs, differentiable for training (with the reference's
 is one token's attention over the KV cache; it goes through
 ``kernels.ops.decode_attention``, which on a CUDA tensor launches the
 hand-written decode kernel (the swap-in the reference names for
-hardware) and on a CPU tensor takes its plain version.  The mesh's
-``sharded_decode_attention`` is not ported.
+hardware) and on a CPU tensor takes its plain version.
+
+``sharded_decode_attention`` is the reference's near-data decode on a
+process mesh: the KV cache is split on its sequence dim over the
+``model`` ranks, each rank reduces over its own slice to online-softmax
+partials (max, sum, weighted V) in float32, plain torch ops as the
+reference's jnp ones, and only those O(B x Hq x D) partials cross the
+link (``distributed.collectives.online_softmax_combine``).  A rank whose
+slice lies wholly past the current position gets the max ``NEG_INF``
+(finite, so its scale ``exp(m - m_global)`` is 0, not NaN) and adds
+nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.collectives import (group_of,
+                                                 online_softmax_combine)
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -110,3 +121,53 @@ def decode_attention_local(q, cache_k, cache_v, valid_len: int, *,
     valid_len - window``).  Returns (B, Hq, D) in q.dtype."""
     return ops.decode_attention(q, cache_k, cache_v, int(valid_len),
                                 int(window))
+
+
+def _decode_partials(q, k_slice, v_slice, kpos, valid_len: int,
+                     window: int, scale: float):
+    """One rank's online-softmax partials over its KV slice: q (B, Hq, D),
+    k/v_slice (B, s, Hkv, D), kpos (s,) the slice's global positions.
+    Returns (m, l, o): (B, Hkv, g), (B, Hkv, g), (B, Hkv, g, D) float32."""
+    B, Hq, D = q.shape
+    Hkv = k_slice.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_slice.float()) * scale
+    ok = kpos < valid_len
+    if window > 0:
+        ok = ok & (kpos >= valid_len - window)
+    s = torch.where(ok[None, None, None], s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_slice.float())
+    return m, p.sum(dim=-1), o
+
+
+def sharded_decode_attention(mesh, *, seq_axis: str = "model"):
+    """The near-data decode attention with the in-place cache update, on
+    a ``DeviceMesh`` whose ``seq_axis`` ranks each hold one slice of the
+    cache's S (the reference's ``sharded_decode_attention``; the batch
+    stays whole on every rank).
+
+    Returns ``fn(q, new_k, new_v, cache_k, cache_v, position, window) ->
+    out``: q (B, Hq, D), new_k/v (B, 1, Hkv, D), cache_k/v this rank's
+    (B, S / n, Hkv, D) slice, written in place at ``position`` by the
+    rank that owns it; ``position`` and ``window`` host ints.  ``out``
+    (B, Hq, D) in q's dtype."""
+    group = group_of((mesh, seq_axis))
+    idx = mesh.get_local_rank(seq_axis)
+
+    def fn(q, new_k, new_v, cache_k, cache_v, position: int, window: int):
+        B, shard_len, _, D = cache_k.shape
+        start = idx * shard_len
+        local = position - start
+        if 0 <= local < shard_len:
+            cache_k[:, local] = new_k[:, 0]
+            cache_v[:, local] = new_v[:, 0]
+        kpos = start + torch.arange(shard_len, device=q.device)
+        m, l, o = _decode_partials(q, cache_k, cache_v, kpos, position + 1,
+                                   int(window), 1.0 / math.sqrt(D))
+        out = online_softmax_combine(m, l, o, group)
+        return out.reshape(B, q.shape[1], D).to(q.dtype)
+
+    return fn

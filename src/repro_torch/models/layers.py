@@ -19,8 +19,9 @@ from repro_torch.models.params import ParamDef
 
 def rmsnorm_def(dim: int, layers: int | None = None) -> ParamDef:
     if layers is None:
-        return ParamDef((dim,), init="ones")
-    return ParamDef((layers, dim), init="ones")
+        return ParamDef((dim,), init="ones", logical_axes=("embed",))
+    return ParamDef((layers, dim), init="ones",
+                    logical_axes=("layers", "embed"))
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -81,11 +82,12 @@ def apply_mrope(x, positions3, sections, theta: float = 1e4):
 def embed_def(vocab: int, d_model: int) -> ParamDef:
     # scaled by 1/sqrt(d_model) so tied-embedding logits start at unit
     # variance, as in the reference
-    return ParamDef((vocab, d_model), init="normal", fan_in_axes=(1,))
+    return ParamDef((vocab, d_model), init="normal", fan_in_axes=(1,),
+                    logical_axes=("vocab", "embed"))
 
 
 def unembed_def(d_model: int, vocab: int) -> ParamDef:
-    return ParamDef((d_model, vocab))
+    return ParamDef((d_model, vocab), logical_axes=("embed", "vocab"))
 
 
 def embed_lookup(table, token_ids, compute_dtype):

@@ -20,15 +20,34 @@ reference's ``mode="drop"``), with no host synchronization (no boolean
 masks, no ``nonzero``).  The expert products are library products
 (``einsum``), as the reference leaves them to XLA: its MoE has no Pallas
 kernel.  ``constrain_fn`` and ``moe_zero3_gather`` are sharding knobs of
-the reference's mesh and have no counterpart on one card.
+the reference's mesh and have no counterpart here.
+
+Under data parallelism (``global_dispatch(group)``, which the train step
+of a process mesh enters) the tokens of one dispatch group may lie on
+several ranks.  With ``groups`` 1 the reference dispatches globally: the
+capacity ``C`` comes from the global token count, each assignment's slot
+is its place in a cumsum over the global token order, and the aux loss
+is ``E * sum(f_e * P_e)`` over global means.  So each rank offsets its
+positions by the per-expert counts of the ranks before it (an
+``all_gather`` of (E,) counts) and keeps an assignment iff that global
+position is below ``C``; its own kept tokens fill a local (E, C) table
+at their local positions, and the expert products are row by row, so
+each kept token gets the output one rank would give it.  ``f`` is the
+global count share, and ``P`` takes the global mean's value (an
+``all_reduce`` of the probability sums) with the local mean's gradient,
+which the gradient's average over the ranks turns into the global
+mean's.  With ``groups`` a multiple of the ranks, each rank's tokens are
+whole groups and routing stays local.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.params import ParamDef
@@ -40,13 +59,17 @@ def moe_defs(d_model: int, d_ff: int, num_experts: int, layers: int):
     stays float32 when the tree is drawn in a compute dtype: the
     reference casts it to float32 at use."""
     return {
-        "router": ParamDef((layers, d_model, num_experts), keep_dtype=True),
+        "router": ParamDef((layers, d_model, num_experts), keep_dtype=True,
+                           logical_axes=("layers", "embed", None)),
         "w_gate": ParamDef((layers, num_experts, d_model, d_ff),
-                           fan_in_axes=(2,)),
+                           fan_in_axes=(2,),
+                           logical_axes=("layers", "experts", "embed", "mlp")),
         "w_up": ParamDef((layers, num_experts, d_model, d_ff),
-                         fan_in_axes=(2,)),
+                         fan_in_axes=(2,),
+                         logical_axes=("layers", "experts", "embed", "mlp")),
         "w_down": ParamDef((layers, num_experts, d_ff, d_model),
-                           fan_in_axes=(2,)),
+                           fan_in_axes=(2,),
+                           logical_axes=("layers", "experts", "mlp", "embed")),
     }
 
 
@@ -62,6 +85,27 @@ def _float32_products():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+_DISPATCH = contextvars.ContextVar("moe_dispatch_group", default=None)
+
+
+@contextlib.contextmanager
+def global_dispatch(group):
+    """Route as one dispatch over the tokens of every rank of ``group``
+    (the ``data`` axis' process group) inside; None or a group of one
+    rank routes locally."""
+    token = _DISPATCH.set(group)
+    try:
+        yield
+    finally:
+        _DISPATCH.reset(token)
+
+
+def _ranks(group) -> tuple[int, int]:
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
 def capacity(capacity_factor: float, top_k: int, Tg: int, E: int) -> int:
     """Slots an expert has in a group of ``Tg`` tokens, as the reference
     computes it (in Python floats)."""
@@ -73,7 +117,7 @@ class Route(NamedTuple):
     expert_idx: torch.Tensor    # (G, Tg, k) int64, best first
     gates: torch.Tensor         # (G, Tg, k) float32
     pos: torch.Tensor           # (G, Tg * k) int64: slot in its expert
-    keep: torch.Tensor          # (G, Tg * k) bool: pos < C
+    keep: torch.Tensor          # (G, Tg * k) bool: global position < C
     slot_tok: torch.Tensor      # (G, E, C) int64: token id, Tg if empty
     aux: torch.Tensor           # float32 scalar: the Switch aux loss
 
@@ -82,18 +126,31 @@ def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
           routing: str = "softmax", groups: int = 1) -> Route:
     """The routing ``apply_moe`` takes for ``x`` (B, S, d) under the
     router (d, E): ``groups`` dispatch groups (1 when it does not divide
-    the B * S tokens), each with its own cumsum and capacity."""
+    the B * S tokens of every rank together), each with its own cumsum
+    and capacity.  ``pos`` is an assignment's slot in this rank's table
+    (its global position less the counts of the ranks before it, under
+    ``global_dispatch``)."""
     B, S, d = x.shape
-    T = B * S
+    group = _DISPATCH.get()
+    rank, ranks = _ranks(group)
+    T = B * S * ranks                       # the tokens of every rank
     E = router.shape[-1]
     G = groups if T % groups == 0 else 1
-    Tg = T // G
-    C = capacity(capacity_factor, top_k, Tg, E)
+    if ranks > 1 and G > 1 and G % ranks:
+        raise NotImplementedError(
+            f"{G} dispatch groups over {ranks} data ranks: a group spans "
+            "ranks (take groups 1 or a multiple of the ranks)")
+    spans = ranks > 1 and G == 1            # one group over every rank
+    G = G // ranks if ranks > 1 and G > 1 else G
+    Tg = B * S // G
+    C = capacity(capacity_factor, top_k, T if spans else Tg, E)
     dev = x.device
 
     with _float32_products():
-        logits = torch.einsum("gtd,de->gte", x.reshape(G, Tg, d).float(),
-                              router.float())
+        # one (T, d) x (d, E) product: no batch dims, as the reference's
+        # einsum (a "dots" remat saves it)
+        logits = (x.reshape(G * Tg, d).float() @ router.float()
+                  ).reshape(G, Tg, E)
     scores = logits if routing == "softmax" else torch.sigmoid(logits)
     # lax.top_k: the k largest, ties to the lower index
     vals, order = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -108,12 +165,24 @@ def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
     oh = (flat_e[..., None] == torch.arange(E, device=dev)).to(torch.int32)
     pos = torch.gather(oh.cumsum(dim=1, dtype=torch.int32) - 1, 2,
                        flat_e[..., None])[..., 0].long()        # (G, Tk)
-    keep = pos < C
+    counts = oh.sum(dim=(0, 1))                                 # (E,)
+    probs = torch.softmax(logits, dim=-1)                       # (G, Tg, E)
+    frac_probs = probs.mean(dim=(0, 1))
+    if spans:
+        every = [torch.empty_like(counts) for _ in range(ranks)]
+        dist.all_gather(every, counts, group=group)
+        before = sum(every[:rank], torch.zeros_like(counts)).long()
+        keep = pos + before[flat_e] < C     # the global position
+        counts = sum(every)
+        psum = probs.detach().sum(dim=(0, 1))
+        dist.all_reduce(psum, group=group)
+        # the global mean's value, the local mean's gradient
+        frac_probs = frac_probs + (psum / T - frac_probs).detach()
+    else:
+        keep = pos < C
 
     # Switch load-balancing loss: the one-hot's counts over T * k
-    probs = torch.softmax(logits, dim=-1)                       # (G, Tg, E)
-    frac_tokens = oh.sum(dim=(0, 1)).float() / (T * top_k)
-    frac_probs = probs.mean(dim=(0, 1))
+    frac_tokens = counts.float() / (T * top_k)
     aux = E * torch.sum(frac_tokens * frac_probs)
 
     # the (G, E, C) slot table of token ids; a dropped assignment writes

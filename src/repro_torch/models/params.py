@@ -1,7 +1,10 @@
-"""Parameter definitions for the LM: shape, init and fan-in axes.
+"""Parameter definitions for the LM: shape, logical axes, init and fan-in
+axes.
 
-The port of the reference's ``repro/models/params.py`` without logical
-axes (one card, no sharding).  A model is declared once as a nested dict
+The port of the reference's ``repro/models/params.py``.  Each leaf's
+``logical_axes`` name what its dims mean (``("layers", "embed", "heads",
+"qkv")``); ``distributed.sharding.logical_to_spec`` maps them onto a
+process mesh, as the reference's rules do.  A model is declared once as a nested dict
 of ``ParamDef``; ``init_params`` materializes tensors from it and
 ``count_params`` counts them.  ``init_params`` draws the reference's
 numbers: leaf ``i`` of the tree in the reference's flatten order (sorted
@@ -35,6 +38,12 @@ class ParamDef:
     # stays in ``dtype`` when the tree is drawn in a compute dtype (the
     # MoE router, which the reference casts to float32 at use)
     keep_dtype: bool = False
+    # one logical axis name (or None) per dim, the reference's
+    logical_axes: tuple = ()
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical_axes), (
+            f"shape {self.shape} vs axes {self.logical_axes}")
 
 
 def tree_leaves(tree) -> list:

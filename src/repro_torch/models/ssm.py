@@ -30,14 +30,22 @@ def ssm_defs(d_model: int, d_inner: int, n_heads: int, d_state: int,
     conv_dim = d_inner + 2 * n_groups * d_state
     d_in_proj = 2 * d_inner + 2 * n_groups * d_state + n_heads
     return {
-        "in_proj": ParamDef((layers, d_model, d_in_proj)),
-        "conv_w": ParamDef((layers, d_conv, conv_dim)),
-        "conv_b": ParamDef((layers, conv_dim), init="zeros"),
-        "A_log": ParamDef((layers, n_heads), init="zeros"),
-        "D": ParamDef((layers, n_heads), init="ones"),
-        "dt_bias": ParamDef((layers, n_heads), init="zeros"),
-        "norm": ParamDef((layers, d_inner), init="ones"),
-        "out_proj": ParamDef((layers, d_inner, d_model)),
+        "in_proj": ParamDef((layers, d_model, d_in_proj),
+                            logical_axes=("layers", "embed", None)),
+        "conv_w": ParamDef((layers, d_conv, conv_dim),
+                           logical_axes=("layers", "conv", None)),
+        "conv_b": ParamDef((layers, conv_dim), init="zeros",
+                           logical_axes=("layers", None)),
+        "A_log": ParamDef((layers, n_heads), init="zeros",
+                          logical_axes=("layers", "ssm_head")),
+        "D": ParamDef((layers, n_heads), init="ones",
+                      logical_axes=("layers", "ssm_head")),
+        "dt_bias": ParamDef((layers, n_heads), init="zeros",
+                            logical_axes=("layers", "ssm_head")),
+        "norm": ParamDef((layers, d_inner), init="ones",
+                         logical_axes=("layers", None)),
+        "out_proj": ParamDef((layers, d_inner, d_model),
+                             logical_axes=("layers", "mlp", "embed")),
     }
 
 

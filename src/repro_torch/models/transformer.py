@@ -1,8 +1,10 @@
 """The LM: parameters, the training forward, prefill and greedy decode of
 every family: dense, moe, ssm, hybrid and encdec.
 
-The port of the reference's ``repro/models/transformer.py`` on one card
-(no mesh, no sharding constraints).
+The port of the reference's ``repro/models/transformer.py``: the model
+runs whole on its device (a data-parallel mesh shards the training state
+around it, ``train.steps``; the sequence-sharded decode splits its cache,
+below), without the reference's activation sharding constraints.
 Parameters keep the reference tree's names and stacked layer shapes
 (``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
 carries the reference's weights over as a copy; ``lax.scan`` over the
@@ -19,6 +21,15 @@ are cast to bf16 at each use, as the reference's; ``forward`` slices
 layer ``i`` inside the graph on every call and, for ``cfg.remat ==
 "full"`` (the reference's default ``jax.checkpoint`` of each layer),
 recomputes each block in the backward (``torch.utils.checkpoint``).
+``cfg.remat == "dots"`` is the reference's ``jax.checkpoint`` under
+``checkpoint_dots_with_no_batch_dims``: each block's products without
+batch dims (the projections, ``aten.mm``: ``_proj`` and the MoE router)
+are saved and everything else (elementwise ops, attention scores, the
+MoE's expert products, which are batched over experts) is recomputed,
+through ``torch.utils.checkpoint`` with a selective-checkpoint policy
+(``_dots_policy``).  The CUDA kernels launch outside the dispatcher, so
+the policy never sees them: the flash forward is recomputed, as the
+reference's policy does not save a ``pallas_call`` either.
 The moe family's feed-forward is ``models/moe.py``'s ``apply_moe``; its
 load-balancing losses, one a layer, are summed into ``forward``'s
 ``moe_aux_loss`` (through the checkpoint under ``remat="full"``); prefill
@@ -51,23 +62,33 @@ Hkv, Dh) bf16, are computed once by prefill from the encoder's output and
 read whole by each decode step (a second decode-kernel launch a layer,
 ``valid_len`` S_src, no window).
 
-``LM`` refuses only the ``"dots"`` remat policy in training, with
-``NotImplementedError``.
+Decode on a process mesh (``build_serve_step(model, mesh)``) takes the
+reference's sequence-sharded path exactly where the reference does: the
+mesh's ``model`` axis larger than 1 and dividing the cache's S.  Each
+rank holds its slice of the K/V cache on S, only the rank that owns
+``position`` writes the new K and V, and each rank's online-softmax
+partials are combined across the ``model`` ranks
+(``attention.sharded_decode_attention``).  The weights stay whole on
+every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.attention import decode_attention_local, mha_chunked
+from repro_torch.models.attention import (decode_attention_local,
+                                          mha_chunked,
+                                          sharded_decode_attention)
 from repro_torch.models.layers import (activation, apply_mrope, apply_rope,
                                        embed_def, embed_lookup, rmsnorm,
                                        rmsnorm_def, unembed_def)
@@ -79,25 +100,35 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 # ---------------------------------------------------------------------------
-# Parameter definitions (every family, for ``count_params``)
+# Parameter definitions (every family): shapes and the reference's logical
+# axes
 # ---------------------------------------------------------------------------
+
+_QKV = ("layers", "embed", "heads", "qkv")
+_KV = ("layers", "embed", "kv_heads", "qkv")
+_WO = ("layers", "heads", "qkv", "embed")
 
 def _attn_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
     d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     defs = {
         "attn_norm": rmsnorm_def(d, L),
-        "wq": ParamDef((L, d, H, Dh)),
-        "wk": ParamDef((L, d, Hkv, Dh)),
-        "wv": ParamDef((L, d, Hkv, Dh)),
-        "wo": ParamDef((L, H, Dh, d), fan_in_axes=(1, 2)),
+        "wq": ParamDef((L, d, H, Dh), logical_axes=_QKV),
+        "wk": ParamDef((L, d, Hkv, Dh), logical_axes=_KV),
+        "wv": ParamDef((L, d, Hkv, Dh), logical_axes=_KV),
+        "wo": ParamDef((L, H, Dh, d), fan_in_axes=(1, 2), logical_axes=_WO),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((L, H, Dh), init="zeros")
-        defs["bk"] = ParamDef((L, Hkv, Dh), init="zeros")
-        defs["bv"] = ParamDef((L, Hkv, Dh), init="zeros")
+        defs["bq"] = ParamDef((L, H, Dh), init="zeros",
+                              logical_axes=("layers", "heads", "qkv"))
+        defs["bk"] = ParamDef((L, Hkv, Dh), init="zeros",
+                              logical_axes=("layers", "kv_heads", "qkv"))
+        defs["bv"] = ParamDef((L, Hkv, Dh), init="zeros",
+                              logical_axes=("layers", "kv_heads", "qkv"))
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((L, Dh), init="ones")
-        defs["k_norm"] = ParamDef((L, Dh), init="ones")
+        defs["q_norm"] = ParamDef((L, Dh), init="ones",
+                                  logical_axes=("layers", "qkv"))
+        defs["k_norm"] = ParamDef((L, Dh), init="ones",
+                                  logical_axes=("layers", "qkv"))
     if cfg.post_norms:
         defs["post_attn_norm"] = rmsnorm_def(d, L)
     return defs
@@ -107,9 +138,9 @@ def _mlp_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
     defs = {
         "mlp_norm": rmsnorm_def(d, L),
-        "w_gate": ParamDef((L, d, f)),
-        "w_up": ParamDef((L, d, f)),
-        "w_down": ParamDef((L, f, d)),
+        "w_gate": ParamDef((L, d, f), logical_axes=("layers", "embed", "mlp")),
+        "w_up": ParamDef((L, d, f), logical_axes=("layers", "embed", "mlp")),
+        "w_down": ParamDef((L, f, d), logical_axes=("layers", "mlp", "embed")),
     }
     if cfg.post_norms:
         defs["post_mlp_norm"] = rmsnorm_def(d, L)
@@ -126,10 +157,10 @@ def _cross_defs(cfg: ModelConfig, L: int) -> dict[str, ParamDef]:
     d, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "cross_norm": rmsnorm_def(d, L),
-        "wq_c": ParamDef((L, d, H, Dh)),
-        "wk_c": ParamDef((L, d, Hkv, Dh)),
-        "wv_c": ParamDef((L, d, Hkv, Dh)),
-        "wo_c": ParamDef((L, H, Dh, d), fan_in_axes=(1, 2)),
+        "wq_c": ParamDef((L, d, H, Dh), logical_axes=_QKV),
+        "wk_c": ParamDef((L, d, Hkv, Dh), logical_axes=_KV),
+        "wv_c": ParamDef((L, d, Hkv, Dh), logical_axes=_KV),
+        "wo_c": ParamDef((L, H, Dh, d), fan_in_axes=(1, 2), logical_axes=_WO),
     }
 
 
@@ -170,13 +201,37 @@ def build_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def check_supported(cfg: ModelConfig, trainable: bool) -> None:
-    """Refuse what the port's LM does not run yet: in training, a remat
-    policy other than "none" and "full"."""
-    if trainable and cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"{cfg.name}: remat={cfg.remat!r} has no counterpart in "
-            "torch (the port takes 'none' and 'full')")
+# ---------------------------------------------------------------------------
+# Remat: "full" recomputes a block, "dots" saves its no-batch products
+# ---------------------------------------------------------------------------
+
+# the products a "dots" block saves: the reference's dot_generals without
+# batch dims, which reach these ops and only these (a batched einsum
+# reaches aten.bmm)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: save the no-batch
+    products' outputs, recompute the rest."""
+    if op in _SAVED_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(policy: str, fn, *args):
+    """``fn(*args)`` under the block remat ``policy`` ("none", "full" or
+    "dots")."""
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    if policy != "none":
+        raise ValueError(f"remat={policy!r}: not one of none, full, dots")
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +393,16 @@ def _apply_block(cfg: ModelConfig, p, x, positions, window: int, *,
 # Model
 # ---------------------------------------------------------------------------
 
+def seq_shards(mesh, S: int) -> int:
+    """The ranks the decode splits a cache of S positions over: the
+    mesh's ``model`` size where it is larger than 1 and divides S (the
+    reference's condition), else 1."""
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return 1
+    n = mesh.shape[mesh.mesh_dim_names.index("model")]
+    return n if n > 1 and S % n == 0 else 1
+
+
 CACHE_LEAVES = {"dense": ("k", "v"), "moe": ("k", "v"),
                 "ssm": ("state", "conv"),
                 "hybrid": ("k", "v", "state", "conv"),
@@ -364,7 +429,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
                  seed: int = 0, device="cuda", trainable: bool = False):
         super().__init__()
-        check_supported(cfg, trainable)
         self.cfg = cfg
         self.defs = build_defs(cfg)
         if params is None:
@@ -461,20 +525,16 @@ class LM(nn.Module):
     def _encode(self, batch: dict):
         """The encdec family's encoder over ``batch["src_embeds"]`` (B,
         S_src, d): the non-causal stack, then ``enc_final_norm``; None for
-        the other families.  Under ``remat == "full"`` in training each
-        block is recomputed in the backward, as the decoder's."""
+        the other families.  In training each block is rematerialized
+        under ``cfg.remat``, as the decoder's."""
         if self.enc_cfg is None:
             return None
         x = batch["src_embeds"].to(COMPUTE_DTYPE)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        remat = self.cfg.remat if torch.is_grad_enabled() else "none"
         for i in range(self.cfg.encoder_layers):
-            if remat:
-                x = checkpoint(self._enc_block, x, positions, i,
-                               use_reentrant=False)
-            else:
-                x = self._enc_block(x, positions, i)
+            x = _remat(remat, self._enc_block, x, positions, i)
         return rmsnorm(x, self.enc_final_norm, self.cfg.norm_eps)
 
     def _train_block(self, x, positions, i: int, enc_out):
@@ -489,19 +549,17 @@ class LM(nn.Module):
         ``batch["embeds"]`` (B, S, d), and ``batch["src_embeds"]`` for
         encdec -> (logits (B, S, V) float32, {"moe_aux_loss": the layers'
         summed load-balancing losses, 0 outside the moe family}), the
-        reference's ``LM.forward``.  With ``cfg.remat == "full"`` each
-        block is recomputed in the backward."""
+        reference's ``LM.forward``.  Each block is rematerialized under
+        ``cfg.remat``: "full" recomputes it in the backward, "dots" keeps
+        its no-batch products' outputs and recomputes the rest."""
         enc_out = self._encode(batch)
         x = self._embed(batch.get("embeds", batch.get("tokens")))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         auxes = []
         for i in range(self.cfg.num_layers):
-            if self.cfg.remat == "full":
-                x, aux = checkpoint(self._train_block, x, positions, i,
-                                    enc_out, use_reentrant=False)
-            else:
-                x, aux = self._train_block(x, positions, i, enc_out)
+            x, aux = _remat(self.cfg.remat, self._train_block, x, positions,
+                            i, enc_out)
             auxes.append(aux)
         return self._logits(x), {"moe_aux_loss": torch.stack(auxes).sum()}
 
@@ -525,12 +583,14 @@ class LM(nn.Module):
                 for n in CACHE_LEAVES[cfg.family]}
 
     @torch.no_grad()
-    def prefill(self, batch: dict, cache_len: int | None = None):
+    def prefill(self, batch: dict, cache_len: int | None = None, mesh=None):
         """Forward over the prompt (``tokens`` or ``embeds``; the encdec
         family's encoder over ``src_embeds``), writing each layer's cache
         seeds into a fresh cache: K and V at the first S of ``cache_len``
         positions (default: the prompt length), the SSM state and conv
         tail whole, the cross K and V at the source's S_src positions.
+        On a ``mesh`` whose decode shards the sequence (``seq_shards``)
+        the K and V come back as DTensors split on S (``shard_cache``).
         Returns (last-position logits (B, 1, V) float32, cache)."""
         enc_out = self._encode(batch)
         x = self._embed(batch.get("embeds", batch.get("tokens")))
@@ -546,7 +606,28 @@ class LM(nn.Module):
                     cache[name][i, :, :S] = seed
                 else:
                     cache[name][i] = seed
-        return self._logits(x[:, -1:, :]), cache
+        return self._logits(x[:, -1:, :]), self.shard_cache(cache, mesh)
+
+    def shard_cache(self, cache: dict, mesh) -> dict:
+        """``cache`` with its K and V split on S over ``mesh``'s ``model``
+        ranks, as DTensors (this rank's slice copied out of the whole),
+        where ``seq_shards`` says the decode shards them; as it is
+        otherwise (no mesh, already split, or S not divisible)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        kv = cache.get("k")
+        if mesh is None or kv is None or isinstance(kv, DTensor) \
+                or seq_shards(mesh, kv.shape[2]) == 1:
+            return cache
+        n = seq_shards(mesh, kv.shape[2])
+        idx = mesh.get_local_rank("model")
+        pl = [Shard(2) if a == "model" else Replicate()
+              for a in mesh.mesh_dim_names]
+        out = dict(cache)
+        for name in ("k", "v"):
+            local = cache[name].chunk(n, dim=2)[idx].clone()
+            out[name] = DTensor.from_local(local, mesh, pl)
+        return out
 
     @torch.no_grad()
     def decode_step(self, tokens, cache: dict, position: int):
@@ -554,9 +635,16 @@ class LM(nn.Module):
         ``cfg.embeds_input``, embeddings (B, 1, d); ``position`` is the
         host int index the new K and V are written at (attention sees [0,
         position]); the SSM state and conv tail advance one step; the
-        encdec family attends to its whole cross K and V.  Updates
-        ``cache`` in place; returns (logits (B, 1, V) float32, cache)."""
+        encdec family attends to its whole cross K and V.  K and V split
+        on S over a mesh (``shard_cache``) take the sequence-sharded
+        attention.  Updates ``cache`` in place; returns (logits (B, 1, V)
+        float32, cache)."""
         cfg = self.cfg
+        kv = cache.get("k")
+        sharded = None
+        if hasattr(kv, "device_mesh"):                  # a DTensor
+            sharded = sharded_decode_attention(kv.device_mesh)
+            kv_local = {n: cache[n].to_local() for n in ("k", "v")}
         x = self._embed(tokens)
         pos = torch.full((x.shape[0], 1), position, dtype=torch.int32,
                          device=x.device)
@@ -569,11 +657,15 @@ class LM(nn.Module):
             h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
             q, k_new, v_new = _project_qkv(cfg, p, h)
             q, k_new = _rope_qk(cfg, q, k_new, pos)
-            ck, cv = cache["k"][i], cache["v"][i]
-            ck[:, position] = k_new[:, 0]
-            cv[:, position] = v_new[:, 0]
-            out = decode_attention_local(q[:, 0], ck, cv, position + 1,
-                                         window=window)
+            if sharded is not None:
+                out = sharded(q[:, 0], k_new, v_new, kv_local["k"][i],
+                              kv_local["v"][i], position, window)
+            else:
+                ck, cv = cache["k"][i], cache["v"][i]
+                ck[:, position] = k_new[:, 0]
+                cv[:, position] = v_new[:, 0]
+                out = decode_attention_local(q[:, 0], ck, cv, position + 1,
+                                             window=window)
             attn_out = _out_proj(cfg, p, out[:, None])
             if cfg.family == "hybrid":
                 # the SSM branch reads the same normalized input

@@ -1,17 +1,33 @@
 """Train, prefill and serve step builders of the port's LM.
 
-The port of the reference's ``repro/train/steps.py`` on one card: the
-parameters live in the ``LM`` module, so the steps close over it instead
-of taking a params tree, a mesh and sharding rules.  ``train_step``
-updates the parameters and the optimizer moments in place (the
-reference's donated state) and returns its metrics as tensors, so
-nothing waits for the device.
+The port of the reference's ``repro/train/steps.py``.  The parameters
+live in the ``LM`` module, so the steps close over it instead of taking
+a params tree.  ``train_step`` updates the parameters and the optimizer
+moments in place (the reference's donated state) and returns its metrics
+as tensors, so nothing waits for the device.
+
+On a process mesh (``launch.mesh.make_device_mesh``, its ``model`` axis
+of size 1: tensor parallelism is ROADMAP item 16, part 2) the training
+state is sharded as the reference's rules shard it: each parameter and
+its AdamW moments are DTensors with the placements that
+``logical_to_spec(def.logical_axes, rules, mesh, def.shape)`` gives
+(``embed`` dims over ``data``: ZeRO).  Each step gathers the whole
+weights into the module's parameters (``full_tensor``), runs the forward
+and backward on this rank's rows of the batch, reduce-scatters the
+gradients' mean over the ``data`` ranks onto the shards (DTensor
+``Partial`` to the leaf's placements) and updates the shards; the loss
+and aux metrics are averaged over the ``data`` ranks, and the clip's
+norm is the global one.  The MoE family routes globally across the
+ranks (``moe.global_dispatch``), as the reference's ``groups=1``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import ShardingRules, tree_placements
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import LM
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim.adamw import Optimizer
@@ -40,18 +56,24 @@ def cross_entropy_sharded(logits, labels):
 CE_IMPLS = {"gather": cross_entropy, "sharded": cross_entropy_sharded}
 
 
-def build_train_step(model: LM, optimizer: Optimizer, *,
+def build_train_step(model: LM, optimizer: Optimizer, mesh=None,
+                     rules: ShardingRules | None = None, *,
                      microbatches: int = 1, ce: str = "gather"):
     """Returns ``train_step(state, batch) -> (state, metrics)`` over the
-    model's parameters (``state`` from ``init_train_state``).
+    model's parameters (``state`` from ``init_train_state`` with the same
+    ``mesh``).
 
     ``microbatches > 1`` splits the batch (every leaf: ``tokens`` or
     ``embeds``, ``src_embeds``, ``labels``) on its leading dim and sums the
     microbatches' gradients and metrics in order before dividing, as the
     reference's ``lax.scan`` does.  ``ce`` picks the cross-entropy
     ("gather" or "sharded").  Metrics: ``loss``, ``moe_aux``,
-    ``grad_norm`` and ``lr``."""
+    ``grad_norm`` and ``lr``.  On a ``mesh`` (see the module docstring)
+    ``batch`` is this rank's rows (``TokenPipeline.torch_batch(...,
+    rank=, ranks=, microbatches=)``) and ``rules`` (default: the
+    reference's) are those ``init_train_state`` took."""
     ce_fn = CE_IMPLS[ce]
+    dp = _DataParallel(model, mesh) if mesh is not None else None
 
     def grad_fn(params: list, batch: dict):
         logits, aux = model(batch)
@@ -66,9 +88,7 @@ def build_train_step(model: LM, optimizer: Optimizer, *,
                  for p, g in zip(params, grads)]
         return grads, {"loss": loss.detach(), "moe_aux": moe_aux.detach()}
 
-    def train_step(state: dict, batch: dict):
-        tree = state["params"]
-        params = tree_leaves(tree)
+    def local_grads(params: list, batch: dict):
         if microbatches == 1:
             grads, metrics = grad_fn(params, batch)
         else:
@@ -84,6 +104,14 @@ def build_train_step(model: LM, optimizer: Optimizer, *,
                 metrics = {k: metrics[k] + m[k] for k in metrics}
             grads = [g / microbatches for g in grads]
             metrics = {k: v / microbatches for k, v in metrics.items()}
+        return grads, metrics
+
+    def train_step(state: dict, batch: dict):
+        tree = state["params"]
+        if dp is None:
+            grads, metrics = local_grads(tree_leaves(tree), batch)
+        else:
+            grads, metrics = dp.grads(local_grads, tree, batch)
         opt_metrics = optimizer.update(_unflatten(tree, iter(grads)),
                                        state["opt"], tree, state["step"])
         state["step"] += 1
@@ -100,31 +128,95 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
-def init_train_state(model: LM, optimizer: Optimizer) -> dict:
-    """``{"params": model.param_tree(), "opt": optimizer.init(...),
-    "step": 0}``; the parameters are the model's own, updated in
-    place."""
+class _DataParallel:
+    """The gather, the gradients' reduce-scatter and the metrics' mean of
+    a train step on a process mesh."""
+
+    def __init__(self, model: LM, mesh):
+        self.model, self.mesh = model, mesh
+        self.group = mesh.get_group("data")
+        self.ranks = dist.get_world_size(self.group)
+
+    def grads(self, local_grads, tree: dict, batch: dict):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        full = tree_leaves(self.model.param_tree())
+        shards = tree_leaves(tree)
+        with torch.no_grad():
+            for f, sh in zip(full, shards):
+                f.copy_(sh.full_tensor())
+        with moe_lib.global_dispatch(self.group):
+            grads, metrics = local_grads(full, batch)
+        partial = [Partial("sum") if a == "data" else Replicate()
+                   for a in self.mesh.mesh_dim_names]
+        # the mean over the data ranks, scattered onto each leaf's shards
+        grads = [DTensor.from_local(g / self.ranks, self.mesh, partial)
+                 .redistribute(self.mesh, sh.placements)
+                 for g, sh in zip(grads, shards)]
+        metrics = dict(metrics)
+        for k, v in metrics.items():
+            v = v.clone()
+            dist.all_reduce(v, group=self.group)
+            metrics[k] = v / self.ranks
+        return grads, metrics
+
+
+def init_train_state(model: LM, optimizer: Optimizer, mesh=None,
+                     rules: ShardingRules | None = None) -> dict:
+    """``{"params": ..., "opt": optimizer.init(...), "step": 0}``.
+    Without a mesh the parameters are the model's own, updated in place.
+    On a ``mesh`` each parameter is a DTensor holding this rank's shard
+    of the model's (every rank drew the whole leaf from the seed: the
+    reference's weights) under ``rules`` (default: the reference's), and
+    the moments are sharded alike (see the module docstring)."""
     params = model.param_tree()
+    if mesh is not None:
+        params = shard_tree(params, tree_placements(
+            model.defs, rules or ShardingRules.default(), mesh), mesh)
     return {"params": params, "opt": optimizer.init(params), "step": 0}
 
 
-def build_prefill_step(model: LM, cache_len: int | None = None):
+def shard_tree(tree: dict, placements: dict, mesh) -> dict:
+    """Each leaf of ``tree`` (whole on every rank) as a DTensor with its
+    ``placements``, this rank's shard copied out of it."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(t, pl):
+        d = distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+        return DTensor.from_local(d.to_local().clone(), mesh, pl,
+                                  run_check=False)
+
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, placements[k], mesh)
+                for k, v in tree.items()}
+    return one(tree, placements)
+
+
+def build_prefill_step(model: LM, cache_len: int | None = None, mesh=None):
     """``prefill_step(batch) -> (last logits (B, 1, V) float32, cache)``,
-    the cache sized for ``cache_len`` positions (default: the prompt)."""
+    the cache sized for ``cache_len`` positions (default: the prompt);
+    on a ``mesh`` whose decode shards the sequence, its K and V split on
+    S (``LM.shard_cache``)."""
 
     def prefill_step(batch):
-        return model.prefill(batch, cache_len)
+        return model.prefill(batch, cache_len, mesh)
 
     return prefill_step
 
 
-def build_serve_step(model: LM):
+def build_serve_step(model: LM, mesh=None, rules=None):
     """One decode step: ``serve_step(tokens (B, 1), cache, position) ->
     (logits, cache, next_token_greedy (B,) int32)``; the cache is updated
     in place.  ``torch.argmax`` takes the first maximum, as ``jnp.argmax``
-    does."""
+    does.  On a ``DeviceMesh`` (``launch.mesh.make_device_mesh``) the
+    decode takes the reference's sequence-sharded path where it does: the
+    ``model`` axis larger than 1 and dividing the cache's S; a whole
+    cache given is split first (``LM.shard_cache``).  The weights stay
+    whole on every rank (``rules`` is the reference's argument; tensor
+    parallelism is ROADMAP item 16, part 2)."""
 
     def serve_step(tokens, cache, position: int):
+        cache = model.shard_cache(cache, mesh)
         logits, cache = model.decode_step(tokens, cache, position)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return logits, cache, next_tok

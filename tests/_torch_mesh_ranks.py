@@ -1,0 +1,312 @@
+"""Multi-rank helpers of the port's mesh tests: start ``world`` ranks
+under gloo on the CPU and collect what a task returns on each.
+
+Each rank is a spawned process (niced by 10, so that the suite's other
+workers and the processes they wait on come first) with 2 torch
+threads that joins a gloo
+process group through a file in the test's own ``tmp_path`` (so xdist
+workers never share a port) with a 60 s collective timeout, runs
+``task(rank, world, *args)`` and saves its result; the parent joins each
+rank with a timeout of its own, so a hang fails the test instead of
+eating the suite's time.  This module imports no JAX: the ranks start
+with torch and the port only.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+import traceback
+
+import torch
+import torch.distributed as dist
+
+PG_TIMEOUT_S = 60
+JOIN_TIMEOUT_S = 240
+
+
+def _entry(rank: int, world: int, init_file: str, out_dir: str, task,
+           args) -> None:
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    os.nice(10)     # the suite's other workers (their servers) come first
+    torch.set_num_threads(2)
+    path = os.path.join(out_dir, f"rank{rank}.pt")
+    code = 1
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{init_file}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        try:
+            out = task(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        torch.save({"ok": out}, path)
+        code = 0
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, path)
+    finally:
+        # no wait at interpreter exit for threads the group left behind
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+
+
+def run_ranks(task, world: int, tmp_dir, *args) -> list:
+    """``task(rank, world, *args)`` on ``world`` spawned gloo ranks;
+    returns their results in rank order (raises with a rank's traceback
+    if one failed, or if one did not end within ``JOIN_TIMEOUT_S``)."""
+    import torch.multiprocessing as mp
+
+    tmp_dir = str(tmp_dir)
+    os.makedirs(tmp_dir, exist_ok=True)
+    init_file = os.path.join(tmp_dir, "rendezvous")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(r, world, init_file, tmp_dir,
+                                              task, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=JOIN_TIMEOUT_S)
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join()
+    results = []
+    for r in range(world):
+        path = os.path.join(tmp_dir, f"rank{r}.pt")
+        got = torch.load(path, weights_only=False) \
+            if os.path.exists(path) else {"error": "no result"}
+        if "error" in got:
+            raise RuntimeError(f"rank {r} (exit {procs[r].exitcode}, hung "
+                               f"{r in hung}):\n{got['error']}")
+        results.append(got["ok"])
+    if hung:
+        raise RuntimeError(f"ranks {hung} did not end in {JOIN_TIMEOUT_S} s")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sharding.py: placements and collectives
+# ---------------------------------------------------------------------------
+
+# logical axes of a (4, 6, 8) tensor and the (2, 1) and (1, 2) meshes
+PLACEMENT_CASES = (("embed", "mlp", None), ("heads", None, "embed"),
+                   (None, "kv_seq", None), ("layers", "vocab", "qkv"),
+                   ("batch", "seq", "embed"))
+
+
+def _rand(seed: int, *shape) -> torch.Tensor:
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g)
+
+
+def sharding_task(rank: int, world: int) -> dict:
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import (ShardingRules, constrain,
+                                                  logical_to_spec,
+                                                  placements)
+    from repro_torch.launch.mesh import make_device_mesh
+
+    rules = ShardingRules.default()
+    full = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
+    out = {"placed": {}}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_device_mesh(shape, device="cpu")
+        for axes in PLACEMENT_CASES:
+            spec = logical_to_spec(axes, rules, mesh, full.shape)
+            pl = placements(spec, mesh)
+            local = distribute_tensor(full, mesh, pl,
+                                      src_data_rank=None).to_local()
+            out["placed"][(shape, axes)] = (spec, [str(p) for p in pl],
+                                            local.clone())
+        if shape == (2, 1):
+            from torch.distributed.tensor import Replicate
+            whole = distribute_tensor(full, mesh, (Replicate(), Replicate()))
+            out["constrained"] = constrain(whole, ("embed", "mlp", None),
+                                           rules, mesh).to_local().clone()
+            out["plain_kept"] = constrain(full, ("embed",), rules,
+                                          mesh) is full
+    mesh = make_device_mesh((1, 2), device="cpu")
+    group = (mesh, "model")
+    # the decode combine: rank r's partials over its half of the keys
+    s, v = _rand(1, 2, 3, 10), _rand(2, 2, 10, 5)
+    half = slice(5 * rank, 5 * rank + 5)
+    sl = s[..., half]
+    if rank == 1:            # every key of rank 1's slice masked
+        sl = torch.full_like(sl, -1e30)
+    m = sl.amax(-1)
+    p = torch.exp(sl - m[..., None])
+    out["combine"] = col.online_softmax_combine(
+        m, p.sum(-1), torch.einsum("bhs,bsd->bhd", p, v[:, half]), group)
+    x = torch.arange(24, dtype=torch.float32).reshape(4, 6) + 100 * rank
+    out["a2a"] = col.all_to_all_dispatch(x, group, split_axis=0,
+                                         concat_axis=1)
+    out["a2a_untiled"] = col.all_to_all_dispatch(
+        x.reshape(2, 2, 6), group, split_axis=0, concat_axis=2,
+        tiled=False)
+    out["ring"] = col.ring_allgather_kv(torch.full((2, 3), float(rank)),
+                                        group)
+    y = torch.arange(16, dtype=torch.float32).reshape(4, 4) * (rank + 1)
+    out["scatter0"] = col.psum_scatter(y, group)
+    out["scatter1"] = col.psum_scatter(y, group, scatter_dimension=1)
+    out["scatter_untiled"] = col.psum_scatter(y[:2], group, tiled=False)
+    out["offset"] = col.shard_offset(group, 7)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_lm_mesh.py: the LM on a process mesh
+# ---------------------------------------------------------------------------
+
+QWEN_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "8",
+             "--seq-len", "32", "--microbatches", "2", "--log-every", "1"]
+MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--reduced", "--batch", "4",
+            "--seq-len", "32", "--log-every", "1"]
+# the sharded decode's case: B, Hq, Hkv, D, S and (position, window) steps
+DECODE = dict(B=2, Hq=4, Hkv=2, D=16, S=16,
+              steps=((3, 0), (11, 0), (12, 4), (15, 0)))
+SERVE = dict(arch="gemma3-1b", B=2, prompt=16, gen=4)
+ROUTE = dict(B=4, S=16, capacity_factor=1.0)
+
+
+def decode_inputs():
+    """The sharded decode's inputs, a numpy draw the reference's script
+    makes alike: q, new_k, new_v for each step and the initial cache."""
+    import numpy as np
+
+    d = DECODE
+    rng = np.random.default_rng(11)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    cache = (f(d["B"], d["S"], d["Hkv"], d["D"]),
+             f(d["B"], d["S"], d["Hkv"], d["D"]))
+    steps = [(f(d["B"], d["Hq"], d["D"]), f(d["B"], 1, d["Hkv"], d["D"]),
+              f(d["B"], 1, d["Hkv"], d["D"])) for _ in d["steps"]]
+    return cache, steps
+
+
+def _train(argv: list) -> dict | None:
+    from repro_torch.launch import train
+    return train.main(argv + ["--device", "cpu"])
+
+
+def run_example(root: str, argv: list) -> str:
+    """Run ``argv[0]`` (a script under ``root``) as ``__main__`` with
+    ``argv`` in this process; returns what it printed."""
+    import contextlib
+    import io
+    import runpy
+
+    saved, sys.argv = sys.argv, list(argv)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(os.path.join(root, argv[0]), run_name="__main__")
+    finally:
+        sys.argv = saved
+    return buf.getvalue()
+
+
+def lm_mesh_task(rank: int, world: int, ckpt_in: str, ckpt_out: str,
+                 root: str, twin_steps: int) -> dict:
+    import numpy as np
+
+    from repro_torch.distributed.sharding import (ShardingRules,
+                                                  tree_placements)
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.shapes import make_batch
+    from repro_torch.models import moe
+    from repro_torch.models.attention import sharded_decode_attention
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.models.registry import get_config
+    from repro_torch.models.transformer import LM, build_defs
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import (build_prefill_step,
+                                         build_serve_step, init_train_state)
+    from repro_torch import checkpoint as ckpt
+
+    out = {}
+    # the launcher's --devices 2 runs (this process group is the mesh)
+    out["qwen"] = _train(QWEN_ARGV + ["--steps", "3", "--devices", "2"])
+    out["moonshot"] = _train(MOE_ARGV + ["--steps", "3", "--devices", "2"])
+    out["saved"] = _train(QWEN_ARGV + ["--steps", "2", "--mesh", "2x1",
+                                       "--ckpt-dir", ckpt_out])
+    out["resumed"] = _train(QWEN_ARGV + ["--steps", "4", "--devices", "2",
+                                         "--ckpt-dir", ckpt_in])
+
+    mesh = make_device_mesh((2, 1), device="cpu")
+    rules = ShardingRules.default()
+    cfg = get_config("qwen2-0.5b").reduced()
+    defs = build_defs(cfg)
+    model = LM(cfg, init_params(defs, seed=0, device="cpu"), trainable=True)
+    state = init_train_state(model, adamw(1e-3), mesh, rules)
+    out["shards"] = {
+        part: [tuple(t.to_local().shape) for t in tree_leaves(tree)]
+        for part, tree in (("params", state["params"]),
+                           ("m", state["opt"]["m"]),
+                           ("v", state["opt"]["v"]))}
+    pl = tree_placements(defs, rules, mesh)
+    restored, _ = ckpt.restore(
+        ckpt_in, 2, device="cpu",
+        placements={"params": _pairs(pl, mesh)})
+    out["restored"] = [t.to_local().clone()
+                       for t in tree_leaves(restored["params"])]
+
+    # global MoE dispatch: this rank's rows routed with every rank's
+    mcfg = get_config("moonshot-v1-16b-a3b").reduced()
+    router = init_params(build_defs(mcfg), seed=0)["blocks"]["router"][0]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (ROUTE["B"], ROUTE["S"], mcfg.d_model)).astype(np.float32))
+    half = ROUTE["B"] // world
+    with moe.global_dispatch(mesh.get_group("data")):
+        r = moe.route(router, x[rank * half:(rank + 1) * half],
+                      top_k=mcfg.experts_per_token,
+                      capacity_factor=ROUTE["capacity_factor"],
+                      routing=mcfg.routing)
+    out["route"] = {"keep": r.keep, "expert_idx": r.expert_idx,
+                    "aux": r.aux}
+
+    # the sequence-sharded decode on a (1, 2) mesh
+    dmesh = make_device_mesh((1, 2), device="cpu")
+    fn = sharded_decode_attention(dmesh)
+    (ck, cv), steps = decode_inputs()
+    n = DECODE["S"] // world
+    ck = torch.from_numpy(ck[:, rank * n:(rank + 1) * n]).clone()
+    cv = torch.from_numpy(cv[:, rank * n:(rank + 1) * n]).clone()
+    outs = []
+    for (pos, window), (q, nk, nv) in zip(DECODE["steps"], steps):
+        outs.append(fn(torch.from_numpy(q), torch.from_numpy(nk),
+                       torch.from_numpy(nv), ck, cv, pos, window))
+    out["decode"] = {"outs": outs, "k": ck, "v": cv}
+
+    # greedy serving through build_serve_step(model, mesh)
+    scfg = get_config(SERVE["arch"]).reduced()
+    smodel = LM(scfg, init_params(build_defs(scfg), seed=0))
+    batch = make_batch(scfg, SERVE["B"], SERVE["prompt"], kind="prefill")
+    logits, cache = build_prefill_step(
+        smodel, SERVE["prompt"] + SERVE["gen"], dmesh)(batch)
+    out["serve_sharded"] = hasattr(cache["k"], "device_mesh")
+    step = build_serve_step(smodel, dmesh, rules)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    ids, all_logits = [tok], [logits]
+    for i in range(SERVE["gen"] - 1):
+        logits, cache, nxt = step(tok, cache, SERVE["prompt"] + i)
+        tok = nxt[:, None]
+        ids.append(tok)
+        all_logits.append(logits)
+    out["serve"] = {"ids": torch.cat(ids, 1), "logits": all_logits}
+    # the training example's twin on this process group (its 2x1 mesh)
+    out["train_ex"] = run_example(root, [
+        "examples/train_lm_torch.py", "qwen2-0.5b", str(twin_steps),
+        "--device", "cpu"])
+    return out
+
+
+def _pairs(placements, mesh):
+    if isinstance(placements, dict):
+        return {k: _pairs(v, mesh) for k, v in placements.items()}
+    return (mesh, placements)

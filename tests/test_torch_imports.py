@@ -120,8 +120,10 @@ def test_serve_cli_without_gpu_fails_loudly():
 
 
 def test_cli_rejects_flags_of_later_slices():
-    """``--backend isp`` (ROADMAP item 14) and ``--storage-engine``
-    (item 13) run; ``--mesh`` (item 16) is still unknown."""
+    """``--backend isp`` (ROADMAP item 14), ``--storage-engine`` (item 13)
+    and ``--mesh 4x1`` (item 16, part 1: the GNN's mesh of 4 shards, as
+    ``--devices 4``) run; ``--mesh 1x2`` (a ``model`` axis: item 16, part
+    2) exits 2."""
     small = ["-m", "repro_torch.launch.train", "--device", "cpu", "--steps",
              "2", "--batch", "8", "--fanouts", "3,2", "--hidden", "16",
              "--log-every", "1"]
@@ -133,7 +135,10 @@ def test_cli_rejects_flags_of_later_slices():
     assert out.returncode == 0, out.stderr
     assert "engine=mmap" in out.stdout and "measured-vs-simulated" in out.stdout
     out = _run(small + ["--mesh", "4x1"])
-    assert out.returncode == 2 and "unrecognized arguments" in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert "mesh of 4 shard(s)" in out.stdout and out.stdout.count("loss=") == 2
+    out = _run(small + ["--mesh", "1x2"])
+    assert out.returncode == 2 and "'data' only" in out.stderr
 
 
 def test_isp_server_process_imports_numpy_only(tmp_path):

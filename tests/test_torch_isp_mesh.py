@@ -205,11 +205,17 @@ def test_cli_isp_prints_the_pallas_losses(capsys):
 
 
 def test_cli_refuses_an_lm_mesh_and_trains_smoke_isp(capsys):
+    """An LM's ``--devices 2`` is the (2, 1) process mesh (ROADMAP item
+    16, part 1, ``tests/test_torch_lm_mesh.py`` trains it); a ``model``
+    axis in training stays refused (item 16, part 2)."""
+    args = port_train.parse_args(["--device", "cpu", "--arch", "qwen2-0.5b",
+                                  "--reduced", "--devices", "2"])
+    assert args.mesh_dims == (2, 1) and args.pipeline_spec is None
     with pytest.raises(SystemExit) as e:
         port_train.parse_args(["--device", "cpu", "--arch", "qwen2-0.5b",
-                               "--reduced", "--devices", "2"])
+                               "--reduced", "--mesh", "2x2"])
     assert e.value.code == 2
-    assert "ROADMAP item 16" in capsys.readouterr().err
+    assert "ROADMAP item 16, part 2" in capsys.readouterr().err
     _, losses, stats = port_train.main(
         ["--device", "cpu", "--spec",
          str(ROOT / "benchmarks" / "specs" / "smoke_isp.json"), "--steps",

@@ -193,15 +193,14 @@ def test_count_params_full_configs(arch):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_lm_constructs_every_arch(arch, trainable):
     """Every arch serves and trains in the port: the reduced config's LM
-    constructs, frozen or trainable; only the "dots" remat policy is
-    refused, in training."""
+    constructs, frozen or trainable, under every remat policy ("dots"
+    too, since ROADMAP item 15d, part 3)."""
     cfg = get_config(arch).reduced()
     model = transformer.LM(cfg, device="cpu", trainable=trainable)
     assert all(p.requires_grad == trainable
                for p in tree_leaves(model.param_tree()))
-    dots = dataclasses.replace(cfg, remat="dots")
-    if trainable:
-        with pytest.raises(NotImplementedError, match="dots"):
-            transformer.LM(dots, device="cpu", trainable=True)
-    else:
-        transformer.LM(dots, device="cpu")
+    dots = transformer.LM(dataclasses.replace(cfg, remat="dots"),
+                          device="cpu", trainable=trainable)
+    assert dots.cfg.remat == "dots"
+    assert all(p.requires_grad == trainable
+               for p in tree_leaves(dots.param_tree()))

@@ -1,0 +1,357 @@
+"""The port's LM on a process mesh, on 2 gloo ranks on the CPU, against
+the reference's runs on placeholder CPU devices and the port's own run
+on one process.
+
+- ``--devices 2`` training of qwen2-0.5b reduced (batch 8, 2
+  microbatches): losses against the reference launcher's ``--devices 2``
+  run, step 1 within 2e-3 and later steps within 3e-2 (the two
+  frameworks round their bf16 activations at different places, as
+  ``tests/test_torch_init.py`` states), and against the port's one-rank
+  run within the same (its gap is printed); each rank holds the shard of
+  every parameter and AdamW moment that the reference's rules give.
+- moonshot-v1-16b-a3b reduced at 2 ranks, global dispatch: losses as
+  above; on equal inputs, the kept assignments, expert ids and aux loss
+  of each rank's rows equal one rank's routing of the whole batch.
+- the microbatch row order: each rank's rows are those the reference's
+  ``(mb, B / mb)`` reshape sharded over ``data`` puts on its device.
+- the sequence-sharded decode at M 2 against the reference's
+  ``sharded_decode_attention`` on a (1, 2) mesh within 1e-5 (float32
+  partials, different summation order), with a step whose position lies
+  before rank 1's slice (rank 1 adds nothing) and a window that leaves
+  rank 0's slice out; the caches each rank writes bit-equal.  Greedy
+  serving of gemma3-1b reduced through ``build_serve_step(model, mesh)``
+  against one process: ids equal, logits within 0.05.
+- checkpoints: one written at 2 ranks resumes at 1 and one written at 1
+  resumes at 2 (losses within 3e-2 of the uninterrupted run), and a
+  restore with placements gives each rank its slice of the stored array
+  bit for bit (the twin of the reference's
+  ``test_elastic_restore_across_mesh_shapes``).
+- the example twins (the reference's runs all in one subprocess on 2
+  placeholder devices): ``examples/train_lm_torch.py`` against
+  ``examples/train_lm.py`` (10 steps; losses within 3e-2) and
+  ``examples/serve_decode_torch.py`` against ``examples/serve_decode.py``
+  (ids equal up to near-ties of their bf16 logits: at most 2 of their
+  32 differ).
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_mesh_ranks as ranks
+from repro_torch.distributed.sharding import ShardingRules, logical_to_spec
+from repro_torch.launch import train
+from repro_torch.launch.shapes import make_batch
+from repro_torch.models import moe
+from repro_torch.models.params import init_params, tree_leaves
+from repro_torch.models.registry import get_config
+from repro_torch.models.transformer import LM, build_defs
+from repro_torch.train.steps import build_prefill_step, build_serve_step
+
+ROOT = Path(__file__).resolve().parents[1]
+STEP1_TOL, LOSS_TOL = 2e-3, 3e-2
+SERVE_LOGIT_TOL = 0.05
+TWIN_STEPS = 10
+
+# reference runs in one process on 2 placeholder devices: the sharded
+# decode and the batch rows (into the npz, if one is named), then each of
+# the runs named (the launcher or an example), its stdout kept
+REF_SCRIPT = r"""
+import contextlib, io, json, os, runpy, sys
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_force_host_platform_device_count=2")
+out_npz, tests, root, runs = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4]
+sys.path.insert(0, tests)
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+import _torch_mesh_ranks as ranks
+from repro.models.attention import sharded_decode_attention
+
+out = {}
+if out_npz.endswith(".npz"):
+    mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(1, 2), ("data", "model"))
+    fn = jax.jit(sharded_decode_attention(mesh, batch_axes=None))
+    (ck, cv), steps = ranks.decode_inputs()
+    ck, cv = jnp.asarray(ck), jnp.asarray(cv)
+    for i, ((pos, window), (q, nk, nv)) in enumerate(zip(
+            ranks.DECODE["steps"], steps)):
+        o, ck, cv = fn(jnp.asarray(q), jnp.asarray(nk), jnp.asarray(nv), ck, cv,
+                       jnp.int32(pos), jnp.int32(window))
+        out[f"out{i}"] = np.asarray(o)
+    out["k"], out["v"] = np.asarray(ck), np.asarray(cv)
+    # the rows each device of a (2, 1) mesh holds: the train step's batch
+    # sharding, and its (mb, B / mb) reshape with the second dim on 'data'
+    mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(2, 1), ("data", "model"))
+    rows = np.arange(8)
+    for mb in (1, 2):
+        x = jax.device_put(rows.reshape(mb, 8 // mb),
+                           NamedSharding(mesh, P(None, "data")))
+        for s in x.addressable_shards:
+            out[f"rows_mb{mb}_dev{s.device.id}"] = np.asarray(s.data).reshape(-1)
+    np.savez(out_npz, **out)
+
+from repro.launch import train as launcher
+logs = {}
+for name, argv in json.loads(runs).items():
+    sys.argv = argv
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if argv[0].endswith(".py"):
+            runpy.run_path(os.path.join(root, argv[0]), run_name="__main__")
+        else:
+            launcher.main()
+    logs[name] = buf.getvalue()
+with open(out_npz + ".json", "w") as f:
+    json.dump(logs, f)
+"""
+
+
+def _env():
+    """The subprocesses' environment: few threads each (two of them run
+    at once beside the ranks; the suite's other workers share the
+    cores)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="2",
+               XLA_FLAGS="--xla_cpu_multi_thread_eigen=false")
+    return env
+
+
+def _start(args):
+    """A subprocess, niced by 10: the suite's other workers (and the
+    servers their tests wait on) come first."""
+    return subprocess.Popen([sys.executable] + args, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=_env(),
+                            cwd=ROOT, preexec_fn=lambda: os.nice(10))
+
+
+def _finish(proc, timeout=400):
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, (out[-3000:], err[-3000:])
+    return out
+
+
+def _losses(stdout: str) -> list:
+    return [float(line.split("loss=")[1].split()[0])
+            for line in stdout.splitlines() if "loss=" in line]
+
+
+def _ids(stdout: str) -> list:
+    return [json.loads(line.split(":", 1)[1]) for line in stdout.splitlines()
+            if line.strip().startswith("seq")]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every run of this module: the reference's (two subprocesses,
+    started first), the 2 ranks (which also run the training example's
+    twin on their group), and the port's one-rank runs and the serving
+    example's twin (in this process)."""
+    tmp = tmp_path_factory.mktemp("lm_mesh")
+    ref_npz = tmp / "ref.npz"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    launcher = ["repro.launch.train", "--devices", "2", "--steps", "3"]
+    ref_runs = {"ref_qwen": launcher + ranks.QWEN_ARGV,
+                "ref_moe": launcher + ranks.MOE_ARGV}
+    ref_examples = {"ref_train_ex": ["examples/train_lm.py", "qwen2-0.5b",
+                                     str(TWIN_STEPS)],
+                    "ref_serve_ex": ["examples/serve_decode.py"]}
+    procs = {
+        "ref": _start(["-c", REF_SCRIPT, str(ref_npz), str(ROOT / "tests"),
+                       str(ROOT), json.dumps(ref_runs)]),
+        "ref_ex": _start(["-c", REF_SCRIPT, str(tmp / "examples"),
+                          str(ROOT / "tests"), str(ROOT),
+                          json.dumps(ref_examples)]),
+    }
+    try:
+        ckpt_in, ckpt_out = str(tmp / "ckpt_1rank"), str(tmp / "ckpt_2rank")
+        one = {"saved": ranks._train(ranks.QWEN_ARGV + [
+            "--steps", "2", "--ckpt-dir", ckpt_in])}
+        on = ranks.run_ranks(ranks.lm_mesh_task, 2, tmp / "ranks", ckpt_in,
+                             ckpt_out, str(ROOT), TWIN_STEPS)
+        one["qwen"] = ranks._train(ranks.QWEN_ARGV + ["--steps", "3"])
+        one["four"] = ranks._train(ranks.QWEN_ARGV + ["--steps", "4"])
+        one["resumed"] = ranks._train(ranks.QWEN_ARGV + [
+            "--steps", "4", "--ckpt-dir", ckpt_out])
+        one["moonshot"] = ranks._train(ranks.MOE_ARGV + ["--steps", "3"])
+        outs = {k: _finish(p) for k, p in procs.items()}
+        outs["train_ex"] = on[0]["train_ex"]
+        outs["serve_ex"] = ranks.run_example(str(ROOT), [
+            "examples/serve_decode_torch.py", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    with np.load(ref_npz) as z:
+        ref = dict(z)
+    for logs in ("ref.npz.json", "examples.json"):
+        outs.update(json.loads((tmp / logs).read_text()))
+    return {"ranks": on, "one": one, "out": outs, "ref": ref,
+            "ckpt_in": ckpt_in}
+
+
+def _close(got, want, what):
+    assert len(got) == len(want), (what, got, want)
+    assert abs(got[0] - want[0]) <= STEP1_TOL, (what, got, want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_TOL,
+                               err_msg=what)
+
+
+def test_two_ranks_train_as_the_references_devices_2(runs):
+    got = runs["ranks"][0]["qwen"]
+    assert runs["ranks"][1]["qwen"] is None        # rank 0 reports
+    assert got["world"] == 2 and tuple(got["mesh"]) == (2, 1)
+    want = _losses(runs["out"]["ref_qwen"])
+    _close(got["losses"], want, "port --devices 2 vs reference --devices 2")
+    one = runs["one"]["qwen"]["losses"]
+    _close(got["losses"], one, "port --devices 2 vs port --devices 1")
+    print(f"[lm_mesh] qwen2 losses: 2 ranks {got['losses']}, 1 rank {one}, "
+          f"reference {want}; largest gap to the reference "
+          f"{max(abs(a - b) for a, b in zip(got['losses'], want)):.4g}")
+
+
+def test_each_rank_holds_the_rules_shard_of_every_leaf(runs):
+    defs = tree_leaves(build_defs(get_config("qwen2-0.5b").reduced()))
+    rules = ShardingRules.default()
+    want = []
+    for d in defs:
+        spec = logical_to_spec(d.logical_axes, rules,
+                               {"data": 2, "model": 1}, d.shape)
+        shape = list(d.shape)
+        for dim, s in enumerate(spec):
+            if s == "data":
+                shape[dim] //= 2
+        want.append(tuple(shape))
+    assert any(w != d.shape for w, d in zip(want, defs))
+    for got in runs["ranks"]:
+        for part in ("params", "m", "v"):
+            assert got["shards"][part] == want, part
+
+
+def test_moe_two_ranks_route_and_train_as_one(runs):
+    """Global dispatch: each rank's rows keep the assignments, take the
+    experts and give the aux loss that one rank's routing of the whole
+    batch does (some assignments dropped, so the offsets matter)."""
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    router = init_params(build_defs(cfg), seed=0)["blocks"]["router"][0]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (ranks.ROUTE["B"], ranks.ROUTE["S"], cfg.d_model))
+        .astype(np.float32))
+    whole = moe.route(router, x, top_k=cfg.experts_per_token,
+                      capacity_factor=ranks.ROUTE["capacity_factor"],
+                      routing=cfg.routing)
+    assert not bool(whole.keep.all())
+    keep = torch.cat([r["route"]["keep"] for r in runs["ranks"]], dim=1)
+    idx = torch.cat([r["route"]["expert_idx"] for r in runs["ranks"]], 1)
+    assert torch.equal(keep, whole.keep)
+    assert torch.equal(idx, whole.expert_idx)
+    for r in runs["ranks"]:
+        torch.testing.assert_close(r["route"]["aux"], whole.aux, rtol=1e-6,
+                                   atol=0)
+    got = runs["ranks"][0]["moonshot"]["losses"]
+    _close(got, _losses(runs["out"]["ref_moe"]),
+           "moonshot 2 ranks vs reference --devices 2")
+    _close(got, runs["one"]["moonshot"]["losses"],
+           "moonshot 2 ranks vs 1 rank")
+
+
+def test_microbatch_rows_are_the_references(runs):
+    from repro_torch.data.tokens import rank_rows
+
+    for mb in (1, 2):
+        for rank in range(2):
+            np.testing.assert_array_equal(
+                rank_rows(8, rank, 2, mb),
+                runs["ref"][f"rows_mb{mb}_dev{rank}"])
+    np.testing.assert_array_equal(rank_rows(8, 1, 2, 2), [2, 3, 6, 7])
+    with pytest.raises(ValueError):
+        rank_rows(6, 0, 2, 2)
+
+
+def test_sharded_decode_matches_the_references(runs):
+    ref = runs["ref"]
+    n = ranks.DECODE["S"] // 2
+    for rank, got in enumerate(runs["ranks"]):
+        dec = got["decode"]
+        for i, o in enumerate(dec["outs"]):
+            assert torch.isfinite(o).all()
+            np.testing.assert_allclose(o.numpy(), ref[f"out{i}"], rtol=0,
+                                       atol=1e-5, err_msg=f"step {i}")
+        for name in ("k", "v"):
+            np.testing.assert_array_equal(
+                dec[name].numpy(), ref[name][:, rank * n:(rank + 1) * n])
+
+
+def test_sharded_serving_matches_one_process(runs):
+    cfg = get_config(ranks.SERVE["arch"]).reduced()
+    model = LM(cfg, init_params(build_defs(cfg), seed=0))
+    P, G = ranks.SERVE["prompt"], ranks.SERVE["gen"]
+    batch = make_batch(cfg, ranks.SERVE["B"], P, kind="prefill")
+    logits, cache = build_prefill_step(model, P + G)(batch)
+    step = build_serve_step(model)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    ids, all_logits = [tok], [logits]
+    for i in range(G - 1):
+        logits, cache, nxt = step(tok, cache, P + i)
+        tok = nxt[:, None]
+        ids.append(tok)
+        all_logits.append(logits)
+    for got in runs["ranks"]:
+        assert got["serve_sharded"]
+        assert torch.equal(got["serve"]["ids"], torch.cat(ids, 1))
+        for a, b in zip(got["serve"]["logits"], all_logits):
+            torch.testing.assert_close(a, b, rtol=0, atol=SERVE_LOGIT_TOL)
+
+
+def test_checkpoints_restore_across_world_sizes(runs):
+    """2 ranks -> 1 and 1 -> 2: the resumed runs log the uninterrupted
+    run's steps 3-4; a restore with placements gives each rank its slice
+    of the stored array."""
+    four = runs["one"]["four"]["losses"]
+    r2 = runs["ranks"][0]
+    assert len(r2["saved"]["losses"]) == 2          # --mesh 2x1
+    assert r2["saved"]["world"] == 2
+    np.testing.assert_allclose(r2["saved"]["losses"], four[:2], rtol=0,
+                               atol=LOSS_TOL)
+    np.testing.assert_allclose(runs["one"]["resumed"]["losses"], four[2:],
+                               rtol=0, atol=LOSS_TOL)
+    np.testing.assert_allclose(r2["resumed"]["losses"], four[2:], rtol=0,
+                               atol=LOSS_TOL)
+    from repro_torch import checkpoint as ckpt
+
+    whole, step = ckpt.restore(runs["ckpt_in"], 2, device="cpu")
+    defs = tree_leaves(build_defs(get_config("qwen2-0.5b").reduced()))
+    rules = ShardingRules.default()
+    for i, (d, w) in enumerate(zip(defs, tree_leaves(whole["params"]))):
+        spec = logical_to_spec(d.logical_axes, rules,
+                               {"data": 2, "model": 1}, d.shape)
+        dim = spec.index("data") if "data" in spec else None
+        for rank, got in enumerate(runs["ranks"]):
+            want = w if dim is None else w.chunk(2, dim)[rank]
+            assert torch.equal(got["restored"][i], want), (i, rank)
+
+
+def test_train_example_twin_matches_the_references(runs):
+    got, want = (_losses(runs["out"][k]) for k in ("train_ex",
+                                                   "ref_train_ex"))
+    assert len(got) == len(want) == TWIN_STEPS // 5
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_TOL)
+    assert "2x1 mesh (gloo)" in runs["out"]["train_ex"]
+    assert runs["out"]["train_ex"].rstrip().endswith("done")
+
+
+def test_serve_example_twin_matches_the_references(runs):
+    got, want = (_ids(runs["out"][k]) for k in ("serve_ex", "ref_serve_ex"))
+    assert len(got) == len(want) == 2
+    assert all(len(a) == len(b) == 16 for a, b in zip(got, want))
+    apart = sum(x != y for a, b in zip(got, want) for x, y in zip(a, b))
+    assert apart <= 2, (got, want)
+    assert "decoded 15 steps x 4 seqs" in runs["out"]["serve_ex"]

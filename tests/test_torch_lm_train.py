@@ -40,9 +40,12 @@ from repro_torch.convert import lm_opt_state_from_jax, lm_params_from_jax
 from repro_torch.models import attention, transformer
 from repro_torch.models.registry import get_config
 from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.launch.shapes import make_batch
 from repro_torch.models.params import tree_leaves
-from repro_torch.train.steps import (CE_IMPLS, build_train_step,
-                                     init_train_state)
+from repro_torch.models.registry import ARCH_IDS
+from repro_torch.train.steps import (CE_IMPLS, MOE_AUX_WEIGHT,
+                                     build_train_step, init_train_state)
+from torch.utils.checkpoint import CheckpointPolicy
 
 ARCH = "qwen2-0.5b"
 B, S = 2, 32
@@ -265,7 +268,101 @@ def test_training_mode_slices_layers_in_the_graph():
     assert set(train.param_tree()) == {"embed", "final_norm", "blocks"}
 
 
-def test_trainable_lm_refuses_the_dots_policy():
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), remat="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        transformer.LM(cfg, device="cpu", trainable=True)
+def _dots_grads(arch: str, remat: str, seen=None):
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=remat)
+    batch = make_batch(cfg, 2, 32, seed=3, kind="train")
+    model = transformer.LM(cfg, seed=1, device="cpu", trainable=True)
+    logits, aux = model(batch)
+    loss = CE_IMPLS["gather"](logits, batch["labels"]) \
+        + MOE_AUX_WEIGHT * aux["moe_aux_loss"]
+    return [g for g in torch.autograd.grad(
+        loss, tree_leaves(model.param_tree()), allow_unused=True)]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_dots_policy_gradients_equal_full(arch):
+    """``remat="dots"`` (the reference's ``checkpoint_dots_with_no_batch_
+    dims``) trains every family: the same gradients, bit for bit, as
+    ``remat="full"`` (both recompute what they do not keep; the values
+    recomputed are the values kept)."""
+    full, dots = _dots_grads(arch, "full"), _dots_grads(arch, "dots")
+    assert len(full) == len(dots)
+    for a, b in zip(full, dots):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def test_dots_policy_saves_the_no_batch_products(monkeypatch):
+    """The products of a block and which way the policy takes each, as
+    the reference's policy takes its ``dot_general``s (saved: no batch
+    dims; recomputed: batch dims, or no product at all):
+
+    - saved (``aten.mm``): the q, k, v and output projections and the
+      three MLP products (``_proj``'s ``reshape @ reshape``), the moe
+      family's router (``x @ router``), the ssm mixer's ``in_proj`` and
+      ``out_proj``, the encdec decoder's cross-attention projections;
+    - recomputed (``aten.bmm``): the chunked attention's score and value
+      products (batched over batch and KV heads) and, on the CPU, the
+      flash path's plain versions of the same; the moe family's expert
+      products (``gecd,edf``: batched over experts); the SSD scan's
+      products (batched over batch, chunks and heads);
+    - recomputed, not products: norms, RoPE, activations, the MoE's
+      routing and gathers, every cast of a weight to bf16.
+
+    A reduced qwen2 block (chunked attention) saves 7 ``mm`` outputs a
+    layer and recomputes its ``bmm``s; a moonshot block saves 5 (q, k, v,
+    out, router) and recomputes its expert products."""
+    seen = []
+    real = transformer._dots_policy
+
+    def spy(ctx, op, *args, **kwargs):
+        decision = real(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            seen.append((op, decision))
+        return decision
+
+    monkeypatch.setattr(transformer, "_dots_policy", spy)
+    for arch, per_layer in (("qwen2-0.5b", 7), ("moonshot-v1-16b-a3b", 5)):
+        seen.clear()
+        _dots_grads(arch, "dots")
+        layers = get_config(arch).reduced().num_layers
+        saved = [op for op, d in seen if d == CheckpointPolicy.MUST_SAVE]
+        assert set(saved) == {torch.ops.aten.mm.default}, arch
+        assert len(saved) == per_layer * layers, (arch, len(saved))
+        bmm = [d for op, d in seen if op == torch.ops.aten.bmm.default]
+        assert bmm and set(bmm) == {CheckpointPolicy.PREFER_RECOMPUTE}
+
+
+def test_dots_train_steps_match_reference(compute_dtype, host_mesh, rules):
+    """Three ``build_train_step`` steps under ``remat="dots"`` against the
+    reference's ``remat="dots"`` steps, float32 activations, within the
+    tolerances of ``test_three_train_steps_match_reference``."""
+    compute_dtype("float32")
+    jcfg, cfg = (dataclasses.replace(c, remat="dots")
+                 for c in _configs("flash"))
+    jmodel = jtransformer.LM(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    jopt = jadamw(jwarmup_cosine(1e-3, 10, 50))
+    jstate = {"params": jparams, "opt": jopt.init(jparams),
+              "step": jnp.zeros((), jnp.int32)}
+    model = transformer.LM(cfg, lm_params_from_jax(jax.device_get(jparams)),
+                           device="cpu", trainable=True)
+    opt = adamw(warmup_cosine(1e-3, 10, 50))
+    state = init_train_state(model, opt)
+    step = build_train_step(model, opt)
+    with host_mesh:
+        jstep = jax.jit(jbuild_train_step(jmodel, jopt, host_mesh, rules))
+        for i in range(3):
+            batch = jmake_batch(jcfg, 4, S, seed=i, kind="train")
+            jstate, jm = jstep(jstate, batch)
+            state, m = step(state, _torch_batch(batch))
+            for k in m:
+                assert float(m[k]) == pytest.approx(float(jm[k]), rel=1e-5,
+                                                    abs=1e-7), k
+    lr_sum = sum(warmup_cosine(1e-3, 10, 50)(i) for i in range(3))
+    for got, want in zip(tree_leaves(state["params"]),
+                         jax.tree.leaves(jstate["params"])):
+        diff = np.abs(got.detach().numpy() - np.asarray(want))
+        assert diff.max() <= 2 * lr_sum
+        assert np.mean(diff > 0.05 * lr_sum) <= 1e-3

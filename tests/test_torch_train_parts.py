@@ -135,5 +135,6 @@ def test_lm_cli_refuses_other_families_and_checkpoints():
     out = _run(["--device", "cpu", "--arch", "seamless-m4t-large-v2",
                 "--reduced", "--steps", "1"])
     assert out.returncode == 2 and "src_embeds" in out.stderr
-    out = _run(["--device", "cpu", "--arch", ARCH, "--mesh", "4x1"])
-    assert out.returncode == 2 and "unrecognized arguments" in out.stderr
+    out = _run(["--device", "cpu", "--arch", ARCH, "--reduced", "--mesh",
+                "1x2"])
+    assert out.returncode == 2 and "item 16, part 2" in out.stderr

@@ -112,8 +112,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      first 2 layers at full width, equal float32 weights, batch 1, 512
      tokens; ``attn_impl`` flash in bf16 and chunked in float32
      activations: the loss, the grad norm, each leaf's gradient (within
-     0.25 relative L2 in bf16, 1e-3 in float32) and the parameters after
-     one AdamW step within stated tolerances; the flash run's launches
+     0.25 relative L2 in bf16, 1e-3 in float32) and, in float32, the
+     parameters after one AdamW step within stated tolerances (the bf16
+     step stops at its gradients: the same update arithmetic, and a CPU
+     update over a vocabulary table costs 10-20 s); the flash run's
+     launches
      (forward 2 a layer, each backward kernel 1); a control, the float32
      step with TF32 products, whose grad norm or one of whose gradients
      must lie beyond the float32 limits;
@@ -206,11 +209,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      no edge tier), batch 1024, fanouts 25,10, window 4, 4 steps,
      optimal against lru: losses equal, replay errors 0, the feature
      tier's and the page cache's misses under optimal no more than
-     under lru.  c: the host backend at phase 5's width, 8 steps, in
-     memory, over the disk store with phase 8's page cache and with that
-     cache optimal (one producer over the disk store): no kernel
-     launched, batches 0-2's ids (and counters) equal the CPU's, losses
-     within 1e-4 of a 4-step CPU run (float32, as phase 19), lru and
+     under lru.  c: the host backend at phase 5's width, 4 steps (cut
+     from 8 to pay for phase 31), in memory, over the disk store with
+     phase 8's page cache and with that cache optimal (one producer over
+     the disk store): no kernel launched, batches 0-2's ids (and
+     counters) equal the CPU's, losses within 1e-4 of a 2-step CPU run
+     (float32, as phase 19), lru and
      optimal losses equal; steps/s and consumer idle beside phases 5
      and 8 (the paper's Fig. 7 comparison);
   25. telemetry: phase 20's overlapped command (4 pread threads) with and
@@ -228,8 +232,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      batches 0-2's ids, ``trace.io`` and the requests and bytes the
      client sent equal a CPU run's, the storage process exits 0; wire
      bytes beside the server's bytes from flash.  b: the host backend
-     pushed down to the storage process at phase 24c's width (one
-     producer): no launch, losses equal 24c's local-store run, batches
+     pushed down to the storage process at phase 24c's width and
+     steps (one producer): no launch, losses equal 24c's local-store run, batches
      0-2 equal the CPU's, exit 0; its steps/s beside 24c's.  c:
      ``smoke_pallas_isp`` over the shm rings: losses equal the unix
      socket's, exit 0;
@@ -325,8 +329,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      2 cards, and at 4 where there are 4.  c: the sequence-sharded decode
      on a (1, 2) mesh (two processes that share the one card under gloo,
      or NCCL where each has a card): qwen2-0.5b at full width, phase
-     11's batch, prompt and generation, the cache (2,112 positions) split
-     on S; the greedy ids equal phase 11's up to near-ties; the sharded
+     11's batch and prompt, the cache (2,066 positions) split on S; the
+     greedy ids equal phase 11's first up to near-ties; the sharded
      attention on equal random inputs (a rank wholly past the position,
      a window) within DECODE_CALL_REL_TOL of the plain version's; in
      float32 activations, each decode step's logits within F32_LOGIT_TOL
@@ -335,8 +339,34 @@ Phases, in order; any failure raises and the script exits nonzero:
      bf16 attention output moves the logits downstream); no
      ``decode_attention`` launch (the partials are plain ops, as the
      reference's); decode ms/step beside phase 11's and the partial
-     bytes that cross a step;
-  31. a JSON line of the kernels' numbers (the GNN's per launch, with
+     bytes that cross a step; 16 decode steps (cut from phase 11's 63
+     to pay for phase 31);
+  31. tensor parallelism over the mesh's ``model`` axis, on a (1, 2)
+     mesh: two processes that share the one card under gloo (phase
+     30c's spawn runs the three parts after 30c's, one process start
+     for both phases; phase 31's seconds are its parts' own).  a: phase 14's command with ``--mesh 1x2``,
+     qwen2-0.5b at full width and depth, B cut from 4 to 2 (two ranks'
+     peaks share the card), S 4096, 3 steps, against one process at the
+     same shape run just before: losses within TP_LOSS_REL_TOL relative,
+     each rank's peak memory beside the one process's, step ms, each
+     rank's flash launches (2 forward and 1 of each backward kernel a
+     layer a step).  b: prefill and 16 decode steps of qwen2-0.5b at
+     phase 11's B 8 and prompt 2048 with tensor-parallel weights (7 of
+     14 q heads, 1 of 2 kv heads, half of ``mlp`` and ``vocab`` a rank)
+     and the sequence-sharded cache (2,066 positions, 1,033 a rank): the
+     greedy ids equal phase 11's up to near-ties of one process's logits
+     fed the same ids; in float32 activations each step's logits within
+     F32_LOGIT_TOL of one process's plain decode fed the same ids; the
+     flash forward 24 launches a rank and no decode kernel.  c: one
+     layer of each, at full width, on equal bf16 inputs at B 8 x 2048
+     against one process (rank 0): moonshot-v1-16b-a3b's MoE block, its
+     64 experts split 32 a rank (the kept assignments and expert ids
+     equal on every rank and one process; the outputs within
+     TP_LAYER_REL_TOL relative L2), and mamba2-370m's mixer, its 32
+     heads split 16 a rank (the SSD kernel launched once a rank at 16
+     heads; the outputs within TP_LAYER_REL_TOL, the rank's block of the
+     final state within TP_LAYER_REL_TOL);
+  32. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them; the LM's launches in phases 28's
      and 29's runs beside the serve and train entry points'), the card
      line, and the result.  Each phase's start, in seconds from the
@@ -404,6 +434,8 @@ from repro_torch.train.steps import (MOE_AUX_WEIGHT,  # noqa: E402
 from repro_torch.train.steps import \
     build_train_step as build_lm_train_step  # noqa: E402
 from repro_torch.optim import adamw, warmup_cosine  # noqa: E402
+from repro_torch.optim.adamw import (MAX_GRAD_NORM,  # noqa: E402
+                                     clip_by_global_norm)
 from repro_torch.storage import (DeviceEdgeBlockCache,  # noqa: E402
                                  DeviceFeatureCache, DiskStore,
                                  StoreReadError, pad_pow2, save_graph)
@@ -463,6 +495,9 @@ ORACLE_FLAGS = ["--cache-policy", "optimal", "--cache-oracle-window", "8",
                 "--device-cache-oracle-window", "8"]
 RMAT_WINDOW, RMAT_STEPS = 4, 4
 HOST_CPU_STEPS, HOST_COMPARED = 2, 3
+# phase 24c's runs: 4 steps each (cut from 8 to pay for phase 31; the
+# host backend's optimal run takes ~2 s a step on the card host)
+HOST_STEPS = 4
 # phase 25: phase 20's overlapped command with telemetry on and off, one
 # run of each, and the JSONL snapshot interval; the spans and
 # lane tracks the trace must hold, and the metrics its last snapshot must
@@ -574,6 +609,23 @@ MM_TRAIN_PARITY_SEQ = 64
 # entry point on the data mesh, DOTS_STEPS steps each, losses within
 # MESH_LOSS_REL_TOL relative (the same products in another grouping)
 DOTS_STEPS, MESH_LOSS_REL_TOL = 3, 1e-3
+# phase 30c's decode steps, cut from phase 11's 63 to 16 to pay for
+# phase 31 (the cache 2,066 positions: the prompt, 17 tokens and 1 more,
+# so that the model axis divides it)
+SHARDED_GEN = 17
+SHARDED_CACHE = SERVE_PROMPT + SHARDED_GEN + 1
+# phase 31: tensor parallelism on the (1, 2) mesh.  a: phase 14's
+# command at B 2 (cut from 4: two ranks' peaks share the one card), its
+# losses within TP_LOSS_REL_TOL relative of one process's at that shape
+# (the row-parallel products' two bf16 partials are rounded before their
+# sum); c: one layer of moonshot and of mamba2 on equal inputs, within
+# TP_LAYER_REL_TOL relative L2 of one process's (the same rounding)
+TP_TRAIN_BATCH, TP_LOSS_REL_TOL = 2, 2e-3
+TP_LAYER_REL_TOL = 1e-2
+TP_LAYER_ARCHS = (MOE_ARCH, "mamba2-370m")
+# 31b's decode steps in float32 activations (30c's 8 halved: the phase's
+# time)
+TP_F32_STEPS = 4
 # phase 30c in float32 activations: the sharded decode's logits against
 # the unsharded decode's (the same float32 arithmetic summed in another
 # order through 24 layers, ~1e-5 relative at logits of magnitude ~5; a
@@ -582,23 +634,27 @@ F32_LOGIT_TOL = 1e-3
 F32_DECODE_STEPS = 8
 # flash forward cases (B, S, Hq, Hkv, D), causal: qwen2-0.5b's prefill at
 # the entry point's shape first, then head dims 128 and 256, a ragged S,
-# moonshot's prefill at its entry point's shape, and qwen2-vl's and
-# seamless's (phase 29)
+# moonshot's prefill at its entry point's shape, qwen2-vl's and
+# seamless's (phase 29), and qwen2-0.5b's prefill on one rank of the
+# (1, 2) mesh (phase 31b: 7 q heads over 1 kv head)
 FLASH_CASES = [(SERVE_BATCH, SERVE_PROMPT, 14, 2, 64), (1, 2048, 32, 8, 128),
                (2, 1024, 4, 1, 256), (SERVE_BATCH, 1000, 14, 2, 64),
                (SERVE_BATCH, SERVE_PROMPT, 16, 16, 128),
                (SERVE_BATCH, SERVE_PROMPT, 28, 4, 128),
-               (SERVE_BATCH, SERVE_PROMPT, 16, 16, 64)]
+               (SERVE_BATCH, SERVE_PROMPT, 16, 16, 64),
+               (SERVE_BATCH, SERVE_PROMPT, 7, 1, 64)]
 # flash backward cases (B, S, Hq, Hkv, D, causal): qwen2-0.5b's training
 # step at the entry point's shape first, then head dims 128 and 256, a
 # ragged S, a full (non-causal) case, moonshot's training-parity step
-# (group 1) and qwen2-vl's training step (phase 29f)
+# (group 1), qwen2-vl's training step (phase 29f) and qwen2-0.5b's step on
+# one rank of the (1, 2) mesh (phase 31a)
 FLASH_BWD_CASES = [(TRAIN_BATCH, TRAIN_SEQ, 14, 2, 64, True),
                    (1, 2048, 32, 8, 128, True), (2, 1024, 4, 1, 256, True),
                    (TRAIN_BATCH, 1000, 14, 2, 64, True),
                    (1, 1000, 14, 2, 64, False),
                    (TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, 16, 16, 128, True),
-                   (VL_TRAIN_BATCH, VL_TRAIN_SEQ, 28, 4, 128, True)]
+                   (VL_TRAIN_BATCH, VL_TRAIN_SEQ, 28, 4, 128, True),
+                   (TP_TRAIN_BATCH, TRAIN_SEQ, 7, 1, 64, True)]
 # decode cases: qwen2-0.5b's cache at the entry point's shape, (valid_len,
 # window); the full cache without a window stands for a decode step; and
 # moonshot's 2,064-position cache at its last decode step
@@ -637,6 +693,9 @@ SSM_PARITY_PROMPTS = (300,)
 SSD_REL_TOL = 1e-4
 SSD_GROUP_CASE = (1, 512, 8, 64, 2, 64, 256)
 SSD_RAGGED_CASES = ((2, 96, 6, 24, 3, 40, 32), (1, 300, 4, 100, 2, 72, 100))
+# mamba2-370m's mixer on one rank of the (1, 2) mesh (phase 31c): 16 of
+# its 32 heads at B 8 x 2048, one group
+SSD_TP_CASE = (SERVE_BATCH, SERVE_PROMPT, 16, 64, 1, 128, 256)
 # H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
 # cores (used for the kernels' scalar integer and float work), the dense
 # bf16 tensor-core rate (the attention kernels' bf16 inputs) and the dense
@@ -2392,6 +2451,7 @@ def host_phase(argv_mem: list, reddit, mem: dict, ooc: dict) -> dict:
     t0 = time.perf_counter()
     base = argv_mem[:argv_mem.index("--device")]
     base[base.index("--backend") + 1] = "host"
+    base[base.index("--steps") + 1] = str(HOST_STEPS)
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-host-") as tmp:
         one = os.path.join(tmp, "one_producer.json")
@@ -2426,7 +2486,7 @@ def host_phase(argv_mem: list, reddit, mem: dict, ooc: dict) -> dict:
         for name, r in runs.items():
             check(not any(r["launches"].values()),
                   f"phase 24c {name}: launched {r['launches']}")
-            check(len(r["losses"]) == 8
+            check(len(r["losses"]) == HOST_STEPS
                   and all(math.isfinite(x) for x in r["losses"]),
                   f"phase 24c {name}: losses {r['losses']}")
             check(np.allclose(r["losses"][:HOST_CPU_STEPS], cpu_losses,
@@ -2449,7 +2509,7 @@ def host_phase(argv_mem: list, reddit, mem: dict, ooc: dict) -> dict:
               f"phase 24c: page-cache requests a batch {touched}")
     for name, r in runs.items():
         st = r["stats"]
-        # the page cache's misses over the 8 consumed batches
+        # the page cache's misses over the consumed batches
         misses = (sum(b["io"]["misses"] for b in recs[name])
                   if recs[name][0]["io"] is not None else None)
         print(f"[smoke] phase 24c: host, {name}: {st.steps_per_s:.4f} "
@@ -2695,6 +2755,7 @@ def isp_phase(reddit, argv_mem: list, argv_ooc: list, hosted: dict) -> dict:
         # b: the host backend's k-hop sample and gather pushed down
         base = argv_mem[:argv_mem.index("--device")]
         base[base.index("--backend") + 1] = "host"
+        base[base.index("--steps") + 1] = str(HOST_STEPS)
         one = os.path.join(tmp, "one_producer.json")
         d = PipelineSpec().to_dict()
         d["backend"].update(name="host", n_workers=1, straggler_factor=1e6)
@@ -3144,8 +3205,9 @@ def ssd_model_inputs(arch: str) -> tuple:
 def ssd_kernel_cases(timer, gen) -> list:
     """Phase 3, the SSD kernel: at each SSM arch's layer-0 mixer inputs
     (mamba2-370m's, counted once a layer in its prefill; hymba-1.5b's)
-    and at SSD_GROUP_CASE and SSD_RAGGED_CASES on seeded random inputs (dt
-    = |N| * 0.1, A = -|N|, as the reference's sweep draws them)."""
+    and at SSD_GROUP_CASE, SSD_RAGGED_CASES and SSD_TP_CASE on seeded
+    random inputs (dt = |N| * 0.1, A = -|N|, as the reference's sweep
+    draws them)."""
     rows = []
     for i, arch in enumerate(SSM_GEN):
         args, chunk = ssd_model_inputs(arch)
@@ -3154,7 +3216,8 @@ def ssd_kernel_cases(timer, gen) -> list:
                              f"{arch} layer 0"))
         del args
     for case, what in ((SSD_GROUP_CASE, "random"),
-                       *((c, "ragged") for c in SSD_RAGGED_CASES)):
+                       *((c, "ragged") for c in SSD_RAGGED_CASES),
+                       (SSD_TP_CASE, "mamba2-370m, 16 heads a rank")):
         b, s, h, p, g, n, chunk = case
         x = torch.randn(b, s, h, p, generator=gen, device=DEVICE)
         dt = torch.randn(b, s, h, generator=gen, device=DEVICE).abs() * 0.1
@@ -3654,7 +3717,7 @@ def serve_profile_phase(arch: str = LM_ARCH, gen: int = SERVE_GEN,
             "decode_steady_ms_per_step": steady_ms, "decode": dec}
 
 
-def _train_one_step(cfg, params, batch, device) -> dict:
+def _train_one_step(cfg, params, batch, device, update: bool = True) -> dict:
     """A trainable LM of ``cfg`` on ``device`` from a copy of ``params``,
     one ``build_train_step`` step of AdamW (``warmup_cosine(1e-3, 10,
     50)``) on ``batch``: the step's loss, aux loss, grad norm and lr, the
@@ -3662,18 +3725,25 @@ def _train_one_step(cfg, params, batch, device) -> dict:
     MoE aux loss, 0 outside the moe family; read as the optimizer gets
     them) and the parameters after it, on ``device`` (the leaf-wise
     comparisons run on the card: over a vocabulary table a round trip
-    through the host takes seconds)."""
+    through the host takes seconds).  ``update`` False stops at the
+    gradients and their global norm (no AdamW update, no parameters: a
+    CPU's update over a vocabulary table takes 10-20 s on the card
+    host)."""
     model = LM(cfg, tree_map(lambda t: t.to(device, copy=True), params),
                trainable=True)
     batch = {k: v.to(device) for k, v in batch.items()}
-    opt = adamw(warmup_cosine(1e-3, 10, 50))
+    schedule = warmup_cosine(1e-3, 10, 50)
+    opt = adamw(schedule)
     state = init_train_state(model, opt)
     grads = []
 
-    def recording(update):
-        def update_and_keep(tree, *args):
+    def recording(step_fn):
+        def update_and_keep(tree, opt_state, params, step):
             grads.extend(g.detach().clone() for g in tree_leaves(tree))
-            return update(tree, *args)
+            if update:
+                return step_fn(tree, opt_state, params, step)
+            norm = clip_by_global_norm(tree, MAX_GRAD_NORM)[1]
+            return {"grad_norm": norm, "lr": torch.tensor(schedule(step))}
         return update_and_keep
 
     opt = dataclasses.replace(opt, update=recording(opt.update))
@@ -3681,7 +3751,8 @@ def _train_one_step(cfg, params, batch, device) -> dict:
     return {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
             "grad_norm": float(m["grad_norm"]),
             "lr": float(m["lr"]), "grads": grads,
-            "params": [p.detach() for p in tree_leaves(state["params"])]}
+            "params": ([p.detach() for p in tree_leaves(state["params"])]
+                       if update else None)}
 
 
 def _token_batch(cfg) -> dict:
@@ -3851,8 +3922,11 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
     flash kernels take bf16).  The loss, the MoE aux loss and the grad
     norm within TRAIN_LOSS_TOL / GRAD_NORM_REL_TOL (bf16) or
     F32_TRAIN_REL_TOL (float32); each leaf's gradient within
-    TRAIN_GRAD_L2_TOL or F32_GRAD_L2_TOL relative L2 distance; every
-    parameter after the AdamW step within Adam's bound of 2 lr.  A
+    TRAIN_GRAD_L2_TOL or F32_GRAD_L2_TOL relative L2 distance; in
+    float32 every parameter after the AdamW step within Adam's bound of
+    2 lr (the bf16 step stops at its gradients: the update is the same
+    float32 arithmetic on the master weights, and the CPU's over a
+    vocabulary table costs 10-20 s on the card host).  A
     control: the card's float32 step with TF32 products must fail those
     float32 checks, its grad norm or a leaf's gradient beyond its limit,
     or the check could not tell TF32 from float32 arithmetic (the
@@ -3883,14 +3957,14 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
                 out[impl] = _staged_parity(cfg, params, batch, tag, phase)
                 continue
             kernels.reset_launches()
-            card = _train_one_step(cfg, params, batch, DEVICE)
+            card = _train_one_step(cfg, params, batch, DEVICE, update=f32)
             launches = dict(kernels.LAUNCHES)
             torch.cuda.empty_cache()
-            cpu = _train_one_step(cfg, params, batch, "cpu")
+            cpu = _train_one_step(cfg, params, batch, "cpu", update=f32)
             if f32:     # the control: the card's step with TF32 products
                 torch.backends.cuda.matmul.allow_tf32 = True
-                tf32 = _train_one_step(cfg, params, batch, DEVICE)
-                tf32["params"] = None
+                tf32 = _train_one_step(cfg, params, batch, DEVICE,
+                                       update=False)
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
             transformer.COMPUTE_DTYPE = COMPUTE_DTYPE
@@ -3911,9 +3985,8 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
         grad_l2, grad_max, param_err, beyond, unused = [], [], 0.0, 0.0, []
         tf32_l2 = []
         for i, (name, *leaves) in enumerate(zip(
-                names, card["grads"], cpu["grads"], card["params"],
-                cpu["params"])):
-            ga, gb, pa, pb = (t.to(DEVICE) for t in leaves)
+                names, card["grads"], cpu["grads"])):
+            ga, gb = (t.to(DEVICE) for t in leaves)
             grad_l2.append(_rel_l2(ga, gb))
             if f32:
                 tf32_l2.append(_rel_l2(tf32["grads"][i], gb))
@@ -3922,10 +3995,14 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
                                   / gb.abs().max().clamp_min(1e-30)))
             if not (ga.any() or gb.any()):
                 unused.append(name)
-            diff = (pa - pb).abs()
-            param_err = max(param_err, float(diff.max()))
-            beyond = max(beyond, float((diff > 0.05 * lr).float().mean()))
-            del ga, gb, pa, pb, diff
+            del ga, gb
+            if f32:
+                diff = (card["params"][i].to(DEVICE)
+                        - cpu["params"][i].to(DEVICE)).abs()
+                param_err = max(param_err, float(diff.max()))
+                beyond = max(beyond,
+                             float((diff > 0.05 * lr).float().mean()))
+                del diff
         check(unused == (["embed"] if "embeds" in batch else []),
               f"{tag}: leaves with a zero gradient {unused}")
         res = {"compute_dtype": str(dtype),
@@ -3933,8 +4010,9 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
                "moe_aux": [card["moe_aux"], cpu["moe_aux"]],
                "grad_norm": [card["grad_norm"], cpu["grad_norm"]],
                "lr": lr, "grad_rel_l2": grad_l2, "grad_rel_max": grad_max,
-               "max_param_diff": param_err,
-               "max_share_beyond_5pct_lr": beyond, "launches": launches,
+               "max_param_diff": param_err if f32 else None,
+               "max_share_beyond_5pct_lr": beyond if f32 else None,
+               "launches": launches,
                "zero_grad_leaves": unused}
         out[impl] = res
         loss_tol = F32_TRAIN_REL_TOL * abs(cpu["loss"]) if f32 \
@@ -3967,17 +4045,19 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
         check(grad_l2[worst] <= l2_tol,
               f"{tag}: the gradient of {names[worst]} differs by "
               f"{grad_l2[worst]} relative L2 (tolerance {l2_tol})")
-        check(param_err <= 2 * lr * (1 + 1e-3), f"{tag}: parameters after "
-              f"a step differ by {param_err} (lr {lr})")
+        check(not f32 or param_err <= 2 * lr * (1 + 1e-3),
+              f"{tag}: parameters after a step differ by {param_err} (lr "
+              f"{lr})")
         print(f"[smoke] phase {phase} ({arch}, {impl}, {dtype}): loss card "
               f"{card['loss']:.6f} cpu {cpu['loss']:.6f}, aux card "
               f"{card['moe_aux']:.6f} cpu {cpu['moe_aux']:.6f}, |g| card "
               f"{card['grad_norm']:.6f} cpu {cpu['grad_norm']:.6f}; "
               f"gradients' relative L2 per leaf up to {grad_l2[worst]:.4g} "
               f"({names[worst]}; max-entry {max(grad_max):.4g}); "
-              f"parameters after one step within {param_err:.3g} (lr "
-              f"{lr:.3g}), at most {beyond:.4%} of a leaf beyond 5 % of "
-              f"lr; card launches "
+              + (f"parameters after one step within {param_err:.3g} (lr "
+                 f"{lr:.3g}), at most {beyond:.4%} of a leaf beyond 5 % of "
+                 "lr; " if f32 else "")
+              + f"card launches "
               f"{ {k: n for k, n in launches.items() if n} }"
               + (f"; TF32 control |g| {tf32['grad_norm']:.6f}, gradients "
                  f"up to {max(tf32['grad_rel_l2']):.4g} relative L2"
@@ -4629,10 +4709,11 @@ def data_mesh_phase(argv_lm: list, phase14: dict) -> dict:
 
 
 def _decode_runs(model, batch, prompt: int, gen: int, mesh, dev):
-    """The decode runs of phase 30c on one model: returns ``run(prefill,
-    step, feed=None, steps=gen - 1) -> (ids, per-step logits on the CPU,
-    cache, ms/step)``.  ``feed`` (B, gen) ids replace the run's own
-    picks."""
+    """The decode runs of phases 30c and 31b on one model: returns
+    ``run(prefill, step, feed=None, steps=gen - 1) -> (ids, logits on the
+    CPU, cache, ms/step)``, ``logits[t]`` the ones that pick ``ids[:,
+    t]`` (the prefill's first).  ``feed`` (B, gen) ids replace the run's
+    own picks."""
     import torch.distributed as dist
 
     def sync():
@@ -4646,7 +4727,7 @@ def _decode_runs(model, batch, prompt: int, gen: int, mesh, dev):
             dist.all_reduce(torch.zeros(1, device=dev),
                             group=mesh.get_group("model"))
         tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-        ids, all_logits = [tok], []
+        ids, all_logits = [tok], [logits[:, -1].float().cpu()]
         sync()
         t0 = time.perf_counter()
         for i in range(steps):
@@ -4726,7 +4807,7 @@ def _sharded_decode_rank(mesh, cfg, device: str, B: int, prompt: int,
     import torch.distributed as dist
 
     dev = rank_device(device)
-    S_total = prompt + gen
+    S_total = SHARDED_CACHE
     model = LM(cfg, init_params(build_defs(cfg), seed=0, device=dev,
                                 dtype=COMPUTE_DTYPE))
     batch = make_batch(cfg, B, prompt, kind="prefill", device=dev)
@@ -4772,16 +4853,34 @@ def _sharded_decode_rank(mesh, cfg, device: str, B: int, prompt: int,
     return out if dist.get_rank() == 0 else None
 
 
-def sharded_decode_phase(served: dict) -> dict:
-    """Phase 30c: the sequence-sharded decode on a (1, 2) mesh against
-    phase 11's run (``served``) and the unsharded decodes fed its ids."""
-    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
-    t0 = time.perf_counter()
-    got = run_on_mesh((1, 2), ("data", "model"), DEVICE,
-                      _sharded_decode_rank, cfg, DEVICE, SERVE_BATCH,
-                      SERVE_PROMPT, SERVE_GEN)
-    seconds = time.perf_counter() - t0
-    S_total = SERVE_PROMPT + SERVE_GEN
+def _near_tie_rows(ids, served: dict, logits: list, phase: str) -> int:
+    """The rows of ``ids`` apart from phase 11's (``served``) first ids:
+    equal until a row's first difference, which must be a near-tie of
+    one process's ``logits`` (fed ``ids``; ``_decode_runs``' order) at
+    that step."""
+    want = torch.from_numpy(np.asarray(served["tokens"]))[:, :ids.shape[1]]
+    ties = 0
+    for r in range(ids.shape[0]):
+        apart = (ids[r] != want[r]).nonzero()
+        if len(apart) == 0:
+            continue
+        t = int(apart[0])
+        b = logits[t][r]
+        top = torch.topk(b, 2).values
+        check(float(top[0] - top[1]) <= LOGIT_TOL
+              and float(b[int(ids[r, t])]) >= float(top[0]) - LOGIT_TOL,
+              f"{phase}: row {r} step {t} picks {int(ids[r, t])}, "
+              f"phase 11 {int(want[r, t])}")
+        ties += 1
+    return ties
+
+
+def sharded_decode_phase(served: dict, got: dict, seconds: float) -> dict:
+    """Phase 30c's checks: the sequence-sharded decode on a (1, 2) mesh
+    (rank 0's ``_sharded_decode_rank`` numbers, ``got``) against phase
+    11's run (``served``) and the unsharded decodes fed its ids."""
+    cfg = get_config(LM_ARCH)
+    S_total = SHARDED_CACHE
     check(got["local_s"] == S_total // 2,
           f"phase 30c: each rank holds {got['local_s']} of {S_total} "
           "positions")
@@ -4808,23 +4907,8 @@ def sharded_decode_phase(served: dict) -> dict:
     for t, a in enumerate(got["logits"]):
         check(bool(torch.isfinite(a).all()), f"phase 30c: step {t} logits")
         gaps.append(float((a - got["unsharded"]["logits"][t]).abs().max()))
-    # the ids against phase 11's: equal until a row's first difference,
-    # which must be a near-tie of the unsharded logits at that step
-    want = torch.from_numpy(np.asarray(served["tokens"]))
-    ids, ties = got["ids"], 0
-    for r in range(ids.shape[0]):
-        apart = (ids[r] != want[r]).nonzero()
-        if len(apart) == 0:
-            continue
-        t = int(apart[0])
-        check(t >= 1, f"phase 30c: row {r} differs at the prefill's pick")
-        b = got["unsharded"]["logits"][t - 1][r]
-        top = torch.topk(b, 2).values
-        check(float(top[0] - top[1]) <= LOGIT_TOL
-              and float(b[int(ids[r, t])]) >= float(top[0]) - LOGIT_TOL,
-              f"phase 30c: row {r} step {t} picks {int(ids[r, t])}, "
-              f"phase 11 {int(want[r, t])}")
-        ties += 1
+    ties = _near_tie_rows(got["ids"], served, got["unsharded"]["logits"],
+                          "phase 30c")
     partial_bytes = (SERVE_BATCH * cfg.num_heads * (cfg.head_dim + 2) * 4
                      * cfg.num_layers)
     out = {"ms_per_step": got["ms_per_step"],
@@ -4851,15 +4935,353 @@ def sharded_decode_phase(served: dict) -> dict:
     return out
 
 
-def mesh_lm_phase(argv_lm: list, phase14: dict, served: dict) -> dict:
+def _mesh_lm_rank(mesh, cfg, device: str, argv_tp: list) -> dict | None:
+    """One rank of the (1, 2) mesh's spawn, which phases 30c and 31 share
+    (one process start instead of two): ``_sharded_decode_rank``, then
+    ``_tp_rank``.  Rank 0 returns both parts' numbers."""
+    t0 = time.perf_counter()
+    sharded = _sharded_decode_rank(mesh, cfg, device, SERVE_BATCH,
+                                   SERVE_PROMPT, SHARDED_GEN)
+    sharded_s = time.perf_counter() - t0
+    tp = _tp_rank(mesh, argv_tp, device)
+    if sharded is None:
+        return None
+    return {"30c": sharded, "30c_s": sharded_s, "31": tp}
+
+
+def mesh_lm_phase(argv_lm: list, phase14: dict, served: dict) -> tuple:
     """Phase 30: the "dots" policy (a), the train entry point on the data
-    mesh (b) and the sequence-sharded decode (c)."""
+    mesh (b) and the sequence-sharded decode (c); the (1, 2) mesh's
+    spawn also runs phase 31's ranks, after 31a's one-process run.
+    Returns (phase 30's numbers, phase 31's parts for ``tp_phase``)."""
     t0 = time.perf_counter()
     out = {"dots": dots_phase(), "data_mesh": data_mesh_phase(argv_lm,
-                                                              phase14),
-           "sharded_decode": sharded_decode_phase(served)}
-    out["seconds"] = time.perf_counter() - t0
-    print(f"[smoke] phase 30: {out['seconds']:.1f} s")
+                                                              phase14)}
+    one = _tp_one_process(argv_lm)
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    t1 = time.perf_counter()
+    got = run_on_mesh((1, 2), ("data", "model"), DEVICE, _mesh_lm_rank,
+                      cfg, DEVICE, one["argv"])
+    tp = got["31"]
+    tp_s = tp["a_s"] + tp["b_s"] + tp["c_s"]
+    # the spawn's start and end count to phase 30c
+    out["sharded_decode"] = sharded_decode_phase(
+        served, got["30c"], time.perf_counter() - t1 - tp_s)
+    out["seconds"] = time.perf_counter() - t0 - tp_s - one["seconds"]
+    print(f"[smoke] phase 30: {out['seconds']:.1f} s (phase 31's "
+          f"{tp_s + one['seconds']:.1f} s in its spawn apart)")
+    return out, (one, tp)
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: tensor parallelism over the (1, 2) mesh's 'model' axis
+# ---------------------------------------------------------------------------
+
+def _per_rank(value):
+    """``value`` of every rank of the default group, in rank order."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, value)
+    return every
+
+
+def _tp_decode(mesh, dev) -> dict:
+    """31b on one rank: qwen2-0.5b served with tensor-parallel weights
+    and the sequence-sharded cache, in bf16 and in float32 activations;
+    rank 0 also decodes with whole weights, fed the same ids (bf16 through
+    the kernel, float32 through its plain version)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import TensorParallel
+
+    rank0 = dist.get_rank() == 0
+    cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+    defs = build_defs(cfg)
+    tp = TensorParallel.of(defs, mesh)
+    model = LM(cfg, init_params(defs, seed=0, device=dev, dtype=COMPUTE_DTYPE,
+                                tp=tp), mesh=mesh)
+    batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, kind="prefill",
+                       device=dev)
+    run = _decode_runs(model, batch, SERVE_PROMPT, SHARDED_GEN, mesh, dev)
+    kernels.reset_launches()
+    col.reset_traffic()
+    ids, logits, cache, ms = run(build_prefill_step(model, SHARDED_CACHE),
+                                 build_serve_step(model))
+    out = {"ids": ids, "logits": logits, "ms_per_step": ms,
+           "traffic": _per_rank(dict(col.TRAFFIC)),
+           "launches": _per_rank(dict(kernels.LAUNCHES)),
+           "local_s": cache["k"].to_local().shape[2],
+           "local_heads": (model.blocks["wq"].shape[2],
+                           model.blocks["wk"].shape[2])}
+    del cache, model
+    if rank0:
+        whole = LM(cfg, init_params(defs, seed=0, device=dev,
+                                    dtype=COMPUTE_DTYPE))
+        _, u_logits, _, u_ms = run(build_prefill_step(whole, SHARDED_CACHE),
+                                   build_serve_step(whole), feed=ids)
+        out["unsharded"] = {"logits": u_logits, "ms_per_step": u_ms}
+        del whole
+    torch.cuda.empty_cache()
+    steps = TP_F32_STEPS
+    saved = transformer.COMPUTE_DTYPE
+    transformer.COMPUTE_DTYPE = torch.float32
+    try:
+        cfg32 = dataclasses.replace(cfg, attn_impl="chunked")
+        model = LM(cfg32, init_params(defs, seed=0, device=dev, tp=tp),
+                   mesh=mesh)
+        ids32, logits32, _, _ = run(build_prefill_step(model, SHARDED_CACHE),
+                                    build_serve_step(model), steps=steps)
+        del model
+        if rank0:
+            whole = LM(cfg32, init_params(defs, seed=0, device=dev))
+            with _Plain():
+                plain = run(build_prefill_step(whole, SHARDED_CACHE),
+                            build_serve_step(whole), feed=ids32,
+                            steps=steps)[1]
+            out["float32"] = {"logits": logits32, "plain": plain}
+            del whole
+    finally:
+        transformer.COMPUTE_DTYPE = saved
+    torch.cuda.empty_cache()
+    return out
+
+
+def _first_layer(arch: str, dev, tp=None) -> tuple:
+    """(cfg, layer 0 of the full model's blocks in bf16): the rank's
+    shards with ``tp``, whole without."""
+    cfg = get_config(arch)
+    local = init_params(build_defs(cfg), seed=0, device=dev,
+                        dtype=COMPUTE_DTYPE, layers=1, tp=tp)
+    return cfg, {k: w[0] for k, w in local["blocks"].items()}
+
+
+def _tp_layers(mesh, dev) -> dict:
+    """31c on one rank: one layer of moonshot's MoE block and of mamba2's
+    mixer at full width, split over the ranks, on equal bf16 inputs at B
+    8 x 2048; rank 0 also runs each layer whole."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import TensorParallel
+
+    rank0 = dist.get_rank() == 0
+    out = {}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp_min(1e-30))
+
+    for arch in TP_LAYER_ARCHS:
+        cfg = get_config(arch)
+        tp = TensorParallel.of(build_defs(cfg), mesh)
+        _, p = _first_layer(arch, dev, tp)
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(SERVE_BATCH, SERVE_PROMPT, cfg.d_model, generator=g,
+                        device=dev).to(COMPUTE_DTYPE)
+        kernels.reset_launches()
+        with torch.no_grad():
+            if cfg.family == "moe":
+                got = transformer._moe_block(cfg, p, x, cfg.capacity_factor,
+                                             tp)[0]
+                h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+                r = moe.route(p["router"], h, top_k=cfg.experts_per_token,
+                              capacity_factor=cfg.capacity_factor,
+                              routing=cfg.routing, groups=cfg.moe_groups)
+                routes = _per_rank((r.keep.cpu(), r.expert_idx.cpu()))
+            else:
+                got, (state, _) = ssm.apply_ssm(p, x, chunk=cfg.ssm_chunk,
+                                                tp=tp,
+                                                **transformer._ssm_kw(cfg))
+                state = _per_rank(state.cpu())
+        row = {"launches": _per_rank(dict(kernels.LAUNCHES)),
+               "local": {k: tuple(v.shape) for k, v in p.items()
+                         if tp.sharded(k)}}
+        torch.cuda.synchronize(dev)
+        if rank0:
+            _, pw = _first_layer(arch, dev)
+            with torch.no_grad():
+                if cfg.family == "moe":
+                    want = transformer._moe_block(cfg, pw, x,
+                                                  cfg.capacity_factor)[0]
+                    rw = moe.route(pw["router"], h,
+                                   top_k=cfg.experts_per_token,
+                                   capacity_factor=cfg.capacity_factor,
+                                   routing=cfg.routing,
+                                   groups=cfg.moe_groups)
+                    row["routes_equal"] = all(
+                        torch.equal(k, rw.keep.cpu())
+                        and torch.equal(e, rw.expert_idx.cpu())
+                        for k, e in routes)
+                    row["kept"] = int(rw.keep.sum())
+                else:
+                    want, (sw, _) = ssm.apply_ssm(pw, x, chunk=cfg.ssm_chunk,
+                                                  **transformer._ssm_kw(cfg))
+                    H = sw.shape[1] // len(state)
+                    row["state_rel_l2"] = max(
+                        rel(s, sw[:, i * H:(i + 1) * H].cpu())
+                        for i, s in enumerate(state))
+            row["out_rel_l2"] = rel(got, want)
+            del pw, want
+        out[arch] = row
+        del p, x, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(mesh, argv_tp: list, device: str) -> dict | None:
+    """One rank of phase 31 (a spawned rank imports this script afresh,
+    so everything it reads is an argument or a constant): 31a through
+    the launcher on this process group, then 31b and 31c.  Rank 0
+    returns every part's numbers."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as col
+
+    dev = rank_device(device)
+    out, t0 = {}, time.perf_counter()
+    kernels.reset_launches()
+    col.reset_traffic()
+    out["a"] = train.main(argv_tp + ["--mesh", "1x2"])
+    out["a_traffic"] = _per_rank(dict(col.TRAFFIC))
+    torch.cuda.empty_cache()
+    out["a_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["b"] = _tp_decode(mesh, dev)
+    out["b_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    out["c"] = _tp_layers(mesh, dev)
+    out["c_s"] = time.perf_counter() - t0
+    out["backend"] = dist.get_backend()
+    return out if dist.get_rank() == 0 else None
+
+
+def _tp_one_process(argv_lm: list) -> dict:
+    """Phase 31a's twin on one process: phase 14's command at B
+    TP_TRAIN_BATCH, DOTS_STEPS steps, just before the mesh's run."""
+    t0 = time.perf_counter()
+    argv = list(argv_lm)
+    argv[argv.index("--batch") + 1] = str(TP_TRAIN_BATCH)
+    argv[argv.index("--steps") + 1] = str(DOTS_STEPS)
+    print(f"[smoke] phase 31a: train {' '.join(argv)} (one process)")
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    run = train.main(argv)
+    torch.cuda.empty_cache()
+    return {"argv": argv, "run": run, "base": torch.cuda.memory_allocated(),
+            "seconds": time.perf_counter() - t0}
+
+
+def tp_phase(served: dict, one_run: dict, got: dict) -> dict:
+    """Phase 31 (the module docstring): tensor parallelism on the (1, 2)
+    mesh, rank 0's numbers (``got``, ``_tp_rank``) against one process
+    (``one_run``, ``_tp_one_process``) and phase 11 (``served``)."""
+    t0 = time.perf_counter()
+    one, one_s, base = one_run["run"], one_run["seconds"], one_run["base"]
+    layers = get_config(LM_ARCH).num_layers
+    out = {"backend": got["backend"], "rank0_base_bytes": base,
+           "seconds": {"one_process": one_s, "a": got["a_s"],
+                       "b": got["b_s"], "c": got["c_s"]}}
+    # 31a
+    a = got["a"]
+    check(a["world"] == 2 and tuple(a["mesh"]) == (1, 2),
+          f"phase 31a: world {a['world']} mesh {a['mesh']}")
+    for x, y in zip(a["losses"], one["losses"]):
+        check(abs(x - y) <= TP_LOSS_REL_TOL * abs(y),
+              f"phase 31a: losses {a['losses']} vs one process's "
+              f"{one['losses']}")
+    want = {"flash_attention_fwd": 2 * layers * DOTS_STEPS,
+            "flash_attention_bwd_dq": layers * DOTS_STEPS,
+            "flash_attention_bwd_dkv": layers * DOTS_STEPS}
+    for r, launches in enumerate(a["launches_per_rank"]):
+        for kname, n in want.items():
+            check(launches[kname] == n, f"phase 31a: rank {r} launched "
+                  f"{kname} {launches[kname]} times, not {n}")
+    out["a"] = {k: a[k] for k in ("losses", "grad_norms", "step_ms",
+                                  "peak_bytes_per_rank",
+                                  "launches_per_rank")}
+    # the tensor-parallel all_reduces a step on each rank, and their bytes
+    out["a"]["traffic_per_step"] = [
+        {k: v / DOTS_STEPS for k, v in t.items()} for t in got["a_traffic"]]
+    out["a"]["one_process"] = {k: one[k] for k in (
+        "losses", "grad_norms", "step_ms", "peak_bytes")}
+    print(f"[smoke] phase 31a: (1, 2) mesh ({got['backend']}): step ms "
+          f"{[round(t, 3) for t in a['step_ms']]} (one process "
+          f"{[round(t, 3) for t in one['step_ms']]}), peak device memory per "
+          f"rank {[p and round(p / 2**30, 2) for p in a['peak_bytes_per_rank']]}"
+          f" GiB (one process {(one['peak_bytes'] or 0) / 2**30:.2f}; rank 0 "
+          f"holds {base / 2**30:.2f} GiB of earlier phases), losses "
+          f"{a['losses']} "
+          f"(one process {one['losses']}), launches per rank "
+          f"{[{k: n[k] for k in want} for n in a['launches_per_rank']]}, "
+          f"tensor-parallel all_reduces a step per rank "
+          f"{out['a']['traffic_per_step']}; {got['a_s']:.1f} s")
+    # 31b
+    b = got["b"]
+    check(b["local_s"] == SHARDED_CACHE // 2,
+          f"phase 31b: each rank holds {b['local_s']} of {SHARDED_CACHE} "
+          "positions")
+    check(tuple(b["local_heads"]) == (7, 1),
+          f"phase 31b: each rank's q and kv heads {b['local_heads']}")
+    for r, launches in enumerate(b["launches"]):
+        check(launches["flash_attention_fwd"] == layers
+              and launches["decode_attention"] == 0,
+              f"phase 31b: rank {r} launches {launches}")
+    for t, lg in enumerate(b["logits"]):
+        check(bool(torch.isfinite(lg).all()), f"phase 31b: step {t} logits")
+    gaps = [float((x - y).abs().max())
+            for x, y in zip(b["logits"], b["unsharded"]["logits"])]
+    ties = _near_tie_rows(b["ids"], served, b["unsharded"]["logits"],
+                          "phase 31b")
+    f32 = max(float((x - y).abs().max()) for x, y in zip(
+        b["float32"]["logits"], b["float32"]["plain"]))
+    check(f32 <= F32_LOGIT_TOL, f"phase 31b: float32 logits {f32} from one "
+          f"process's (limit {F32_LOGIT_TOL})")
+    out["b"] = {"ms_per_step": b["ms_per_step"],
+                "one_process_ms_per_step": b["unsharded"]["ms_per_step"],
+                "phase11_ms_per_step": served["decode_ms_per_step"],
+                "launches": b["launches"], "near_tie_rows": ties,
+                "traffic": b["traffic"],
+                "float32_max_logit_diff": f32,
+                "bf16_logit_diff_by_step": gaps}
+    print(f"[smoke] phase 31b: tensor-parallel weights (q/kv heads a rank "
+          f"{b['local_heads']}), cache {SHARDED_CACHE} split on S: decode "
+          f"{b['ms_per_step']:.3f} ms/step (one process in the same run "
+          f"{b['unsharded']['ms_per_step']:.3f}, phase 11 "
+          f"{served['decode_ms_per_step']:.3f}); {ties} row(s) apart from "
+          f"phase 11 at a near-tie; float32 logits within {f32:.3g}; bf16 "
+          f"logits from one process's up to {max(gaps):.4g}; launches per "
+          f"rank {[{k: n for k, n in l.items() if n} for l in b['launches']]}"
+          f"; tensor-parallel all_reduces (prefill and {SHARDED_GEN - 1} "
+          f"steps) per rank {b['traffic']}; {got['b_s']:.1f} s")
+    # 31c
+    c = got["c"]
+    for arch, row in c.items():
+        check(row["out_rel_l2"] <= TP_LAYER_REL_TOL,
+              f"phase 31c ({arch}): outputs {row['out_rel_l2']:.3g} relative "
+              f"L2 from one process's (limit {TP_LAYER_REL_TOL})")
+        if "routes_equal" in row:
+            check(row["routes_equal"], f"phase 31c ({arch}): a rank routes "
+                  "apart from one process")
+        else:
+            check(row["state_rel_l2"] <= TP_LAYER_REL_TOL,
+                  f"phase 31c ({arch}): final state {row['state_rel_l2']:.3g}"
+                  f" relative L2 (limit {TP_LAYER_REL_TOL})")
+            for r, launches in enumerate(row["launches"]):
+                check(launches["ssd_chunk_scan"] == 1,
+                      f"phase 31c ({arch}): rank {r} launches {launches}")
+        print(f"[smoke] phase 31c ({arch}, one layer, B {SERVE_BATCH} x "
+              f"{SERVE_PROMPT}): shards {row['local']}, outputs within "
+              f"{row['out_rel_l2']:.3g} relative L2 of one process's"
+              + (f", kept assignments equal on both ranks and one process "
+                 f"({row['kept']} kept)" if "kept" in row else
+                 f", final state within {row['state_rel_l2']:.3g}")
+              + f"; launches per rank "
+              f"{[{k: n for k, n in l.items() if n} for l in row['launches']]}")
+    out["c"] = c
+    out["seconds"]["total"] = (time.perf_counter() - t0 + one_s
+                               + got["a_s"] + got["b_s"] + got["c_s"])
+    print(f"[smoke] phase 31: {out['seconds']['total']:.1f} s (one process "
+          f"{one_s:.1f}, a {got['a_s']:.1f}, b {got['b_s']:.1f}, c "
+          f"{got['c_s']:.1f}; its ranks ran in phase 30c's spawn)")
     return out
 
 
@@ -5097,8 +5519,11 @@ def main() -> int:
     mm_run = mm_phase()
     torch.cuda.empty_cache()
     stamp("30")
-    mesh_lm = mesh_lm_phase(argv_lm, trained, served)
+    mesh_lm, tp_parts = mesh_lm_phase(argv_lm, trained, served)
+    torch.cuda.empty_cache()
     stamp("31")
+    tp_run = tp_phase(served, *tp_parts)
+    stamp("32")
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -5171,6 +5596,16 @@ def main() -> int:
             **{f"train step {arch} ({r['layers']} layers, "
                f"{MM_TRAIN_STEPS} steps)": r["launches"][kname]
                for arch, r in mm_run["train_step"].items()}})
+        # phase 31's ranks on the (1, 2) mesh: the train entry point, the
+        # tensor-parallel serve and mamba2's split mixer
+        tp_runs = {"train --mesh 1x2": tp_run["a"]["launches_per_rank"],
+                   "serve (tensor-parallel)": tp_run["b"]["launches"],
+                   "mamba2-370m layer (16 of 32 heads)":
+                       tp_run["c"]["mamba2-370m"]["launches"]}
+        table[-1]["launches_by_run"].update({
+            f"phase 31 {what} rank {r}": n[kname]
+            for what, ranks_ in tp_runs.items()
+            for r, n in enumerate(ranks_)})
     details = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "kernels": table,
@@ -5211,7 +5646,7 @@ def main() -> int:
                "direct_io": dio, "resume": resumed, "oracle": oracle,
                "host": hosted, "telemetry": telemetry, "isp": isp,
                "mesh": mesh, "moe": moe_run, "multimodal": mm_run,
-               "mesh_lm": mesh_lm,
+               "mesh_lm": mesh_lm, "tensor_parallel": tp_run,
                "phase_start_s": stamps,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -26,13 +26,22 @@ def opt_state_from_jax(opt_state: dict, device="cpu") -> dict:
     return {k: params_from_jax(opt_state[k], device) for k in ("m", "v")}
 
 
-def lm_params_from_jax(tree: dict, device="cpu") -> dict:
+def lm_params_from_jax(tree: dict, device="cpu", tp=None) -> dict:
     """The reference LM's parameter tree (nested dicts of numpy arrays,
     ``jax.device_get(model.init(key))``) -> the same tree of float32
-    tensors for ``repro_torch.models.transformer.LM``."""
-    if isinstance(tree, dict):
-        return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, np.float32)).to(device)
+    tensors for ``repro_torch.models.transformer.LM``.  With ``tp`` (the
+    model's ``distributed.sharding.TensorParallel``) each leaf that its
+    ``model`` axis splits is cut to this rank's shard before the copy."""
+
+    def convert(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: convert(k, v) for k, v in leaf.items()}
+        a = np.array(leaf, np.float32)
+        if tp is not None:
+            a = np.ascontiguousarray(tp.local(name, a))
+        return torch.from_numpy(a).to(device)
+
+    return convert(None, tree)
 
 
 def lm_cache_from_jax(cache: dict, S_total: int) -> dict:

@@ -15,6 +15,12 @@ and run on every rank of it in the same order.
   ``batch_isend_irecv`` to the next rank a step.
 * ``psum_scatter``: reduce-scatter (``reduce_scatter_tensor``).
 * ``shard_offset``: a rank's offset along a dim its group shards.
+* Tensor parallelism's region boundaries, as autograd functions:
+  ``enter_region`` (identity forward, sum backward), ``exit_region`` (sum
+  forward, identity backward) and ``gather_dim`` (the ranks' blocks of a
+  dim, built from one ``all_reduce`` of zero-filled buffers; backward:
+  the rank's block of the gradient).  ``TRAFFIC`` counts their
+  ``all_reduce`` calls and bytes.
 
 No collective moves a tensor to the host to get round its backend: one
 that the backend does not serve raises (gloo serves only ``all_reduce``
@@ -130,3 +136,139 @@ def shard_offset(group, shard_len: int) -> int:
     """This rank's offset along a dim that ``group`` shards in blocks of
     ``shard_len``."""
     return dist.get_rank(group_of(group)) * shard_len
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the ``model`` axis: the region boundaries
+# ---------------------------------------------------------------------------
+
+# the tensor-parallel all_reduces this process made (the region
+# boundaries, the gathers and the max) and the bytes each handed to the
+# backend, summed; ``reset_traffic`` zeroes them
+TRAFFIC = {"all_reduce": 0, "bytes": 0}
+
+
+def reset_traffic() -> None:
+    TRAFFIC.update(all_reduce=0, bytes=0)
+
+
+def _all_reduce(x: torch.Tensor, pg, op=dist.ReduceOp.SUM) -> None:
+    TRAFFIC["all_reduce"] += 1
+    TRAFFIC["bytes"] += x.numel() * x.element_size()
+    dist.all_reduce(x, op=op, group=pg)
+
+
+def _summed(x: torch.Tensor, pg) -> torch.Tensor:
+    """``x`` summed over ``pg`` in its own dtype (a new tensor; two ranks'
+    bf16 partials are added exactly and rounded once, as a float32 sum
+    cast back would give, at half its bytes)."""
+    _served("all_reduce", x, pg)
+    out = x.clone()
+    _all_reduce(out, pg)
+    return out
+
+
+class _EnterRegion(torch.autograd.Function):
+    """Identity forward, sum over the group backward: where a tensor that
+    every rank holds whole enters a computation each rank does on its own
+    shard, its gradient on each rank is a part of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g.contiguous(), ctx.pg), None
+
+
+class _ExitRegion(torch.autograd.Function):
+    """Sum over the group forward, identity backward: each rank's partial
+    sum (a product whose contraction dim it shards) becomes the whole
+    result, which every rank then uses alike."""
+
+    @staticmethod
+    def forward(ctx, x, pg):
+        return _summed(x.contiguous(), pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over ``group`` (Megatron's
+    ``f``)."""
+    return _EnterRegion.apply(x, group_of(group))
+
+
+def exit_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group``, its gradient passed as it is
+    (Megatron's ``g``)."""
+    return _ExitRegion.apply(x, group_of(group))
+
+
+def gather_dims(xs: list, dim: int, group=None) -> list:
+    """Each tensor of ``xs`` gathered on ``dim`` as ``gather_dim`` does,
+    all in one ``all_reduce`` (no gradient: the decode step's q, k and
+    v)."""
+    pg = group_of(group)
+    n = dist.get_world_size(pg)
+    flat = [torch.movedim(x, dim, 0) for x in xs]
+    buf = _gathered(torch.cat([f.reshape(1, -1) for f in flat], dim=1), 0,
+                    pg)
+    out, at = [], 0
+    for f in flat:
+        k = f.numel()
+        block = buf[:, at:at + k].reshape(n * f.shape[0], *f.shape[1:])
+        out.append(torch.movedim(block, 0, dim))
+        at += k
+    return out
+
+
+def _gathered(x: torch.Tensor, dim: int, pg) -> torch.Tensor:
+    """Every rank's ``x`` concatenated on ``dim`` in rank order, built as
+    the sum of zero-filled buffers that each hold one rank's block (gloo
+    serves only ``all_reduce`` and ``broadcast`` on CUDA tensors).  The
+    sum of one value and zeros is exact; a bf16 or fp16 buffer whose last
+    dim is even is summed as int32 pairs, so it crosses at its own width."""
+    _served("all_reduce", x, pg)
+    n, r = dist.get_world_size(pg), dist.get_rank(pg)
+    dim = dim % x.dim()
+    shape = list(x.shape)
+    shape[dim] *= n
+    buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    buf.narrow(dim, r * x.shape[dim], x.shape[dim]).copy_(x)
+    if x.element_size() == 2 and shape[-1] % 2 == 0:
+        _all_reduce(buf.view(torch.int32), pg)
+        return buf
+    if x.element_size() == 2:
+        wide = buf.float()
+        _all_reduce(wide, pg)
+        return wide.to(x.dtype)
+    _all_reduce(buf, pg)
+    return buf
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' blocks concatenated on a dim; backward: this rank's
+    block of the gradient (the whole result is used alike on every
+    rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, pg):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.r = dist.get_rank(pg)
+        return _gathered(x.contiguous(), dim, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.n, ctx.n), None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The blocks of ``dim`` that the ranks of ``group`` hold, whole on
+    every rank, in rank order (differentiable: the gradient of this
+    rank's block is its block of the whole's)."""
+    return _Gather.apply(x, dim, group_of(group))

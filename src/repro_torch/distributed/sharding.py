@@ -177,3 +177,150 @@ def constrain(x, logical_axes: Sequence[str | None], rules: ShardingRules,
         return x
     spec = logical_to_spec(logical_axes, rules, mesh, tuple(x.shape))
     return x.redistribute(mesh, placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the ``model`` axis as the LM's layers see it
+# ---------------------------------------------------------------------------
+
+def model_dim(d, rules: ShardingRules, mesh) -> int | None:
+    """The dim of the ``ParamDef`` ``d`` that ``mesh``'s ``model`` axis
+    shards under ``rules`` (its ``logical_to_spec``), or None where the
+    leaf is whole on every ``model`` rank."""
+    spec = logical_to_spec(d.logical_axes, rules, mesh, d.shape)
+    for i, s in enumerate(spec):
+        if s == "model" or (isinstance(s, tuple) and "model" in s):
+            return i
+    return None
+
+
+def model_slice(x, dim: int | None, rank: int, size: int):
+    """Block ``rank`` of ``size`` of ``x`` (a tensor or a numpy array)
+    along ``dim`` (``x`` itself for None): a leaf's ``model`` shard."""
+    if dim is None or size == 1:
+        return x
+    n = x.shape[dim] // size
+    index = [slice(None)] * x.ndim
+    index[dim] = slice(rank * n, (rank + 1) * n)
+    return x[tuple(index)]
+
+
+class TensorParallel:
+    """The ``model`` axis of a process mesh as the LM's layers use it:
+    its group, this rank's place on it, and the dim each leaf's shard
+    splits (``model_dim``, by the leaf's name in its tree: ``embed``,
+    ``wq``, ``w_down``, ...; the encoder's blocks share the decoder's
+    names and layout).  A product whose output dim a leaf shards yields
+    this rank's block (column-parallel); one whose contraction dim it
+    shards yields a partial sum, summed over the axis by ``exit``
+    (row-parallel); a leaf whole on every rank yields the whole result.
+    ``enter`` marks where a tensor that every rank holds whole is used by
+    a rank's own shard: its gradient there is a part, summed over the
+    axis (also for a whole leaf used there, such as ``q_norm`` on the
+    local heads).  With one rank (``NO_TP``) every method is the
+    identity."""
+
+    def __init__(self, group=None, dims: Mapping[str, int | None] | None
+                 = None):
+        import torch.distributed as dist
+
+        self.group = group
+        self.size = dist.get_world_size(group) if group is not None else 1
+        self.rank = dist.get_rank(group) if group is not None else 0
+        self.dims = dict(dims or {})
+
+    @classmethod
+    def of(cls, defs, mesh, rules: ShardingRules | None = None
+           ) -> "TensorParallel":
+        """The layout of the ``ParamDef`` tree ``defs`` on ``mesh`` (a
+        ``DeviceMesh``; None or a ``model`` axis of 1: ``NO_TP``)."""
+        if mesh is None or mesh_sizes(mesh).get("model", 1) == 1:
+            return NO_TP
+        rules = rules or ShardingRules.default()
+        dims = {}
+
+        def walk(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v)
+                else:
+                    dims[k] = model_dim(v, rules, mesh)
+
+        walk(defs)
+        return cls(mesh.get_group("model"), dims)
+
+    def sharded(self, name: str) -> bool:
+        """Whether the leaf ``name`` is split over the ranks."""
+        return self.size > 1 and self.dims.get(name) is not None
+
+    def local(self, name: str, x):
+        """This rank's shard of the whole leaf ``x`` named ``name``."""
+        return model_slice(x, self.dims.get(name), self.rank, self.size)
+
+    def span(self, n: int) -> tuple[int, int]:
+        """This rank's block [lo, hi) of a dim of ``n`` split over the
+        ranks."""
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
+    def group_pick(self, n_heads: int, n_groups: int):
+        """The groups that this rank's block of ``n_heads`` heads reads,
+        head ``h`` reading group ``h // (n_heads / n_groups)`` (GQA's kv
+        heads, the SSM's B and C groups): a slice where they are whole
+        groups each read by an equal run of the heads, else a list of one
+        group a head."""
+        h0, h1 = self.span(n_heads)
+        idx = [h // (n_heads // n_groups) for h in range(h0, h1)]
+        lo, n = idx[0], idx[-1] + 1 - idx[0]
+        run = (h1 - h0) // n
+        if run * n == h1 - h0 and all(i == lo + j // run
+                                      for j, i in enumerate(idx)):
+            return slice(lo, lo + n)
+        return idx
+
+    def enter(self, x):
+        from repro_torch.distributed.collectives import enter_region
+        return enter_region(x, self.group) if self.size > 1 else x
+
+    def exit(self, x):
+        from repro_torch.distributed.collectives import exit_region
+        return exit_region(x, self.group) if self.size > 1 else x
+
+    def gather(self, x, dim: int):
+        from repro_torch.distributed.collectives import gather_dim
+        return gather_dim(x, dim, self.group) if self.size > 1 else x
+
+    def gather_many(self, xs: list, dim: int) -> list:
+        """``gather`` of each of ``xs`` on ``dim`` in one collective (no
+        gradient)."""
+        from repro_torch.distributed.collectives import gather_dims
+        if self.size == 1 or not xs:
+            return xs
+        return gather_dims(xs, dim, self.group)
+
+    def max(self, x):
+        """The elementwise max of ``x`` over the ranks (no gradient)."""
+        import torch.distributed as dist
+
+        from repro_torch.distributed.collectives import _all_reduce
+
+        if self.size == 1:
+            return x
+        x = x.detach().clone()
+        _all_reduce(x, self.group, dist.ReduceOp.MAX)
+        return x
+
+
+NO_TP = TensorParallel()
+
+
+def take_groups(t, pick, dim: int):
+    """``t`` at the groups ``pick`` (``TensorParallel.group_pick``; None:
+    every group) on ``dim``."""
+    import torch
+
+    if pick is None:
+        return t
+    if isinstance(pick, slice):
+        return t.narrow(dim, pick.start, pick.stop - pick.start)
+    return t.index_select(dim, torch.tensor(pick, device=t.device))

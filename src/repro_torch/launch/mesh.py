@@ -19,7 +19,9 @@ that ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` describe; in a process that
 already belongs to a group of the mesh's size it uses that group;
 otherwise it starts the other ranks itself (``torch.multiprocessing``,
 spawned) and runs rank 0 in the calling process, which gets rank 0's
-result.  The production mesh belongs to ROADMAP item 16, part 2.
+result.  Its ``model`` axis splits the LM's tensor-parallel leaves
+(``models.transformer.LM(..., mesh=)``).  The production mesh belongs
+to ROADMAP item 16, part 3.
 """
 
 from __future__ import annotations
@@ -51,17 +53,16 @@ class Mesh:
 def make_mesh(shape, axes, device="cuda") -> Mesh:
     """A mesh of ``shape`` over ``axes`` whose ``data`` positions are
     placed on ``device``'s kind of device (see the module docstring).
-    Axes other than ``data`` must have size 1: the port shards nothing
-    else yet (ROADMAP item 16)."""
+    The GNN shards its graph on ``data`` only: the positions of the other
+    axes (``model``) are replicas, as the reference's GNN leaves them,
+    and the single controller computes each ``data`` shard once."""
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes) or "data" not in axes:
         raise ValueError(f"mesh shape {shape} over axes {axes}: need one "
                          "size per axis and a 'data' axis")
     sizes = dict(zip(axes, shape))
-    if any(n != 1 for a, n in sizes.items() if a != "data") \
-            or sizes["data"] < 1:
-        raise ValueError(f"mesh {sizes}: only the 'data' axis may be "
-                         "larger than 1 (ROADMAP item 16 shards the rest)")
+    if min(shape) < 1:
+        raise ValueError(f"mesh {sizes}: every axis needs a size >= 1")
     device = torch.device(device)
     if device.type == "cuda":
         count = torch.cuda.device_count()

@@ -92,8 +92,9 @@ table (``core.config.FLAG_TABLE``, ``add_pipeline_args``) and have the
 reference's names and defaults, ``--backend`` defaulting to ``isp`` as
 the reference's launcher sets it.  ``--devices N`` sets the GNN mesh's
 ``data`` axis (``launch.mesh``: single-controller, shards sharing a card
-when there are fewer cards), and ``--mesh Dx1`` builds that same mesh of
-D shards.  Every run goes through
+when there are fewer cards), and ``--mesh DxM`` builds a mesh of D
+shards whose M ``model`` positions replicate (the reference's GNN
+shards only its graph, on ``data``).  Every run goes through
 ``core.config.build_pipeline``: ``--graph-store disk`` writes the
 graph to ``--store-dir`` (or a temp directory the run owns and removes)
 and reads it through a ``DiskStore``; without a device cache tier the
@@ -115,8 +116,9 @@ batches).  GraphSAGE starts from the reference's
 reference launcher's losses.
 
 An LM on a process mesh: ``--devices N`` trains on the (N, 1) mesh, as
-the reference's launcher does, and ``--mesh DxM`` on (D, M); one process
-a mesh position (``launch.mesh.run_on_mesh``: under ``torchrun`` the
+the reference's launcher does, and ``--mesh DxM`` on (D, M), the model
+tensor-parallel over its M ``model`` ranks; one process a mesh
+position (``launch.mesh.run_on_mesh``: under ``torchrun`` the
 ranks it started, otherwise this process as rank 0 and the others
 spawned), NCCL when each rank has a card of its own, gloo on the CPU.
 Each parameter and its AdamW moments are sharded over ``data`` as the
@@ -124,11 +126,16 @@ reference's rules give (``train.steps``), each rank trains on its rows
 of the global batch (``TokenPipeline.torch_batch(..., rank=)``), the MoE
 family routes globally across the ranks, and rank 0 logs the global
 loss and grad norm and writes the checkpoints, whole, so a checkpoint
-written at one world size resumes at another.  ``M > 1`` in training
-needs tensor parallelism (ROADMAP item 16, part 2) and exits 2:
+written at one mesh shape resumes at another.  Each leaf that the rules
+split over ``model`` (``heads``, ``kv_heads``, ``mlp``, ``vocab``,
+``experts``, ``ssm_head``, where they divide M) is held as that shard,
+and the layers sum over ``model`` where the reference's partitioner
+does (``models.transformer.LM(..., mesh=)``):
 
   python -m repro_torch.launch.train --device cpu --arch qwen2-0.5b \
       --reduced --devices 2 --batch 8 --seq-len 32 --steps 4
+  python -m repro_torch.launch.train --device cpu --arch qwen2-0.5b \
+      --reduced --mesh 2x2 --batch 8 --seq-len 32 --steps 4
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen2-0.5b --devices 4 --batch 8 --seq-len 4096 --steps 5
 
@@ -166,7 +173,7 @@ from repro_torch.core import (DATASETS, GNNConfig, GraphSAGE, PipelineSpec,
 from repro_torch.data import TokenPipeline
 from repro_torch.distributed.sharding import ShardingRules, tree_placements
 from repro_torch.launch.mesh import make_mesh, rank_device, run_on_mesh
-from repro_torch.models.params import count_params, init_params, tree_map
+from repro_torch.models.params import count_params, tree_map
 from repro_torch.models.registry import ARCH_IDS, get_config
 from repro_torch.models.transformer import LM, build_defs
 from repro_torch.optim import adamw, warmup_cosine
@@ -225,17 +232,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     if len(args.mesh_dims) != 2 or min(args.mesh_dims) < 1:
         ap.error(f"--mesh {args.mesh!r}: give it as DxM, e.g. 4x1")
     if args.arch == "graphsage":
-        if args.mesh_dims[1] != 1:
-            ap.error(f"--mesh {args.mesh}: the GNN's mesh shards the graph "
-                     "on 'data' only (give Dx1)")
+        # the graph is sharded on 'data'; the 'model' positions replicate
         args.devices = args.mesh_dims[0]
         try:
             args.pipeline_spec = spec_from_args(args)
         except (ValueError, OSError) as e:
             ap.error(str(e))
-    elif args.mesh_dims[1] > 1:
-        ap.error(f"--mesh {args.mesh}: training on a 'model' axis larger "
-                 "than 1 needs tensor parallelism (ROADMAP item 16, part 2)")
     elif get_config(args.arch).family == "encdec":
         ap.error(f"{args.arch} has an encoder over src_embeds, and "
                  "TokenPipeline batches carry no src_embeds (the "
@@ -332,7 +334,7 @@ def run_gnn(args) -> tuple[object, list[float], dict]:
                 print("[train] --resume: data plane restored from the "
                       "checkpoint manifest's pipeline_spec")
     g = load_dataset(args.dataset, large_scale=args.large_scale)
-    mesh = make_mesh((args.devices, 1), ("data", "model"), device=device)
+    mesh = make_mesh(args.mesh_dims, ("data", "model"), device=device)
     pipe = build_pipeline(spec, g, mesh=mesh, device=device)
     try:
         for note in pipe.notes:
@@ -492,9 +494,11 @@ def _train_lm(mesh, args) -> dict | None:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     defs = build_defs(cfg)
-    # every rank draws the whole leaves (the reference's seed-0 weights)
-    params = init_params(defs, seed=0, device=device)
-    model = LM(cfg, params, trainable=True)
+    rules = ShardingRules.default()
+    # the reference's seed-0 weights; on a 'model' axis each rank draws
+    # its shard of each leaf the rules split
+    model = LM(cfg, seed=0, device=device, trainable=True, mesh=mesh,
+               rules=rules)
     where = device if mesh is None else (
         f"a {'x'.join(map(str, args.mesh_dims))} mesh of "
         f"{dist.get_world_size()} ranks ({dist.get_backend()}, "
@@ -503,7 +507,6 @@ def _train_lm(mesh, args) -> dict | None:
         f"({model.active_param_count() / 1e6:.2f}M active), "
         f"attn_impl={cfg.attn_impl}, remat={cfg.remat}, on {where}")
     opt = adamw(warmup_cosine(args.lr, 10, args.steps))
-    rules = ShardingRules.default()
     step_fn = lm_steps.build_train_step(model, opt, mesh, rules,
                                         microbatches=args.microbatches)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=args.seq_len,

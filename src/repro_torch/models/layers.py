@@ -90,5 +90,16 @@ def unembed_def(d_model: int, vocab: int) -> ParamDef:
     return ParamDef((d_model, vocab), logical_axes=("embed", "vocab"))
 
 
-def embed_lookup(table, token_ids, compute_dtype):
-    return F.embedding(token_ids, table.to(compute_dtype))
+def embed_lookup(table, token_ids, compute_dtype, tp=None):
+    """The rows of ``table`` at ``token_ids`` in ``compute_dtype``.  On a
+    ``tp`` whose ``model`` axis splits the vocab (the leaf ``embed``),
+    ``table`` is this rank's block of rows: each rank looks up the ids in
+    its block, zeros the rest and the rows are summed over the ranks (the
+    reference's masked local gather and psum over ``model``)."""
+    if tp is None or not tp.sharded("embed"):
+        return F.embedding(token_ids, table.to(compute_dtype))
+    n = table.shape[0]
+    local = token_ids - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table.to(compute_dtype))
+    return tp.exit(torch.where(inside[..., None], rows, 0))

@@ -196,10 +196,17 @@ def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
 
 
 def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
-              act=F.silu, routing: str = "softmax", groups: int = 1):
+              act=F.silu, routing: str = "softmax", groups: int = 1,
+              tp=None):
     """p: one layer's slice of ``moe_defs``' parameters; x: (B, S, d).
     Returns (out (B, S, d) in x's dtype, {"moe_aux_loss": float32
-    scalar}), under ``route``'s routing."""
+    scalar}), under ``route``'s routing.  Where ``tp`` splits the experts
+    over the ``model`` ranks, ``p``'s expert weights are this rank's
+    block of E: every rank routes every token alike (the router is
+    whole), runs its own experts on their slots, and each token's
+    combine gathers only the assignments to those experts and is summed
+    over the ranks (the reference's masked local gather and psum over
+    ``model``)."""
     B, S, d = x.shape
     r = route(p["router"], x, top_k=top_k, capacity_factor=capacity_factor,
               routing=routing, groups=groups)
@@ -211,17 +218,28 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     rows = r.slot_tok.clamp_max(Tg - 1).reshape(G, E * C, 1).expand(-1, -1, d)
     xg = torch.gather(xt, 1, rows).reshape(G, E, C, d)
     xg = torch.where(slot_valid[..., None], xg, 0)
+    split = tp is not None and tp.sharded("w_gate")
+    e0, El, gates, keep = 0, E, r.gates, r.keep
+    flat_e = r.expert_idx.reshape(G, Tg * top_k)
+    if split:
+        e0, e1 = tp.span(E)
+        El = e1 - e0
+        # the whole dispatch and gates, each rank's experts using a part
+        xg = tp.enter(xg)[:, e0:e1]
+        gates = tp.enter(gates)
+        keep = keep & (flat_e >= e0) & (flat_e < e1)
     h = act(torch.einsum("gecd,edf->gecf", xg, p["w_gate"].to(x.dtype)))
     h = h * torch.einsum("gecd,edf->gecf", xg, p["w_up"].to(x.dtype))
     y = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(x.dtype))
 
     # combine: each assignment gathers its expert output, token side
-    flat_e = r.expert_idx.reshape(G, Tg * top_k)
-    slot_of_assign = (flat_e * C + torch.where(r.keep, r.pos, C - 1)
-                      ).clamp_max(E * C - 1)
-    picked = torch.gather(y.reshape(G, E * C, d), 1,
+    slot_of_assign = ((flat_e - e0) * C + torch.where(keep, r.pos, C - 1)
+                      ).clamp(0, El * C - 1)
+    picked = torch.gather(y.reshape(G, El * C, d), 1,
                           slot_of_assign[..., None].expand(-1, -1, d))
-    picked = torch.where(r.keep[..., None], picked, 0)
-    out = (picked.float() * r.gates.reshape(G, Tg * top_k)[..., None]
+    picked = torch.where(keep[..., None], picked, 0)
+    out = (picked.float() * gates.reshape(G, Tg * top_k)[..., None]
            ).reshape(G, Tg, top_k, d).sum(dim=2)
+    if split:
+        out = tp.exit(out)
     return out.reshape(B, S, d).to(x.dtype), {"moe_aux_loss": r.aux}

@@ -73,7 +73,7 @@ def init_scale(d: ParamDef) -> float:
 def init_params(defs, seed: int = 0, device="cpu",
                 dtype: torch.dtype | None = None,
                 layers: int | None = None,
-                enc_layers: int | None = None) -> dict:
+                enc_layers: int | None = None, tp=None) -> dict:
     """Materialize the parameters of a ``ParamDef`` tree on ``device``, in
     ``dtype`` (default, and for a ``keep_dtype`` leaf: the leaf's own,
     float32): the reference's
@@ -85,27 +85,37 @@ def init_params(defs, seed: int = 0, device="cpu",
     first layers of the model that ``defs`` declares (the draw's counter
     is the flat index, so a leading slice draws as that slice of the
     whole leaf).  ``enc_layers`` cuts the leaves under ``enc_blocks``,
-    the encdec family's encoder stack, alike."""
+    the encdec family's encoder stack, alike.  With ``tp`` (a
+    ``distributed.sharding.TensorParallel``) each leaf that its ``model``
+    axis splits is drawn as this rank's block only (``rng.normal``'s
+    ``block``: each entry the whole leaf's number), so no rank holds a
+    whole sharded leaf."""
     leaves = tree_leaves(defs)
     keys = iter(rng.split(rng.key(seed), len(leaves)))
 
     cuts = {"blocks": layers, "enc_blocks": enc_layers}
 
-    def draw(d: ParamDef, cut: int | None) -> torch.Tensor:
+    def draw(d: ParamDef, cut: int | None, name: str) -> torch.Tensor:
         k = next(keys)
         dt = d.dtype if dtype is None or d.keep_dtype else dtype
         shape = d.shape if cut is None else (cut,) + d.shape[1:]
+        dim = tp.dims.get(name) if tp is not None and tp.size > 1 else None
+        local = list(shape)
+        if dim is not None:
+            local[dim] //= tp.size
         if d.init in ("zeros", "ones"):
             fill = torch.zeros if d.init == "zeros" else torch.ones
-            return fill(shape, dtype=dt, device=device)
-        out = torch.empty(shape, dtype=dt, device=device)
-        return rng.normal(k, shape, out=out, scale=init_scale(d))
+            return fill(local, dtype=dt, device=device)
+        out = torch.empty(local, dtype=dt, device=device)
+        block = None if dim is None else (dim, tp.rank * local[dim])
+        return rng.normal(k, shape, out=out, scale=init_scale(d),
+                          block=block)
 
-    def walk(tree, cut: int | None):  # sorted keys: the reference's order
-        if isinstance(tree, dict):
-            return {k: walk(tree[k], cuts.get(k) if cut is None else cut)
+    def walk(tree, cut: int | None, name: str = ""):
+        if isinstance(tree, dict):  # sorted keys: the reference's order
+            return {k: walk(tree[k], cuts.get(k) if cut is None else cut, k)
                     for k in sorted(tree)}
-        return draw(tree, cut)
+        return draw(tree, cut, name)
 
     return walk(defs, None)
 

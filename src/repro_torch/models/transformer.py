@@ -4,7 +4,12 @@ every family: dense, moe, ssm, hybrid and encdec.
 The port of the reference's ``repro/models/transformer.py``: the model
 runs whole on its device (a data-parallel mesh shards the training state
 around it, ``train.steps``; the sequence-sharded decode splits its cache,
-below), without the reference's activation sharding constraints.
+below), or tensor-parallel over a process mesh's ``model`` axis (``LM(...,
+mesh=)``: each rank holds the ``model`` shard of each leaf that the
+reference's rules split, and the layers insert the sums over the axis
+that the reference's partitioner inserts; ``distributed.sharding.
+TensorParallel``), without the reference's activation sharding
+constraints.
 Parameters keep the reference tree's names and stacked layer shapes
 (``blocks.wq`` is (L, d, H, Dh)), so ``convert.lm_params_from_jax``
 carries the reference's weights over as a copy; ``lax.scan`` over the
@@ -68,8 +73,11 @@ mesh's ``model`` axis larger than 1 and dividing the cache's S.  Each
 rank holds its slice of the K/V cache on S, only the rank that owns
 ``position`` writes the new K and V, and each rank's online-softmax
 partials are combined across the ``model`` ranks
-(``attention.sharded_decode_attention``).  The weights stay whole on
-every rank.
+(``attention.sharded_decode_attention``), over every q and kv head (a
+tensor-parallel model gathers its heads first, the reference's
+whole-head ``qspec``).  A tensor-parallel model whose ``model`` axis does
+not divide S decodes through the decode kernel on each rank's own heads,
+its cache holding the kv heads they read.
 """
 
 from __future__ import annotations
@@ -83,6 +91,8 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import (NO_TP, ShardingRules,
+                                              TensorParallel, take_groups)
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -245,15 +255,53 @@ def _proj(x, w):
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def _project_qkv(cfg: ModelConfig, p, x):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _kv_pick(cfg: ModelConfig, tp: TensorParallel, q_name: str = "wq",
+             kv_name: str = "wk"):
+    """The kv heads that this rank's q heads read
+    (``TensorParallel.group_pick``) where the rules split the q heads and
+    keep the kv heads whole; None where each rank reads the kv heads it
+    holds."""
+    if not tp.sharded(q_name) or tp.sharded(kv_name):
+        return None
+    return tp.group_pick(cfg.num_heads, cfg.num_kv_heads)
+
+
+def _attn_kv(cfg: ModelConfig, tp: TensorParallel, k, v, q_name="wq",
+             kv_name="wk"):
+    """The k and v that this rank's q heads attend to: as they are, or,
+    where the q heads are split and k and v whole on every rank, their
+    gradient summed over the ranks (each rank's q heads read a part) and
+    the kv heads picked (``_kv_pick``)."""
+    pick = _kv_pick(cfg, tp, q_name, kv_name)
+    if pick is None:
+        return k, v
+    return (take_groups(tp.enter(k), pick, 2),
+            take_groups(tp.enter(v), pick, 2))
+
+
+def _col_in(tp: TensorParallel, x, name: str):
+    """The input of a product by the leaf ``name``: ``x`` entering the
+    rank's own region where that leaf is split on its output dim."""
+    return tp.enter(x) if tp.sharded(name) else x
+
+
+def _project_qkv(cfg: ModelConfig, p, x, tp: TensorParallel = None):
+    """q, k, v of the normalized input ``x``: q on this rank's heads and
+    k, v on its kv heads where the rules split them (column-parallel),
+    whole where they do not."""
+    tp = tp or NO_TP
+    xq = _col_in(tp, x, "wq")
+    xkv = xq if tp.sharded("wk") else x
+    q, k, v = _proj(xq, p["wq"]), _proj(xkv, p["wk"]), _proj(xkv, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        # a whole norm scale on the rank's own heads: its gradient there
+        # is a part
+        q = rmsnorm(q, _col_in(tp, p["q_norm"], "wq"), cfg.norm_eps)
+        k = rmsnorm(k, _col_in(tp, p["k_norm"], "wk"), cfg.norm_eps)
     return q, k, v
 
 
@@ -268,64 +316,90 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def _out_proj(cfg: ModelConfig, p, out):
-    """(B, S, H, Dh) @ wo (H, Dh, d), then the post-attention norm."""
+def _row_out(tp: TensorParallel, y, w, name: str):
+    """``y @ w`` for the leaf ``w`` named ``name``: where the rules split
+    its contraction dim, this rank's partial product summed over the
+    ranks (row-parallel; ``y`` is taken at the rank's block where it is
+    whole), else the whole product."""
+    if not tp.sharded(name):
+        return _proj(y, w)
+    n = w.shape[0]
+    if y.shape[-1] != n:      # a whole input: the rank's block of it
+        lo = tp.rank * n
+        y = tp.enter(y)[..., lo:lo + n]
+    return tp.exit(_proj(y, w))
+
+
+def _out_proj(cfg: ModelConfig, p, out, tp: TensorParallel = None):
+    """(B, S, H, Dh) @ wo (H, Dh, d), then the post-attention norm (on a
+    split ``wo``: the rank's heads, summed over the ranks)."""
     H, Dh, d = p["wo"].shape
-    out = _proj(out.reshape(*out.shape[:-2], H * Dh), p["wo"].reshape(
-        H * Dh, d))
+    out = _row_out(tp or NO_TP, out.reshape(*out.shape[:-2], -1),
+                   p["wo"].reshape(H * Dh, d), "wo")
     if cfg.post_norms:
         out = rmsnorm(out, p["post_attn_norm"], cfg.norm_eps)
     return out
 
 
 def _attn_block(cfg: ModelConfig, p, x, positions, window: int, *,
-                causal: bool = True):
+                causal: bool = True, tp: TensorParallel = None):
     """Full-sequence attention sub-block (training, prefill and the
     encoder, which is not causal).  Returns (out, (k, v)), the roped k and
-    v for the cache."""
+    v for the cache (on this rank's kv heads where the rules split them,
+    else whole)."""
+    tp = tp or NO_TP
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    q, k, v = _project_qkv(cfg, p, h)
+    q, k, v = _project_qkv(cfg, p, h, tp)
     bpos = positions.expand(x.shape[0], -1)
     q, kr = _rope_qk(cfg, q, k, bpos)
+    ka, va = _attn_kv(cfg, tp, kr, v)
     if (cfg.attn_impl == "flash" and causal and cfg.sliding_window == 0
             and cfg.local_global_ratio == 0):
-        out = ops.flash_attention_bshd(q, kr, v, causal=True)
+        out = ops.flash_attention_bshd(q, ka, va, causal=True)
     else:
-        out = mha_chunked(q, kr, v, q_positions=positions,
+        out = mha_chunked(q, ka, va, q_positions=positions,
                           k_positions=positions, window=window, causal=causal,
                           chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
                           remat_chunks=cfg.attn_remat,
                           scores_bf16=cfg.attn_scores_bf16)
-    return _out_proj(cfg, p, out), (kr, v)
+    return _out_proj(cfg, p, out, tp), (kr, v)
 
 
-def _cross_attn_block(cfg: ModelConfig, p, x, enc_out):
+def _cross_attn_block(cfg: ModelConfig, p, x, enc_out,
+                      tp: TensorParallel = None):
     """The encdec decoder's cross-attention to the encoder's output (no
     mask, no RoPE, the chunked path).  Returns (out, (k, v)), the cross K
-    and V for the cache."""
+    and V for the cache (the kv heads this rank's q heads read)."""
+    tp = tp or NO_TP
     h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-    q = _proj(h, p["wq_c"])
-    k, v = _proj(enc_out, p["wk_c"]), _proj(enc_out, p["wv_c"])
+    q = _proj(_col_in(tp, h, "wq_c"), p["wq_c"])
+    e = _col_in(tp, enc_out, "wk_c")
+    k, v = _attn_kv(cfg, tp, _proj(e, p["wk_c"]), _proj(e, p["wv_c"]),
+                    "wq_c", "wk_c")
     out = mha_chunked(q, k, v,
                       q_positions=torch.arange(x.shape[1], device=x.device),
                       k_positions=torch.arange(enc_out.shape[1],
                                                device=x.device), window=0,
                       causal=False, chunk_q=cfg.attn_chunk_q,
                       chunk_k=cfg.attn_chunk_k)
-    return _cross_out(p, out), (k, v)
+    return _cross_out(p, out, tp), (k, v)
 
 
-def _cross_out(p, out):
+def _cross_out(p, out, tp: TensorParallel = None):
     """(B, S, H, Dh) @ wo_c (H, Dh, d)."""
     H, Dh, d = p["wo_c"].shape
-    return _proj(out.reshape(*out.shape[:-2], H * Dh),
-                 p["wo_c"].reshape(H * Dh, d))
+    return _row_out(tp or NO_TP, out.reshape(*out.shape[:-2], -1),
+                    p["wo_c"].reshape(H * Dh, d), "wo_c")
 
 
-def _mlp_block(cfg: ModelConfig, p, x):
+def _mlp_block(cfg: ModelConfig, p, x, tp: TensorParallel = None):
+    """The gated MLP: gate and up column-parallel, down row-parallel
+    where the rules split ``mlp``."""
+    tp = tp or NO_TP
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
-    g = activation(cfg.act)(_proj(h, p["w_gate"]))
-    out = _proj(g * _proj(h, p["w_up"]), p["w_down"])
+    hi = _col_in(tp, h, "w_gate")
+    g = activation(cfg.act)(_proj(hi, p["w_gate"]))
+    out = _row_out(tp, g * _proj(hi, p["w_up"]), p["w_down"], "w_down")
     if cfg.post_norms:
         out = rmsnorm(out, p["post_mlp_norm"], cfg.norm_eps)
     return out
@@ -336,11 +410,12 @@ def _ssm_kw(cfg: ModelConfig) -> dict:
                 d_conv=cfg.d_conv, n_groups=cfg.ssm_groups)
 
 
-def _ssm_decode(cfg: ModelConfig, p, h, cache: dict, i: int):
+def _ssm_decode(cfg: ModelConfig, p, h, cache: dict, i: int,
+                tp: TensorParallel = None):
     """The SSM mixer's decode step on layer ``i``'s state and conv tail,
     which it replaces in ``cache``; returns the mixer's output."""
     out, cache["state"][i], cache["conv"][i] = ssm_lib.apply_ssm_decode(
-        p, h, cache["state"][i], cache["conv"][i], **_ssm_kw(cfg))
+        p, h, cache["state"][i], cache["conv"][i], tp=tp, **_ssm_kw(cfg))
     return out
 
 
@@ -350,43 +425,48 @@ def _branch_mix(cfg: ModelConfig, p, attn_out, ssm_out):
                   + rmsnorm(ssm_out, p["ssm_branch_norm"], cfg.norm_eps))
 
 
-def _moe_block(cfg: ModelConfig, p, x, capacity_factor: float):
+def _moe_block(cfg: ModelConfig, p, x, capacity_factor: float,
+               tp: TensorParallel = None):
     """The moe family's feed-forward: (out, {"moe_aux_loss": ...})."""
     h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
     return moe_lib.apply_moe(p, h, top_k=cfg.experts_per_token,
                              capacity_factor=capacity_factor,
                              act=activation(cfg.act), routing=cfg.routing,
-                             groups=cfg.moe_groups)
+                             groups=cfg.moe_groups, tp=tp)
 
 
 def _apply_block(cfg: ModelConfig, p, x, positions, window: int, *,
-                 causal: bool = True, enc_out=None):
+                 causal: bool = True, enc_out=None,
+                 tp: TensorParallel = None):
     """One block, training and prefill path (an encoder block with
     ``causal=False``; the encdec decoder's with ``enc_out``).  Returns (x,
     the family's cache seeds, the MoE aux loss or None): seeds (k, v) for
     dense and moe, (state, conv_tail) for ssm, (k, v, state, conv_tail)
-    for hybrid, (k, v, cross_k, cross_v) for encdec."""
+    for hybrid, (k, v, cross_k, cross_v) for encdec.  ``tp``: the
+    ``model`` axis that splits ``p``'s leaves (default: none)."""
+    tp = tp or NO_TP
     if cfg.family == "ssm":
         h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
-        out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
+        out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk, tp=tp,
                                        **_ssm_kw(cfg))
         return x + out, seeds, None
-    attn_out, kv = _attn_block(cfg, p, x, positions, window, causal=causal)
+    attn_out, kv = _attn_block(cfg, p, x, positions, window, causal=causal,
+                               tp=tp)
     if cfg.family == "hybrid":
         h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-        ssm_out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk,
+        ssm_out, seeds = ssm_lib.apply_ssm(p, h, chunk=cfg.ssm_chunk, tp=tp,
                                            **_ssm_kw(cfg))
         x = x + _branch_mix(cfg, p, attn_out, ssm_out)
-        return x + _mlp_block(cfg, p, x), kv + seeds, None
+        return x + _mlp_block(cfg, p, x, tp), kv + seeds, None
     x = x + attn_out
     if enc_out is not None:
-        out, cross_kv = _cross_attn_block(cfg, p, x, enc_out)
+        out, cross_kv = _cross_attn_block(cfg, p, x, enc_out, tp)
         x = x + out
         kv = kv + cross_kv
     if cfg.family == "moe":
-        out, aux = _moe_block(cfg, p, x, cfg.capacity_factor)
+        out, aux = _moe_block(cfg, p, x, cfg.capacity_factor, tp)
         return x + out, kv, aux["moe_aux_loss"]
-    return x + _mlp_block(cfg, p, x), kv, None
+    return x + _mlp_block(cfg, p, x, tp), kv, None
 
 
 # ---------------------------------------------------------------------------
@@ -424,15 +504,29 @@ class LM(nn.Module):
     router staying float32, or cast a dense tree with
     ``params.cast_tree``); ``trainable=True`` makes
     them require grad, for float32 master parameters as the reference
-    trains them."""
+    trains them.
+
+    On a ``mesh`` (a ``DeviceMesh`` with a ``model`` axis larger than 1)
+    the model is tensor-parallel: each rank holds the ``model`` shard of
+    each leaf that ``logical_to_spec`` splits under ``rules`` (default:
+    the reference's), drawn as that block of the seed's leaf or sliced
+    out of a whole ``params`` tree, and the layers insert the sums over
+    the axis that the reference's partitioner inserts
+    (``distributed.sharding.TensorParallel``)."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 seed: int = 0, device="cuda", trainable: bool = False):
+                 seed: int = 0, device="cuda", trainable: bool = False,
+                 mesh=None, rules: ShardingRules | None = None):
         super().__init__()
         self.cfg = cfg
         self.defs = build_defs(cfg)
+        self.mesh = mesh
+        self.tp = TensorParallel.of(self.defs, mesh, rules)
         if params is None:
-            params = init_params(self.defs, seed=seed, device=device)
+            params = init_params(self.defs, seed=seed, device=device,
+                                 tp=self.tp)
+        else:
+            params = self._local_tree(params, self.defs)
         tree = tree_map(lambda t: nn.Parameter(t, requires_grad=trainable),
                         params)
         self.embed = tree["embed"]
@@ -462,6 +556,19 @@ class LM(nn.Module):
         # the reference multiplies by sqrt(d) rounded to bf16
         self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
                                                dtype=COMPUTE_DTYPE))
+
+    def _local_tree(self, tree: dict, defs: dict) -> dict:
+        """``tree`` with each leaf that ``self.tp`` splits cut to this
+        rank's shard (a leaf already cut is kept)."""
+        out = {}
+        for k, t in tree.items():
+            if isinstance(t, dict):
+                out[k] = self._local_tree(t, defs[k])
+                continue
+            dim = self.tp.dims.get(k)
+            whole = self.tp.sharded(k) and t.shape[dim] == defs[k].shape[dim]
+            out[k] = self.tp.local(k, t).contiguous() if whole else t
+        return out
 
     def active_param_count(self) -> int:
         """Parameters a token uses: the expert weights of the
@@ -500,27 +607,42 @@ class LM(nn.Module):
 
     def _embed(self, x):
         """Token ids, or (with ``cfg.embeds_input``) float embeddings
-        taken as they are, in the compute dtype."""
+        taken as they are, in the compute dtype.  On a vocab-split table
+        each rank looks up the ids it holds and the rows are summed over
+        the ranks."""
         if self.cfg.embeds_input and x.is_floating_point():
             x = x.to(COMPUTE_DTYPE)
         else:
-            x = embed_lookup(self.embed, x, COMPUTE_DTYPE)
+            x = embed_lookup(self.embed, x, COMPUTE_DTYPE, self.tp)
         if self.cfg.embed_scale:
             x = x * self._embed_scale
         return x
 
-    def _logits(self, x):
+    def vocab_split(self) -> bool:
+        """Whether the logits' vocab is split over the ``model`` ranks."""
+        return self.tp.sharded("embed" if self.cfg.tie_embeddings
+                               else "unembed")
+
+    def _logits(self, x, whole: bool = True):
+        """float32 logits (B, S, V) of the last hidden states, computed in
+        the compute dtype; on a vocab-split table this rank's block of V,
+        gathered whole over the ranks unless ``whole`` is False."""
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        split = self.vocab_split()
+        if split:
+            x = self.tp.enter(x)
         if self.cfg.tie_embeddings:
             w = self.embed.to(COMPUTE_DTYPE)             # (V, d)
             logits = x @ w.T
         else:
             logits = x @ self.unembed.to(COMPUTE_DTYPE)
+        if split and whole:
+            logits = self.tp.gather(logits, -1)
         return logits.float()
 
     def _enc_block(self, x, positions, i: int):
         return _apply_block(self.enc_cfg, self._enc_layer(i), x, positions,
-                            -1, causal=False)[0]
+                            -1, causal=False, tp=self.tp)[0]
 
     def _encode(self, batch: dict):
         """The encdec family's encoder over ``batch["src_embeds"]`` (B,
@@ -539,19 +661,22 @@ class LM(nn.Module):
 
     def _train_block(self, x, positions, i: int, enc_out):
         x, _, aux = _apply_block(self.cfg, self._layer(i), x, positions,
-                                 self._windows[i], enc_out=enc_out)
+                                 self._windows[i], enc_out=enc_out,
+                                 tp=self.tp)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, whole_logits: bool = True):
         """Training forward: ``batch["tokens"]`` (B, S) or
         ``batch["embeds"]`` (B, S, d), and ``batch["src_embeds"]`` for
         encdec -> (logits (B, S, V) float32, {"moe_aux_loss": the layers'
         summed load-balancing losses, 0 outside the moe family}), the
         reference's ``LM.forward``.  Each block is rematerialized under
         ``cfg.remat``: "full" recomputes it in the backward, "dots" keeps
-        its no-batch products' outputs and recomputes the rest."""
+        its no-batch products' outputs and recomputes the rest.  With
+        ``whole_logits`` False a vocab-split model returns this rank's
+        block of V (the vocab-parallel cross-entropy's input)."""
         enc_out = self._encode(batch)
         x = self._embed(batch.get("embeds", batch.get("tokens")))
         positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -561,23 +686,40 @@ class LM(nn.Module):
             x, aux = _remat(self.cfg.remat, self._train_block, x, positions,
                             i, enc_out)
             auxes.append(aux)
-        return self._logits(x), {"moe_aux_loss": torch.stack(auxes).sum()}
+        return (self._logits(x, whole_logits),
+                {"moe_aux_loss": torch.stack(auxes).sum()})
 
-    def init_cache(self, B: int, S: int, src_len: int = 0) -> dict:
+    def _kv_heads(self) -> int:
+        """The kv heads this rank's attention reads (its cache holds them
+        outside the sequence-sharded decode)."""
+        cfg, pick = self.cfg, _kv_pick(self.cfg, self.tp)
+        if pick is None:
+            return cfg.num_kv_heads // (self.tp.size if self.tp.sharded("wk")
+                                        else 1)
+        return pick.stop - pick.start if isinstance(pick, slice) \
+            else len(pick)
+
+    def init_cache(self, B: int, S: int, src_len: int = 0,
+                   whole_kv: bool = False) -> dict:
         """A zero bf16 cache of the family's leaves on the model's device:
         K and V (L, B, S, Hkv, Dh); the SSM state (L, B, H, P, N) and conv
         tail (L, B, d_conv - 1, conv_dim), which do not depend on S; the
-        cross K and V (L, B, ``src_len``, Hkv, Dh)."""
-        cfg = self.cfg
+        cross K and V (L, B, ``src_len``, Hkv, Dh).  On a tensor-parallel
+        model the heads and channels are this rank's (``Hkv`` the kv heads
+        its attention reads, or every kv head with ``whole_kv``: the
+        sequence-sharded decode's)."""
+        cfg, tp = self.cfg, self.tp
         L = cfg.num_layers
-        kv = (L, B, S, cfg.num_kv_heads, cfg.head_dim)
-        cross = (L, B, src_len, cfg.num_kv_heads, cfg.head_dim)
+        hkv = cfg.num_kv_heads if whole_kv else self._kv_heads()
+        kv = (L, B, S, hkv, cfg.head_dim)
+        cross = (L, B, src_len, self._kv_heads(), cfg.head_dim)
         shapes = {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
         if cfg.ssm_heads:
-            shapes["state"] = (L, B, cfg.ssm_heads,
-                               cfg.d_inner // cfg.ssm_heads, cfg.ssm_state)
-            shapes["conv"] = (L, B, cfg.d_conv - 1, cfg.d_inner
-                              + 2 * cfg.ssm_groups * cfg.ssm_state)
+            H = cfg.ssm_heads // (tp.size if tp.sharded("A_log") else 1)
+            P = cfg.d_inner // cfg.ssm_heads
+            shapes["state"] = (L, B, H, P, cfg.ssm_state)
+            shapes["conv"] = (L, B, cfg.d_conv - 1,
+                              H * P + 2 * cfg.ssm_groups * cfg.ssm_state)
         return {n: torch.zeros(shapes[n], dtype=COMPUTE_DTYPE,
                                device=self.embed.device)
                 for n in CACHE_LEAVES[cfg.family]}
@@ -589,20 +731,31 @@ class LM(nn.Module):
         seeds into a fresh cache: K and V at the first S of ``cache_len``
         positions (default: the prompt length), the SSM state and conv
         tail whole, the cross K and V at the source's S_src positions.
-        On a ``mesh`` whose decode shards the sequence (``seq_shards``)
-        the K and V come back as DTensors split on S (``shard_cache``).
+        On a ``mesh`` (a tensor-parallel model's own by default) whose
+        decode shards the sequence (``seq_shards``) the K and V hold every
+        kv head and come back as DTensors split on S (``shard_cache``).
         Returns (last-position logits (B, 1, V) float32, cache)."""
+        mesh = mesh if mesh is not None else self.mesh
         enc_out = self._encode(batch)
         x = self._embed(batch.get("embeds", batch.get("tokens")))
         B, S = x.shape[:2]
+        S_total = S if cache_len is None else cache_len
+        whole_kv = seq_shards(mesh, S_total) > 1
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        cache = self.init_cache(B, S if cache_len is None else cache_len,
-                                0 if enc_out is None else enc_out.shape[1])
+        cache = self.init_cache(B, S_total,
+                                0 if enc_out is None else enc_out.shape[1],
+                                whole_kv)
+        pick = _kv_pick(self.cfg, self.tp)
         for i, window in enumerate(self._windows):
             x, seeds, _ = _apply_block(self.cfg, self._layer(i), x,
-                                       positions, window, enc_out=enc_out)
+                                       positions, window, enc_out=enc_out,
+                                       tp=self.tp)
             for name, seed in zip(CACHE_LEAVES[self.cfg.family], seeds):
                 if name in ("k", "v"):
+                    if not whole_kv:
+                        seed = take_groups(seed, pick, 2)
+                    elif self.tp.sharded("wk"):
+                        seed = self.tp.gather(seed, 2)
                     cache[name][i, :, :S] = seed
                 else:
                     cache[name][i] = seed
@@ -637,14 +790,18 @@ class LM(nn.Module):
         position]); the SSM state and conv tail advance one step; the
         encdec family attends to its whole cross K and V.  K and V split
         on S over a mesh (``shard_cache``) take the sequence-sharded
-        attention.  Updates ``cache`` in place; returns (logits (B, 1, V)
-        float32, cache)."""
-        cfg = self.cfg
+        attention, on every q and kv head (a tensor-parallel model
+        gathers its heads first, as the reference's whole-head ``qspec``
+        does); otherwise the decode kernel runs on this rank's heads.
+        Updates ``cache`` in place; returns (logits (B, 1, V) float32,
+        cache)."""
+        cfg, tp = self.cfg, self.tp
         kv = cache.get("k")
         sharded = None
         if hasattr(kv, "device_mesh"):                  # a DTensor
             sharded = sharded_decode_attention(kv.device_mesh)
             kv_local = {n: cache[n].to_local() for n in ("k", "v")}
+        pick = _kv_pick(cfg, tp)
         x = self._embed(tokens)
         pos = torch.full((x.shape[0], 1), position, dtype=torch.int32,
                          device=x.device)
@@ -652,26 +809,33 @@ class LM(nn.Module):
             p = self._layer(i)
             if cfg.family == "ssm":
                 h = rmsnorm(x, p["ssm_norm"], cfg.norm_eps)
-                x = x + _ssm_decode(cfg, p, h, cache, i)
+                x = x + _ssm_decode(cfg, p, h, cache, i, tp)
                 continue
             h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-            q, k_new, v_new = _project_qkv(cfg, p, h)
+            q, k_new, v_new = _project_qkv(cfg, p, h, tp)
             q, k_new = _rope_qk(cfg, q, k_new, pos)
             if sharded is not None:
+                # every q and kv head, in one collective
+                split = [t for t, n in ((q, "wq"), (k_new, "wk"),
+                                        (v_new, "wv")) if tp.sharded(n)]
+                whole = iter(tp.gather_many(split, 2))
+                q, k_new, v_new = (next(whole) if tp.sharded(n) else t
+                                   for t, n in ((q, "wq"), (k_new, "wk"),
+                                                (v_new, "wv")))
                 out = sharded(q[:, 0], k_new, v_new, kv_local["k"][i],
                               kv_local["v"][i], position, window)
             else:
                 ck, cv = cache["k"][i], cache["v"][i]
-                ck[:, position] = k_new[:, 0]
-                cv[:, position] = v_new[:, 0]
+                ck[:, position] = take_groups(k_new, pick, 2)[:, 0]
+                cv[:, position] = take_groups(v_new, pick, 2)[:, 0]
                 out = decode_attention_local(q[:, 0], ck, cv, position + 1,
                                              window=window)
-            attn_out = _out_proj(cfg, p, out[:, None])
+            attn_out = _out_proj(cfg, p, out[:, None], tp)
             if cfg.family == "hybrid":
                 # the SSM branch reads the same normalized input
-                ssm_out = _ssm_decode(cfg, p, h, cache, i)
+                ssm_out = _ssm_decode(cfg, p, h, cache, i, tp)
                 x = x + _branch_mix(cfg, p, attn_out, ssm_out)
-                x = x + _mlp_block(cfg, p, x)
+                x = x + _mlp_block(cfg, p, x, tp)
                 continue
             x = x + attn_out
             if cfg.family == "encdec":
@@ -680,10 +844,11 @@ class LM(nn.Module):
                            p["wq_c"])
                 out = decode_attention_local(qc[:, 0], xk, xv, xk.shape[1],
                                              window=0)
-                x = x + _cross_out(p, out[:, None])
+                x = x + _cross_out(p, out[:, None], tp)
             if cfg.family == "moe":
-                out, _ = _moe_block(cfg, p, x, max(2.0, cfg.capacity_factor))
+                out, _ = _moe_block(cfg, p, x, max(2.0, cfg.capacity_factor),
+                                    tp)
                 x = x + out
             else:
-                x = x + _mlp_block(cfg, p, x)
+                x = x + _mlp_block(cfg, p, x, tp)
         return self._logits(x), cache

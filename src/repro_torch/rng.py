@@ -117,8 +117,28 @@ _SPAN = float(np.float32(1.0) - np.float32(_LO))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+def _flat_index(shape, local, dim: int, lo: int, start: int,
+                count: int, device) -> torch.Tensor:
+    """The row-major flat indices in a draw of ``shape`` of the entries
+    ``[start, start + count)`` of its block ``local`` (``shape`` with dim
+    ``dim`` cut to ``local[dim]`` entries from ``lo``)."""
+    pos = torch.arange(start, start + count, dtype=torch.int64,
+                       device=device)
+    idx = torch.zeros_like(pos)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        coord = pos % local[d]
+        pos = pos // local[d]
+        if d == dim:
+            coord = coord + lo
+        idx += coord * stride
+        stride *= shape[d]
+    return idx
+
+
 def normal(k: tuple[int, int], shape, *, device=None, out=None,
-           scale: float = 1.0, chunk: int = 2**26) -> torch.Tensor:
+           scale: float = 1.0, chunk: int = 2**26,
+           block: tuple[int, int] | None = None) -> torch.Tensor:
     """``scale * jax.random.normal(k, shape, float32)``, drawn ``chunk``
     entries at a time into ``out`` (a new float32 tensor on ``device``
     when None; any float dtype, contiguous).  As JAX draws it: the top 23
@@ -128,17 +148,36 @@ def normal(k: tuple[int, int], shape, *, device=None, out=None,
     ``init_params`` multiplies by its float scale, ``* scale``, all in
     float32.  A bf16 ``out`` holds the round-to-nearest of the float32
     draw, what the reference's ``astype`` at use gives.  ``erfinv`` may
-    round apart from XLA's in the last bits (a few float32 ulps)."""
+    round apart from XLA's in the last bits (a few float32 ulps).
+    ``block=(dim, lo)`` draws only the block of ``shape`` whose dim
+    ``dim`` starts at ``lo`` and has ``out``'s size there (a leaf's shard
+    on one rank: each entry the number the whole draw puts there)."""
     shape = tuple(int(d) for d in shape)
+    local = shape
+    if block is not None:
+        local = tuple(out.shape)
+        dim, lo = block
+        if len(local) != len(shape) or any(
+                a != b for i, (a, b) in enumerate(zip(local, shape))
+                if i != dim) or not 0 <= lo <= lo + local[dim] <= shape[dim]:
+            raise ValueError(f"normal: block {tuple(local)} at {lo} on dim "
+                             f"{dim} outside a draw of {shape}")
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=device)
-    if tuple(out.shape) != shape or not out.is_contiguous():
-        raise ValueError(f"normal: out must be contiguous of shape {shape}")
+    if tuple(out.shape) != local or not out.is_contiguous():
+        raise ValueError(f"normal: out must be contiguous of shape {local}")
     flat = out.view(-1)
     n = flat.numel()
     for start in range(0, n, chunk):
         c = min(chunk, n - start)
-        bits = random_bits(k, shape, flat.device, start=start, count=c)
+        if block is None:
+            bits = random_bits(k, shape, flat.device, start=start, count=c)
+        else:
+            idx = _flat_index(shape, local, block[0], block[1], start, c,
+                              flat.device)
+            x0, x1 = threefry2x32(k, idx >> 32, idx & MASK32)
+            bits = x0 ^ x1
+            del idx, x0, x1
         u = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(
             torch.int32).view(torch.float32)
         u = u.sub_(1.0).mul_(_SPAN).add_(_LO).clamp_min_(_LO)

@@ -6,19 +6,26 @@ a params tree.  ``train_step`` updates the parameters and the optimizer
 moments in place (the reference's donated state) and returns its metrics
 as tensors, so nothing waits for the device.
 
-On a process mesh (``launch.mesh.make_device_mesh``, its ``model`` axis
-of size 1: tensor parallelism is ROADMAP item 16, part 2) the training
-state is sharded as the reference's rules shard it: each parameter and
-its AdamW moments are DTensors with the placements that
+On a process mesh (``launch.mesh.make_device_mesh``) the training state
+is sharded as the reference's rules shard it: each parameter and its
+AdamW moments are DTensors with the placements that
 ``logical_to_spec(def.logical_axes, rules, mesh, def.shape)`` gives
-(``embed`` dims over ``data``: ZeRO).  Each step gathers the whole
-weights into the module's parameters (``full_tensor``), runs the forward
-and backward on this rank's rows of the batch, reduce-scatters the
-gradients' mean over the ``data`` ranks onto the shards (DTensor
-``Partial`` to the leaf's placements) and updates the shards; the loss
-and aux metrics are averaged over the ``data`` ranks, and the clip's
-norm is the global one.  The MoE family routes globally across the
-ranks (``moe.global_dispatch``), as the reference's ``groups=1``.
+(``embed`` dims over ``data``: ZeRO; ``heads``, ``kv_heads``, ``mlp``,
+``vocab``, ``experts`` and ``ssm_head`` over ``model`` where they
+divide).  The model is built on the same mesh (``LM(..., mesh=)``): its
+parameters hold each leaf's ``model`` shard, whole over ``data``, and
+its layers are tensor-parallel over ``model``.  Each step gathers each
+leaf over the ``data`` ranks only into the module's parameters, runs the
+forward and backward on this rank's rows of the batch, reduce-scatters
+the gradients' mean over the ``data`` ranks onto the shards (DTensor
+``Partial`` over ``data`` to the leaf's placements; each rank's
+gradient of its ``model`` shard is already whole over ``model``: the
+layers sum the parts over ``model`` where a whole tensor enters a
+rank's shard) and updates the shards; the loss and aux metrics are
+averaged over the ``data`` ranks, and the clip's norm is the global
+one.  The MoE family routes globally across the ``data`` ranks
+(``moe.global_dispatch``), as the reference's ``groups=1``, and runs
+each rank's experts.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import ShardingRules, tree_placements
+from repro_torch.distributed.sharding import (ShardingRules, mesh_sizes,
+                                              model_slice, tree_placements)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import LM
 from repro_torch.models.params import tree_leaves
@@ -56,6 +64,21 @@ def cross_entropy_sharded(logits, labels):
 CE_IMPLS = {"gather": cross_entropy, "sharded": cross_entropy_sharded}
 
 
+def cross_entropy_vocab_parallel(logits, labels, tp):
+    """``cross_entropy_sharded`` on logits whose vocab ``tp`` splits:
+    ``logits`` (B, S, V / M) is this rank's block.  The max over the
+    vocab (no gradient: it cancels), the sum of exponentials and the
+    label's logit (an iota-compare mask on the rank's block) are each
+    summed over the ``model`` ranks."""
+    m = tp.max(logits.amax(dim=-1))
+    sumexp = tp.exit(torch.exp(logits - m[..., None]).sum(dim=-1))
+    lo = tp.rank * logits.shape[-1]
+    vocab = lo + torch.arange(logits.shape[-1], device=logits.device)
+    picked = tp.exit(torch.where(vocab == labels.long()[..., None], logits,
+                                 0.0).sum(dim=-1))
+    return torch.mean(torch.log(sumexp) + m - picked)
+
+
 def build_train_step(model: LM, optimizer: Optimizer, mesh=None,
                      rules: ShardingRules | None = None, *,
                      microbatches: int = 1, ce: str = "gather"):
@@ -74,10 +97,16 @@ def build_train_step(model: LM, optimizer: Optimizer, mesh=None,
     reference's) are those ``init_train_state`` took."""
     ce_fn = CE_IMPLS[ce]
     dp = _DataParallel(model, mesh) if mesh is not None else None
+    # vocab-parallel: the logits stay split over the model ranks
+    split_ce = ce == "sharded" and model.vocab_split()
 
     def grad_fn(params: list, batch: dict):
-        logits, aux = model(batch)
-        loss = ce_fn(logits, batch["labels"])
+        logits, aux = model(batch, whole_logits=not split_ce)
+        if split_ce:
+            loss = cross_entropy_vocab_parallel(logits, batch["labels"],
+                                                model.tp)
+        else:
+            loss = ce_fn(logits, batch["labels"])
         moe_aux = aux["moe_aux_loss"]
         # a leaf the loss does not reach (the untied ``embed`` table under
         # an ``embeds`` batch) gets a zero gradient, as jax.value_and_grad
@@ -129,28 +158,48 @@ def _unflatten(tree, leaves):
 
 
 class _DataParallel:
-    """The gather, the gradients' reduce-scatter and the metrics' mean of
-    a train step on a process mesh."""
+    """The gather over ``data``, the gradients' reduce-scatter and the
+    metrics' mean of a train step on a process mesh.  With one ``data``
+    rank nothing crosses it (ranks that share a card run gloo, which
+    serves only ``all_reduce`` and ``broadcast`` on CUDA tensors)."""
 
     def __init__(self, model: LM, mesh):
+        _check_layout(model, mesh)
         self.model, self.mesh = model, mesh
         self.group = mesh.get_group("data")
         self.ranks = dist.get_world_size(self.group)
 
-    def grads(self, local_grads, tree: dict, batch: dict):
-        from torch.distributed.tensor import DTensor, Partial, Replicate
+    def _data_whole(self, placements) -> list:
+        from torch.distributed.tensor import Replicate
 
-        full = tree_leaves(self.model.param_tree())
+        return [Replicate() if a == "data" else pl
+                for a, pl in zip(self.mesh.mesh_dim_names, placements)]
+
+    def grads(self, local_grads, tree: dict, batch: dict):
+        from torch.distributed.tensor import DTensor, Partial
+
+        local = tree_leaves(self.model.param_tree())
         shards = tree_leaves(tree)
         with torch.no_grad():
-            for f, sh in zip(full, shards):
-                f.copy_(sh.full_tensor())
+            for f, sh in zip(local, shards):
+                if self.ranks > 1:
+                    sh = sh.redistribute(self.mesh,
+                                         self._data_whole(sh.placements))
+                f.copy_(sh.to_local())
         with moe_lib.global_dispatch(self.group):
-            grads, metrics = local_grads(full, batch)
-        partial = [Partial("sum") if a == "data" else Replicate()
-                   for a in self.mesh.mesh_dim_names]
+            grads, metrics = local_grads(local, batch)
+        if self.ranks == 1:
+            grads = [DTensor.from_local(g, self.mesh, sh.placements,
+                                        run_check=False, shape=sh.shape,
+                                        stride=sh.stride())
+                     for g, sh in zip(grads, shards)]
+            return grads, metrics
         # the mean over the data ranks, scattered onto each leaf's shards
-        grads = [DTensor.from_local(g / self.ranks, self.mesh, partial)
+        grads = [DTensor.from_local(
+                    g / self.ranks, self.mesh,
+                    [Partial("sum") if a == "data" else pl for a, pl in zip(
+                        self.mesh.mesh_dim_names, sh.placements)],
+                    run_check=False, shape=sh.shape, stride=sh.stride())
                  .redistribute(self.mesh, sh.placements)
                  for g, sh in zip(grads, shards)]
         metrics = dict(metrics)
@@ -161,42 +210,68 @@ class _DataParallel:
         return grads, metrics
 
 
+def _check_layout(model: LM, mesh) -> None:
+    if mesh_sizes(mesh).get("model", 1) > 1 and model.mesh is None:
+        raise ValueError("a mesh with a 'model' axis larger than 1 trains "
+                         "a tensor-parallel LM: build it with "
+                         "LM(..., mesh=mesh)")
+
+
 def init_train_state(model: LM, optimizer: Optimizer, mesh=None,
                      rules: ShardingRules | None = None) -> dict:
     """``{"params": ..., "opt": optimizer.init(...), "step": 0}``.
     Without a mesh the parameters are the model's own, updated in place.
     On a ``mesh`` each parameter is a DTensor holding this rank's shard
-    of the model's (every rank drew the whole leaf from the seed: the
-    reference's weights) under ``rules`` (default: the reference's), and
-    the moments are sharded alike (see the module docstring)."""
+    of the model's leaf (the module holds its ``model`` shard, drawn from
+    the seed: the reference's weights) under ``rules`` (default: the
+    reference's), and the moments are sharded alike (see the module
+    docstring)."""
     params = model.param_tree()
     if mesh is not None:
+        _check_layout(model, mesh)
         params = shard_tree(params, tree_placements(
-            model.defs, rules or ShardingRules.default(), mesh), mesh)
+            model.defs, rules or ShardingRules.default(), mesh), mesh,
+            model.defs)
     return {"params": params, "opt": optimizer.init(params), "step": 0}
 
 
-def shard_tree(tree: dict, placements: dict, mesh) -> dict:
-    """Each leaf of ``tree`` (whole on every rank) as a DTensor with its
-    ``placements``, this rank's shard copied out of it."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+def shard_tree(tree: dict, placements: dict, mesh, defs: dict) -> dict:
+    """Each leaf of ``tree`` (its ``model`` shard under ``placements``,
+    or the whole leaf where ``model`` does not split it) as a DTensor of
+    the ``ParamDef`` tree ``defs``' shape with its ``placements``, this
+    rank's ``data`` shard copied out of it."""
+    from torch.distributed.tensor import DTensor
 
-    def one(t, pl):
-        d = distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
-        return DTensor.from_local(d.to_local().clone(), mesh, pl,
-                                  run_check=False)
+    names = mesh.mesh_dim_names
+
+    def one(t, pl, d):
+        for axis, p in zip(names, pl):
+            if axis == "data" and p.is_shard():
+                t = model_slice(t, p.dim, mesh.get_local_rank("data"),
+                                mesh.size(names.index("data")))
+        return DTensor.from_local(t.detach().clone(), mesh, pl,
+                                  run_check=False, shape=torch.Size(d.shape),
+                                  stride=_contiguous_stride(d.shape))
 
     if isinstance(tree, dict):
-        return {k: shard_tree(v, placements[k], mesh)
+        return {k: shard_tree(v, placements[k], mesh, defs[k])
                 for k, v in tree.items()}
-    return one(tree, placements)
+    return one(tree, placements, defs)
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, out = 1, []
+    for n in reversed(shape):
+        out.append(stride)
+        stride *= n
+    return tuple(reversed(out))
 
 
 def build_prefill_step(model: LM, cache_len: int | None = None, mesh=None):
     """``prefill_step(batch) -> (last logits (B, 1, V) float32, cache)``,
     the cache sized for ``cache_len`` positions (default: the prompt);
-    on a ``mesh`` whose decode shards the sequence, its K and V split on
-    S (``LM.shard_cache``)."""
+    on a ``mesh`` (a tensor-parallel model's own by default) whose decode
+    shards the sequence, its K and V split on S (``LM.shard_cache``)."""
 
     def prefill_step(batch):
         return model.prefill(batch, cache_len, mesh)
@@ -211,9 +286,13 @@ def build_serve_step(model: LM, mesh=None, rules=None):
     does.  On a ``DeviceMesh`` (``launch.mesh.make_device_mesh``) the
     decode takes the reference's sequence-sharded path where it does: the
     ``model`` axis larger than 1 and dividing the cache's S; a whole
-    cache given is split first (``LM.shard_cache``).  The weights stay
-    whole on every rank (``rules`` is the reference's argument; tensor
-    parallelism is ROADMAP item 16, part 2)."""
+    cache given is split first (``LM.shard_cache``).  The weights are
+    whole on every rank, or the ``model`` shards of a tensor-parallel
+    model (``LM(..., mesh=)``), which decodes on its own mesh by default
+    (``rules`` is the reference's argument: the model's layout took
+    its own)."""
+
+    mesh = mesh if mesh is not None else model.mesh
 
     def serve_step(tokens, cache, position: int):
         cache = model.shard_cache(cache, mesh)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import datetime
 import os
 import sys
+import time
 import traceback
 
 import torch
@@ -53,10 +54,11 @@ def _entry(rank: int, world: int, init_file: str, out_dir: str, task,
         os._exit(code)
 
 
-def run_ranks(task, world: int, tmp_dir, *args) -> list:
+def run_ranks(task, world: int, tmp_dir, *args,
+              timeout_s: float = JOIN_TIMEOUT_S) -> list:
     """``task(rank, world, *args)`` on ``world`` spawned gloo ranks;
     returns their results in rank order (raises with a rank's traceback
-    if one failed, or if one did not end within ``JOIN_TIMEOUT_S``)."""
+    if one failed, or if one did not end within ``timeout_s``)."""
     import torch.multiprocessing as mp
 
     tmp_dir = str(tmp_dir)
@@ -68,8 +70,9 @@ def run_ranks(task, world: int, tmp_dir, *args) -> list:
              for r in range(world)]
     for p in procs:
         p.start()
+    deadline = time.monotonic() + timeout_s
     for p in procs:
-        p.join(timeout=JOIN_TIMEOUT_S)
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
     for r in hung:
         procs[r].kill()
@@ -84,7 +87,7 @@ def run_ranks(task, world: int, tmp_dir, *args) -> list:
                                f"{r in hung}):\n{got['error']}")
         results.append(got["ok"])
     if hung:
-        raise RuntimeError(f"ranks {hung} did not end in {JOIN_TIMEOUT_S} s")
+        raise RuntimeError(f"ranks {hung} did not end in {timeout_s} s")
     return results
 
 
@@ -310,3 +313,231 @@ def _pairs(placements, mesh):
     if isinstance(placements, dict):
         return {k: _pairs(v, mesh) for k, v in placements.items()}
     return (mesh, placements)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp.py: tensor parallelism over the 'model' axis
+# ---------------------------------------------------------------------------
+
+TP_B, TP_S = 4, 16
+
+
+def tp_config(arch: str, derived: dict | None = None):
+    """The reduced config of ``arch`` (the chunked attention: the flash
+    path's plain version runs in float32 too, but the window archs take
+    the chunked path either way), with ``derived``'s fields replaced."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config(arch).reduced()
+    return dataclasses.replace(cfg, **(derived or {}))
+
+
+def as_inputs(batch: dict, dtype) -> dict:
+    """``make_batch``'s float inputs rounded to bf16, as it makes them,
+    then cast to ``dtype`` (``shapes`` binds the activation dtype when it
+    is first imported: a process that imported it while a test had set
+    float32 would hand out other numbers than a fresh rank does)."""
+    return {k: v.to(torch.bfloat16).to(dtype) if v.is_floating_point()
+            else v for k, v in batch.items()}
+
+
+def tp_batch(cfg, dtype) -> dict:
+    """The test's global batch: ``make_batch`` at (TP_B, TP_S), float
+    inputs in ``dtype`` (``as_inputs``)."""
+    from repro_torch.launch.shapes import make_batch
+
+    return as_inputs(make_batch(cfg, TP_B, TP_S, kind="train"), dtype)
+
+
+class _Recording:
+    """An optimizer that keeps the gradients it is given (whole: a
+    DTensor gathered) and their global norm (AdamW's clip, over the
+    shards) and leaves the parameters as they are."""
+
+    def __init__(self):
+        from repro_torch.optim import Optimizer
+
+        self.grads = None
+
+        def update(grads, opt_state, params, step):
+            from repro_torch.models.params import tree_map
+            from repro_torch.optim.adamw import clip_by_global_norm
+
+            norm = clip_by_global_norm(grads, 1.0)[1]
+            self.grads = tree_map(
+                lambda g: (g.full_tensor() if hasattr(g, "full_tensor")
+                           else g).detach().clone(), grads)
+            return {"grad_norm": norm, "lr": torch.zeros(())}
+
+        self.opt = Optimizer(init=lambda p: {}, update=update)
+
+
+def _rows(batch: dict, rank: int, ranks: int) -> dict:
+    n = TP_B // ranks
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
+def tp_grads_task(rank: int, world: int, cases: list) -> dict:
+    """For each (name, arch, derived, shape) case: the whole logits of
+    this rank's rows, the loss and every leaf's whole gradient of one
+    float32 train step on the ``shape`` mesh, and this rank's local shard
+    of every leaf of the train state with its spec."""
+    import dataclasses
+
+    from repro_torch.distributed.sharding import (ShardingRules,
+                                                  logical_to_spec)
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.params import init_params, tree_leaves, tree_map
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    saved = transformer.COMPUTE_DTYPE
+    transformer.COMPUTE_DTYPE = torch.float32
+    rules = ShardingRules.default()
+    out = {}
+    for name, arch, derived, shape in cases:
+        cfg = tp_config(arch, derived)
+        mesh = make_device_mesh(shape, device="cpu")
+        model = LM(cfg, device="cpu", trainable=True, mesh=mesh,
+                   rules=rules)
+        d = mesh.get_local_rank("data")
+        batch = _rows(tp_batch(cfg, torch.float32), d, shape[0])
+        with torch.no_grad(), moe.global_dispatch(mesh.get_group("data")):
+            logits = model(batch)[0]
+        rec = _Recording()
+        step = build_train_step(model, rec.opt, mesh, rules)
+        state = init_train_state(model, rec.opt, mesh, rules)
+        shards = {}
+        for k, t in zip(_names(model.defs), tree_leaves(state["params"])):
+            dd = _def_at(model.defs, k)
+            shards[k] = (logical_to_spec(dd.logical_axes, rules, mesh,
+                                         dd.shape), t.to_local().clone())
+        _, metrics = step(state, batch)
+        # the reference's whole tree carried across, cut to this rank's
+        # shards: the leaves the model drew as its blocks, bit for bit
+        whole = init_params(model.defs, seed=0)
+        carried = lm_params_from_jax(tree_map(lambda t: t.numpy(), whole),
+                                     tp=model.tp)
+        drawn_equal = all(torch.equal(a, b.detach()) for a, b in zip(
+            tree_leaves(carried), tree_leaves(model.param_tree())))
+        out[name] = {"logits": logits, "loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "grads": rec.grads, "shards": shards,
+                     "carried_equal_drawn": drawn_equal,
+                     "kv_heads": model._kv_heads(),
+                     "tp": dict(model.tp.dims)}
+    transformer.COMPUTE_DTYPE = saved
+    return out
+
+
+def _names(tree, prefix="") -> list:
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _names(tree[k],
+                                                        f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _def_at(tree, name: str):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+TP_PROMPT, TP_GEN = 16, 4
+
+
+def tp_decode(model, cfg, batch, prompt: int, gen: int, cache_len: int):
+    """Greedy prefill and ``gen - 1`` decode steps through
+    ``build_prefill_step``/``build_serve_step`` on the model's own mesh
+    (none: one process): (ids (B, gen), every step's logits)."""
+    from repro_torch.train.steps import build_prefill_step, build_serve_step
+
+    logits, cache = build_prefill_step(model, cache_len)(batch)
+    step = build_serve_step(model)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    ids, all_logits = [tok], [logits[:, -1]]
+    for i in range(gen - 1):
+        logits, cache, nxt = step(tok, cache, prompt + i)
+        tok = nxt[:, None]
+        ids.append(tok)
+        all_logits.append(logits[:, -1])
+    return torch.cat(ids, 1), torch.stack(all_logits, 1), cache
+
+
+def tp_decode_task(rank: int, world: int, cases: list) -> dict:
+    """For each (name, arch, derived, dtype name, extra cache positions)
+    case: greedy decoding of ``make_batch``'s prompt on the (1, world)
+    mesh, the model tensor-parallel (rank 0 returns ids, logits and
+    whether the cache was split on S)."""
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.shapes import make_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import cast_tree, init_params
+    from repro_torch.models.transformer import LM, build_defs
+
+    mesh = make_device_mesh((1, world), device="cpu")
+    saved = transformer.COMPUTE_DTYPE
+    out = {}
+    for name, arch, derived, dtype, extra in cases:
+        transformer.COMPUTE_DTYPE = getattr(torch, dtype)
+        cfg = tp_config(arch, derived)
+        params = init_params(build_defs(cfg), seed=0)
+        if dtype == "bfloat16":
+            params = cast_tree(params, torch.bfloat16)
+        model = LM(cfg, params, device="cpu", mesh=mesh)
+        batch = as_inputs(make_batch(cfg, 2, TP_PROMPT, kind="prefill"),
+                          transformer.COMPUTE_DTYPE)
+        ids, logits, cache = tp_decode(model, cfg, batch, TP_PROMPT, TP_GEN,
+                                       TP_PROMPT + TP_GEN + extra)
+        out[name] = {"ids": ids, "logits": logits,
+                     "split": hasattr(cache.get("k"), "device_mesh")}
+    transformer.COMPUTE_DTYPE = saved
+    return out
+
+
+def tp_launch(argv: list, derived: dict | None = None):
+    """``launch.train.main(argv)`` on the CPU in this rank, ``--arch``'s
+    reduced config with ``derived``'s fields replaced."""
+    import dataclasses
+    import types
+
+    from repro_torch.launch import train
+    from repro_torch.models.registry import get_config
+
+    saved = train.get_config
+    if derived:
+        arch = argv[argv.index("--arch") + 1]
+        cfg = dataclasses.replace(get_config(arch).reduced(), **derived)
+        train.get_config = lambda _: types.SimpleNamespace(
+            family=cfg.family, reduced=lambda: cfg)
+    try:
+        return train.main(argv + ["--device", "cpu"])
+    finally:
+        train.get_config = saved
+
+
+def tp_task(rank: int, world: int, grads: list, decode: list, runs: dict,
+            ckpt: dict) -> dict:
+    """The tensor-parallel test's work on ``world`` ranks: the gradient
+    cases (``tp_grads_task``), the decode cases on (1, world)
+    (``tp_decode_task``), the launcher ``runs`` ({name: (argv,
+    derived)}) and the checkpoint flows ({name: (argv, derived, dir,
+    copy to)}: the run, then its directory copied for the next, in
+    order)."""
+    import shutil
+
+    out = {"grads": tp_grads_task(rank, world, grads),
+           "decode": tp_decode_task(rank, world, decode) if decode else {},
+           "runs": {}}
+    for name, (argv, derived) in runs.items():
+        out["runs"][name] = tp_launch(argv, derived)
+    for name, (argv, derived, where, copy) in ckpt.items():
+        out["runs"][name] = tp_launch(argv + ["--ckpt-dir", where], derived)
+        if copy and rank == 0:
+            shutil.copytree(where, copy)
+        dist.barrier()
+    return out

@@ -122,8 +122,9 @@ def test_serve_cli_without_gpu_fails_loudly():
 def test_cli_rejects_flags_of_later_slices():
     """``--backend isp`` (ROADMAP item 14), ``--storage-engine`` (item 13)
     and ``--mesh 4x1`` (item 16, part 1: the GNN's mesh of 4 shards, as
-    ``--devices 4``) run; ``--mesh 1x2`` (a ``model`` axis: item 16, part
-    2) exits 2."""
+    ``--devices 4``) run; so does ``--mesh 1x2`` (item 16, part 2a: the
+    GNN's ``model`` positions replicate, as the reference's do), with
+    the one-shard run's losses."""
     small = ["-m", "repro_torch.launch.train", "--device", "cpu", "--steps",
              "2", "--batch", "8", "--fanouts", "3,2", "--hidden", "16",
              "--log-every", "1"]
@@ -137,8 +138,15 @@ def test_cli_rejects_flags_of_later_slices():
     out = _run(small + ["--mesh", "4x1"])
     assert out.returncode == 0, out.stderr
     assert "mesh of 4 shard(s)" in out.stdout and out.stdout.count("loss=") == 2
+    one = _run(small)
     out = _run(small + ["--mesh", "1x2"])
-    assert out.returncode == 2 and "'data' only" in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert "mesh of 1 shard(s)" in out.stdout
+    losses = [ln.split("loss=")[1].split()[0]
+              for ln in out.stdout.splitlines() if "loss=" in ln]
+    assert len(losses) == 2 and losses == [
+        ln.split("loss=")[1].split()[0]
+        for ln in one.stdout.splitlines() if "loss=" in ln]
 
 
 def test_isp_server_process_imports_numpy_only(tmp_path):

@@ -160,8 +160,12 @@ def test_mesh_places_shards():
     m = _mesh(4)
     assert m.shape == {"data": 4, "model": 1}
     assert m.devices == (torch.device("cpu"),) * 4
-    with pytest.raises(ValueError, match="ROADMAP item 16"):
-        make_mesh((2, 2), ("data", "model"), device="cpu")
+    # a 'model' axis: the GNN's shards are the 'data' positions only
+    m22 = make_mesh((2, 2), ("data", "model"), device="cpu")
+    assert m22.shape == {"data": 2, "model": 2}
+    assert m22.devices == (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="size >= 1"):
+        make_mesh((2, 0), ("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="partitions"):
         ISPGraph(partition_graph(load_dataset("reddit"), 2), m)
 
@@ -207,15 +211,15 @@ def test_cli_isp_prints_the_pallas_losses(capsys):
 def test_cli_refuses_an_lm_mesh_and_trains_smoke_isp(capsys):
     """An LM's ``--devices 2`` is the (2, 1) process mesh (ROADMAP item
     16, part 1, ``tests/test_torch_lm_mesh.py`` trains it); a ``model``
-    axis in training stays refused (item 16, part 2)."""
+    axis in training is tensor parallelism (item 16, part 2a): ``--mesh
+    2x2`` parses to the (2, 2) process mesh and trains
+    (``tests/test_torch_tp.py`` holds its losses to the reference's)."""
     args = port_train.parse_args(["--device", "cpu", "--arch", "qwen2-0.5b",
                                   "--reduced", "--devices", "2"])
     assert args.mesh_dims == (2, 1) and args.pipeline_spec is None
-    with pytest.raises(SystemExit) as e:
-        port_train.parse_args(["--device", "cpu", "--arch", "qwen2-0.5b",
-                               "--reduced", "--mesh", "2x2"])
-    assert e.value.code == 2
-    assert "ROADMAP item 16, part 2" in capsys.readouterr().err
+    args = port_train.parse_args(["--device", "cpu", "--arch", "qwen2-0.5b",
+                                  "--reduced", "--mesh", "2x2"])
+    assert args.mesh_dims == (2, 2) and args.pipeline_spec is None
     _, losses, stats = port_train.main(
         ["--device", "cpu", "--spec",
          str(ROOT / "benchmarks" / "specs" / "smoke_isp.json"), "--steps",

@@ -136,5 +136,8 @@ def test_lm_cli_refuses_other_families_and_checkpoints():
                 "--reduced", "--steps", "1"])
     assert out.returncode == 2 and "src_embeds" in out.stderr
     out = _run(["--device", "cpu", "--arch", ARCH, "--reduced", "--mesh",
-                "1x2"])
-    assert out.returncode == 2 and "item 16, part 2" in out.stderr
+                "1x2", "--steps", "2", "--batch", "4", "--seq-len", "32",
+                "--log-every", "1"])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.count("loss=") == 2 and "1x2 mesh of 2 ranks" \
+        in out.stdout

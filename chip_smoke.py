@@ -202,9 +202,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      repr-equal, batches 0-7's ids equal, each tier's hits + misses
      equal, batches 0-2's ``trace.io`` equal the CPU's run of the same
      command, replay errors and timeouts 0; steps/s, misses, the cached
-     kernels' launches and the replay lane's seconds a window, and the
-     optimal run's steps/s again with the replay done before training.  b: the
-     R-MAT graph out of core (4 MB page cache, a device feature tier
+     kernels' launches and the replay lane's seconds a window (the
+     optimal run with its replay done before training is no longer
+     timed: phase 32 took its seconds).  b: the R-MAT graph out of core (4 MB page cache, a device feature tier
      sized between one batch's unique rows and the first window's union,
      no edge tier), batch 1024, fanouts 25,10, window 4, 4 steps,
      optimal against lru: losses equal, replay errors 0, the feature
@@ -270,7 +270,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      forward and backward on equal float32 inputs, card against CPU,
      within 1e-4 relative L2, then phase 13's step card against CPU in
      both activation types at phase 13's tolerances, its TF32 control
-     and its launches;
+     and its launches (both steps stop at their gradients: phase 13
+     holds the AdamW update);
   29. qwen2-vl-7b and seamless-m4t-large-v2, and training the SSM
      families.  a: serving on the card against the CPU's plain path, the
      first 2 layers of qwen2-vl and the first 2 encoder and 2 decoder
@@ -296,7 +297,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      ``SSDChunkScan``'s output and gradients on the card against autograd
      through the plain scan, float32 random inputs at mamba2's and
      hymba's layer-0 shapes cut to B 1, S 512, within 1e-4 relative L2;
-     then phase 13's step card against CPU in both activation types, its
+     then phase 13's step card against CPU in both activation types
+     (stopped at the gradients, as 28d's), its
      TF32 control and its launches for qwen2-vl's first 2 layers on an
      ``embeds`` batch (``embed``'s gradient 0 on both) and seamless's
      first 2 + 2 layers on ``make_batch(kind="train")``, both at 64
@@ -366,7 +368,23 @@ Phases, in order; any failure raises and the script exits nonzero:
      heads split 16 a rank (the SSD kernel launched once a rank at 16
      heads; the outputs within TP_LAYER_REL_TOL, the rank's block of the
      final state within TP_LAYER_REL_TOL);
-  32. a JSON line of the kernels' numbers (the GNN's per launch, with
+  32. the dry-run (``repro_torch.launch.dryrun``), which traces a step
+     on fake tensors.  a: each LM kernel entry of ``kernels.ops`` (the
+     flash forward, the flash backward's two kernels, ``decode_attention``
+     and ``ssd_chunk_scan``) on fake copies of phase 3's inputs: the
+     outputs' shapes, dtypes and strides equal the real launch's and the
+     FLOPs ``FlopCounterMode`` counts equal the operations behind phase
+     3's bounds.  b: the dry-run of phase 14's configuration (qwen2-0.5b,
+     flash, B 4 x S 4096, one process): its peak-memory estimate within
+     DRYRUN_PEAK_REL_TOL of phase 14's measured peak, and its bound step
+     time (the largest of the three H100 roofline terms) over phase 14's
+     measured step ms, the roofline fraction.  c: ``python -m
+     repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k`` on
+     the (16, 16) production mesh and with ``--multi-pod`` on (2, 16,
+     16), in two processes started in phase 3 (they trace on the host's
+     CPU while phase 3 builds its graphs, and end before it times a
+     kernel): each exits 0 with ``ok`` and its per-card bytes;
+  33. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them; the LM's launches in phases 28's
      and 29's runs beside the serve and train entry points'), the card
      line, and the result.  Each phase's start, in seconds from the
@@ -378,6 +396,7 @@ It needs one CUDA device and exits nonzero without one.  Details go to
 
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import functools
@@ -696,6 +715,11 @@ SSD_RAGGED_CASES = ((2, 96, 6, 24, 3, 40, 32), (1, 300, 4, 100, 2, 72, 100))
 # mamba2-370m's mixer on one rank of the (1, 2) mesh (phase 31c): 16 of
 # its 32 heads at B 8 x 2048, one group
 SSD_TP_CASE = (SERVE_BATCH, SERVE_PROMPT, 16, 64, 1, 128, 256)
+# phase 32b: the dry-run's peak-memory estimate of phase 14's step within
+# this of phase 14's measured peak (the prediction in PERF.md);
+# phase 32c's two cells each end within DRYRUN_CELL_TIMEOUT_S
+DRYRUN_PEAK_REL_TOL = 0.10
+DRYRUN_CELL_TIMEOUT_S = 600
 # H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
 # cores (used for the kernels' scalar integer and float work), the dense
 # bf16 tensor-core rate (the attention kernels' bf16 inputs) and the dense
@@ -778,6 +802,34 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S
     over the peak rate for their type, whichever is larger."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def flash_fwd_ops(B: int, S: int, Hq: int, D: int) -> int:
+    """The causal flash forward's operations: its two products over the
+    (S x S) / 2 visible pairs, 2 * B * Hq * S^2 * D."""
+    return 2 * B * Hq * S * S * D
+
+
+def flash_product(B: int, S: int, Hq: int, D: int, causal: bool) -> int:
+    """One (B, Hq) x pairs x D product of the flash backward: the dQ
+    kernel does 3 of them, the dK/dV kernel 4."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 2 * B * Hq * pairs * D
+
+
+def decode_ops(B: int, Hq: int, D: int, lo: int, hi: int) -> int:
+    """decode_attention's operations over the valid keys [lo, hi)."""
+    return 4 * B * Hq * (hi - lo) * D
+
+
+def ssd_products(b: int, s: int, h: int, p: int, g: int, n: int,
+                 chunk: int) -> int:
+    """The SSD scan's four products (C.B^T once per group, the scored x
+    per head on each chunk's i >= j half, the chunk states and the
+    inter-chunk term); the kernel does each three times (3xTF32)."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    return b * nc * (g * 2 * pairs * n + h * (2 * pairs * p + 4 * chunk * p * n))
 
 
 def launch_floor_ms(timer) -> float:
@@ -2291,20 +2343,6 @@ def _train_spec(spec, g, steps: int) -> dict:
         pipe.close()
 
 
-def _replayed_ahead(build):
-    """``build_pipeline`` whose replay lane has built the first two
-    windows before training starts: an 8-step run then trains with no
-    replay running beside it (what the lane's work costs the step)."""
-    def built(*a, **kw):
-        pipe = build(*a, **kw)
-        lane = pipe.loader._oracle
-        lane.advance(0)
-        while lane.stats()["windows_built"] < 2:
-            time.sleep(0.01)
-        return pipe
-    return built
-
-
 def oracle_phase(reddit, argv_ooc: list, synth) -> dict:
     """Phase 24a-b: the optimal (Belady) policies on the card.  a: phase
     8's command in both tiers against its lru twin; b: R-MAT out of core
@@ -2323,12 +2361,8 @@ def oracle_phase(reddit, argv_ooc: list, synth) -> dict:
         recs[pol] = []
         runs[pol] = _train_recorded(
             argv, _recording_ids(build_pipeline, recs[pol]))
-    ahead = _train_recorded(argvs["optimal"],
-                            _replayed_ahead(build_pipeline))
     lru, opt = runs["lru"], runs["optimal"]
     _check_replay(opt["loader"].get("oracle"), "phase 24a")
-    check(ahead["losses"] == lru["losses"],
-          "phase 24a: the replayed-ahead run's losses differ")
     check(opt["losses"] == lru["losses"],
           f"phase 24a: losses optimal {opt['losses']} vs lru {lru['losses']}")
     for a, b in zip(recs["lru"], recs["optimal"]):
@@ -2341,7 +2375,7 @@ def oracle_phase(reddit, argv_ooc: list, synth) -> dict:
     cpu = _cpu_batches(argvs["optimal"], reddit, HOST_COMPARED)
     _same_batches(recs["optimal"], cpu, "phase 24a optimal")
     window_s = _replay_window_s(argvs["optimal"], reddit)
-    for pol, r in (*runs.items(), ("optimal, replayed ahead", ahead)):
+    for pol, r in runs.items():
         print(f"[smoke] phase 24a: {pol}: {r['stats'].steps_per_s:.4f} "
               f"steps/s, consumer idle {r['stats'].idle_fraction:.4f}, "
               f"host s a batch by stage {r['loader']['stage_mean_s']}, "
@@ -2353,9 +2387,6 @@ def oracle_phase(reddit, argv_ooc: list, synth) -> dict:
           f"{opt['loader']['oracle']}, {window_s:.3f} s a window of 8 "
           f"on this host's CPU")
     out["a"] = {"argv": argvs, "window_s": window_s,
-                "replayed_ahead": {
-                    "steps_per_s": ahead["stats"].steps_per_s,
-                    "stage_mean_s": ahead["loader"]["stage_mean_s"]},
                 **{pol: {"losses": r["losses"],
                          "steps_per_s": r["stats"].steps_per_s,
                          "idle_fraction": r["stats"].idle_fraction,
@@ -2958,7 +2989,7 @@ def flash_case(timer, gen, B, S, Hq, Hkv, D, count) -> dict:
     check(err <= ATTN_OUT_TOL and lse_err <= LSE_TOL,
           f"flash_attention_fwd {(B, S, Hq, Hkv, D)}: out off by {err}, "
           f"lse by {lse_err}")
-    flops = 2 * B * Hq * S * S * D
+    flops = flash_fwd_ops(B, S, Hq, D)
     b, by = bound_ms(2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S,
                      flops, BF16_OPS_PER_S)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -3008,7 +3039,7 @@ def decode_case(timer, q, k, v, valid_len, window, count) -> dict:
     S, Hkv = k.shape[1], k.shape[2]
     lo, hi = valid_range(S, valid_len, window)
     nbytes = 4 * B * (hi - lo) * Hkv * D + 4 * B * Hq * D
-    b, by = bound_ms(nbytes, 4 * B * Hq * (hi - lo) * D, BF16_OPS_PER_S)
+    b, by = bound_ms(nbytes, decode_ops(B, Hq, D, lo, hi), BF16_OPS_PER_S)
     mask = torch.zeros((1, 1, 1, S), dtype=torch.bool, device=DEVICE)
     mask[..., lo:hi] = True
     q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
@@ -3077,8 +3108,7 @@ def flash_bwd_case(timer, gen, B, S, Hq, Hkv, D, causal, count) -> dict:
     check(max(lib_errs) <= LIB_GRAD_REL_TOL, f"the backward of "
           f"scaled_dot_product_attention {(B, S, Hq, Hkv, D, causal)} is "
           f"off the kernels by {lib_errs} of their largest entries")
-    pairs = S * (S + 1) // 2 if causal else S * S
-    product = 2 * B * Hq * pairs * D
+    product = flash_product(B, S, Hq, D, causal)
     rows = 4 * B * Hq * S                      # one float32 per query row
     qo_bytes, kv_bytes = 2 * B * S * Hq * D, 2 * B * S * Hkv * D
     # dQ: reads q, k, v, out, do, lse; writes dq and delta
@@ -3140,9 +3170,7 @@ def ssd_case(timer, x, dt, A, B, C, chunk, count, what) -> dict:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = s // chunk
-    pairs = chunk * (chunk + 1) // 2
-    products = b * nc * (g * 2 * pairs * n
-                         + h * (2 * pairs * p + 4 * chunk * p * n))
+    products = ssd_products(b, s, h, p, g, n, chunk)
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
                   + C.numel() + st.numel())
     bnd, by = bound_ms(nbytes, 3 * products, TF32_OPS_PER_S)
@@ -3910,7 +3938,8 @@ def _staged_parity(cfg, params, batch, tag: str, phase: str) -> dict:
 
 
 def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
-                  staged: bool = False, layers: int = PARITY_LAYERS) -> dict:
+                  staged: bool = False, layers: int = PARITY_LAYERS,
+                  update: bool = True) -> dict:
     """One training step of ``arch``'s first ``layers`` layers
     (``_first_layers``) on the card against the CPU's plain path, equal
     float32 weights, on ``batch_fn(cfg)`` (default: TRAIN_PARITY_BATCH
@@ -3926,7 +3955,9 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
     float32 every parameter after the AdamW step within Adam's bound of
     2 lr (the bf16 step stops at its gradients: the update is the same
     float32 arithmetic on the master weights, and the CPU's over a
-    vocabulary table costs 10-20 s on the card host).  A
+    vocabulary table costs 10-20 s on the card host; with ``update``
+    False the float32 step stops there too, as phases 28d and 29d take
+    it: phase 13 holds the update).  A
     control: the card's float32 step with TF32 products must fail those
     float32 checks, its grad norm or a leaf's gradient beyond its limit,
     or the check could not tell TF32 from float32 arithmetic (the
@@ -3957,10 +3988,12 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
                 out[impl] = _staged_parity(cfg, params, batch, tag, phase)
                 continue
             kernels.reset_launches()
-            card = _train_one_step(cfg, params, batch, DEVICE, update=f32)
+            stepped = f32 and update
+            card = _train_one_step(cfg, params, batch, DEVICE,
+                                   update=stepped)
             launches = dict(kernels.LAUNCHES)
             torch.cuda.empty_cache()
-            cpu = _train_one_step(cfg, params, batch, "cpu", update=f32)
+            cpu = _train_one_step(cfg, params, batch, "cpu", update=stepped)
             if f32:     # the control: the card's step with TF32 products
                 torch.backends.cuda.matmul.allow_tf32 = True
                 tf32 = _train_one_step(cfg, params, batch, DEVICE,
@@ -3996,7 +4029,7 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
             if not (ga.any() or gb.any()):
                 unused.append(name)
             del ga, gb
-            if f32:
+            if stepped:
                 diff = (card["params"][i].to(DEVICE)
                         - cpu["params"][i].to(DEVICE)).abs()
                 param_err = max(param_err, float(diff.max()))
@@ -4010,8 +4043,8 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
                "moe_aux": [card["moe_aux"], cpu["moe_aux"]],
                "grad_norm": [card["grad_norm"], cpu["grad_norm"]],
                "lr": lr, "grad_rel_l2": grad_l2, "grad_rel_max": grad_max,
-               "max_param_diff": param_err if f32 else None,
-               "max_share_beyond_5pct_lr": beyond if f32 else None,
+               "max_param_diff": param_err if stepped else None,
+               "max_share_beyond_5pct_lr": beyond if stepped else None,
                "launches": launches,
                "zero_grad_leaves": unused}
         out[impl] = res
@@ -4045,7 +4078,7 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
         check(grad_l2[worst] <= l2_tol,
               f"{tag}: the gradient of {names[worst]} differs by "
               f"{grad_l2[worst]} relative L2 (tolerance {l2_tol})")
-        check(not f32 or param_err <= 2 * lr * (1 + 1e-3),
+        check(not stepped or param_err <= 2 * lr * (1 + 1e-3),
               f"{tag}: parameters after a step differ by {param_err} (lr "
               f"{lr})")
         print(f"[smoke] phase {phase} ({arch}, {impl}, {dtype}): loss card "
@@ -4056,7 +4089,7 @@ def _train_parity(arch: str, phase: str, batch_fn=_token_batch,
               f"({names[worst]}; max-entry {max(grad_max):.4g}); "
               + (f"parameters after one step within {param_err:.3g} (lr "
                  f"{lr:.3g}), at most {beyond:.4%} of a leaf beyond 5 % of "
-                 "lr; " if f32 else "")
+                 "lr; " if stepped else "")
               + f"card launches "
               f"{ {k: n for k, n in launches.items() if n} }"
               + (f"; TF32 control |g| {tf32['grad_norm']:.6f}, gradients "
@@ -4365,7 +4398,8 @@ def moe_phase() -> dict:
     part("serve", moe_serve_phase)
     part("grad", lambda: _moe_grad_case(MOE_ARCH))
     part("train_parity", lambda: _train_parity(MOE_ARCH, "28d",
-                                               layers=MOE_TRAIN_LAYERS))
+                                               layers=MOE_TRAIN_LAYERS,
+                                               update=False))
     out["seconds"], out["seconds_by_part"] = time.perf_counter() - t0, split
     print(f"[smoke] phase 28: {out['seconds']:.1f} s {split}")
     return out
@@ -4596,10 +4630,11 @@ def mm_phase() -> dict:
     split["b-c"] = time.perf_counter() - t0 - sum(split.values())
     out["ssd_grad"] = {arch: ssd_grad_case(arch) for arch in SSM_GEN}
     out["train_parity"] = {
-        VL_ARCH: _train_parity(VL_ARCH, "29d", _model_batch),
+        VL_ARCH: _train_parity(VL_ARCH, "29d", _model_batch, update=False),
         ENCDEC_ARCH: _train_parity(ENCDEC_ARCH, "29d", _model_batch,
-                                   staged=True),
-        **{arch: _train_parity(arch, "29d") for arch in SSM_GEN}}
+                                   staged=True, update=False),
+        **{arch: _train_parity(arch, "29d", update=False)
+           for arch in SSM_GEN}}
     split["d"] = time.perf_counter() - t0 - sum(split.values())
     out["ssm_train"] = ssm_train_phase()
     split["e"] = time.perf_counter() - t0 - sum(split.values())
@@ -5285,6 +5320,230 @@ def tp_phase(served: dict, one_run: dict, got: dict) -> dict:
     return out
 
 
+def _same_layout(real, fake, what: str) -> None:
+    """Each fake output has its real twin's shape, dtype and strides."""
+    for i, (r, f) in enumerate(zip(real, fake)):
+        check(tuple(r.shape) == tuple(f.shape) and r.dtype == f.dtype
+              and r.stride() == f.stride() and f.is_cuda,
+              f"phase 32a {what} output {i}: real {tuple(r.shape)} "
+              f"{r.dtype} {r.stride()}, fake {tuple(f.shape)} {f.dtype} "
+              f"{f.stride()} on {f.device}")
+
+
+def _traced(fn, *real_inputs):
+    """``fn`` on fake copies of ``real_inputs`` under FlopCounterMode:
+    (its fake outputs as a tuple, the FLOPs counted by op)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mode = FakeTensorMode()
+    fakes = [mode.from_tensor(x) for x in real_inputs]
+    with mode, FlopCounterMode(display=False) as flops:
+        out = fn(*fakes)
+    out = out if isinstance(out, tuple) else (out,)
+    by_op = {str(k): v for k, v in flops.get_flop_counts()["Global"].items()}
+    return out, by_op
+
+
+def fake_kernel_phase() -> dict:
+    """Phase 32a: the LM kernel entries of ``kernels.ops`` on fake copies
+    of phase 3's inputs (its main case of each kernel, the non-causal
+    backward, a windowed decode and two SSD cases): every output's shape,
+    dtype and strides equal the real launch's on the same inputs, and the
+    FLOPs that ``FlopCounterMode`` counts (the ops' formulas) equal the
+    operations behind phase 3's bounds, op by op.  The real launches here
+    are outside every counted window."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(32)
+    rows = []
+    B, S, Hq, Hkv, D = FLASH_CASES[0]
+    q = _bf16_randn(gen, B, S, Hq, D)
+    k, v = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+    real = ops.flash_attention_fwd(q, k, v, causal=True)
+    fake, flops = _traced(lambda *a: ops.flash_attention_fwd(*a), q, k, v)
+    _same_layout(real, fake, f"flash forward {FLASH_CASES[0]}")
+    want = {"repro_torch.flash_attention_fwd": flash_fwd_ops(B, S, Hq, D)}
+    check(flops == want, f"phase 32a flash forward FLOPs {flops} vs {want}")
+    rows.append({"kernel": "flash_attention_fwd", "shape": FLASH_CASES[0],
+                 "flops": flops})
+    del q, k, v, real
+    for case in (FLASH_BWD_CASES[0], FLASH_BWD_CASES[4]):
+        B, S, Hq, Hkv, D, causal = case
+        q = _bf16_randn(gen, B, S, Hq, D)
+        k, v = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+        out, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        do = _bf16_randn(gen, B, S, Hq, D)
+        real = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        fake, flops = _traced(
+            lambda *a: ops.flash_attention_bwd(*a, causal=causal),
+            q, k, v, out, lse, do)
+        _same_layout(real, fake, f"flash backward {case}")
+        product = flash_product(B, S, Hq, D, causal)
+        want = {"repro_torch.flash_attention_bwd_dq": 3 * product,
+                "repro_torch.flash_attention_bwd_dkv": 4 * product}
+        check(flops == want, f"phase 32a flash backward {case} FLOPs "
+              f"{flops} vs {want}")
+        rows.append({"kernel": "flash_attention_bwd", "shape": case,
+                     "flops": flops})
+        del q, k, v, out, lse, do, real
+    B, S, Hq, Hkv, D = DECODE_SHAPE
+    kc, vc = _bf16_randn(gen, B, S, Hkv, D), _bf16_randn(gen, B, S, Hkv, D)
+    q = _bf16_randn(gen, B, Hq, D)
+    for valid, window in ((S, 0), (1000, 512)):
+        real = ops.decode_attention(q, kc, vc, valid, window)
+        fake, flops = _traced(
+            lambda *a: ops.decode_attention(*a, valid, window), q, kc, vc)
+        _same_layout((real,), fake, f"decode {DECODE_SHAPE} {valid, window}")
+        want = {"repro_torch.decode_attention":
+                decode_ops(B, Hq, D, *valid_range(S, valid, window))}
+        check(flops == want, f"phase 32a decode FLOPs {flops} vs {want}")
+        rows.append({"kernel": "decode_attention",
+                     "shape": [*DECODE_SHAPE, valid, window], "flops": flops})
+    del kc, vc, q
+    for case in (SSD_GROUP_CASE, SSD_TP_CASE):
+        b, s, h, p, g, n, chunk = case
+        x = torch.randn(b, s, h, p, generator=gen, device=DEVICE)
+        dt = torch.randn(b, s, h, generator=gen, device=DEVICE).abs() * 0.1
+        A = -torch.randn(h, generator=gen, device=DEVICE).abs()
+        Bm = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
+        Cm = torch.randn(b, s, g, n, generator=gen, device=DEVICE)
+        real = ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        fake, flops = _traced(
+            lambda *a: ops.ssd_chunk_scan(*a, chunk=chunk), x, dt, A, Bm, Cm)
+        _same_layout(real, fake, f"ssd_chunk_scan {case}")
+        want = {"repro_torch.ssd_chunk_scan":
+                3 * ssd_products(b, s, h, p, g, n, chunk)}
+        check(flops == want, f"phase 32a SSD FLOPs {flops} vs {want}")
+        rows.append({"kernel": "ssd_chunk_scan", "shape": case,
+                     "flops": flops})
+        del x, dt, A, Bm, Cm, real
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[smoke] phase 32a: {len(rows)} kernel calls on fake tensors: "
+          f"outputs' shapes, dtypes and strides equal the launches', FLOPs "
+          f"equal the bounds' operations ({seconds:.1f} s)")
+    return {"cases": rows, "seconds": seconds}
+
+
+def dryrun_cells_start(out_dir: str) -> list:
+    """Phase 32c's two dry-run cells, each ``python -m
+    repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k`` (and
+    ``--multi-pod``) in a process of its own (one torch thread), started
+    together in phase 3 before its graphs are built: they trace on the
+    host's CPU beside the R-MAT build (numpy), about as long on every
+    host seen, and phase 3 waits for them before it times a kernel (the
+    smallest kernels' times take the host's enqueue in, which the
+    cells' CPU load would move).  Killed at exit if still running."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for extra in ([], ["--multi-pod"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               LM_ARCH, "--shape", "train_4k", "--device", "cuda", "--out",
+               out_dir, *extra]
+        # each cell's output to a file: a pipe read only in phase 32
+        # could fill and stop it
+        with open(os.path.join(out_dir, f"cell{len(procs)}.log"), "w") as f:
+            procs.append((cmd, subprocess.Popen(
+                cmd, env=env, stdout=f, stderr=subprocess.STDOUT)))
+
+    def stop():
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def dryrun_cells_wait(procs: list) -> float:
+    """Wait for the cells of ``dryrun_cells_start``; the seconds waited."""
+    t0 = time.perf_counter()
+    for _, proc in procs:
+        proc.wait(timeout=DRYRUN_CELL_TIMEOUT_S)
+    return time.perf_counter() - t0
+
+
+def dryrun_phase(trained: dict, procs: list, out_dir: str) -> dict:
+    """Phase 32b and c (the module docstring).  b: the dry-run of phase
+    14's own configuration (qwen2-0.5b, flash, B 4 x S 4096, one process)
+    traced on fake tensors on the card's device type: its peak estimate
+    within DRYRUN_PEAK_REL_TOL of phase 14's measured peak, and its bound
+    step time (the largest roofline term) beside phase 14's step ms.  c:
+    the two production-mesh cells of ``dryrun_cells_start`` (ended in
+    phase 3, ``dryrun_cells_wait``): each exited 0 with ``ok`` and its
+    per-card bytes."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.roofline import analysis as roofline
+
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(LM_ARCH), attn_impl="flash")
+        shape = ShapeCell("phase14", TRAIN_SEQ, TRAIN_BATCH, "train")
+        costs = dryrun.trace_step(cfg, shape, None, microbatches=1,
+                                  device=DEVICE)
+        active = transformer.abstract_lm(cfg, device="cpu") \
+            .active_param_count()
+        terms = roofline.compute_terms_from_costs(
+            costs, 1, roofline.model_flops(cfg, shape, active))
+        measured_ms = statistics.median(trained["step_ms"][1:])
+        rel = costs.peak_bytes / trained["peak_bytes"] - 1
+        frac = terms.step_time_s * 1e3 / measured_ms
+        out["b"] = {"peak_bytes": costs.peak_bytes,
+                    "state_bytes": costs.state_bytes,
+                    "measured_peak_bytes": trained["peak_bytes"],
+                    "peak_rel_err": rel, "flops": costs.flops,
+                    "hbm_bytes": costs.hbm_bytes,
+                    "roofline": terms.to_json(),
+                    "measured_step_ms": measured_ms,
+                    "bound_over_measured": frac,
+                    "trace_s": time.perf_counter() - t0}
+        print(f"[smoke] phase 32b: dry-run of phase 14 ({LM_ARCH}, flash, "
+              f"B {TRAIN_BATCH} x S {TRAIN_SEQ}, one process): peak "
+              f"{costs.peak_bytes / 2**30:.2f} GiB against phase 14's "
+              f"measured {trained['peak_bytes'] / 2**30:.2f} GiB "
+              f"({rel:+.4f}); terms compute {terms.compute_s * 1e3:.3f} ms, "
+              f"memory {terms.memory_s * 1e3:.3f} ms, collective "
+              f"{terms.collective_s * 1e3:.3f} ms, bound {terms.bound} "
+              f"{terms.step_time_s * 1e3:.3f} ms against the measured "
+              f"{measured_ms:.3f} ms a step: roofline fraction {frac:.4f}; "
+              f"traced in {out['b']['trace_s']:.1f} s")
+        check(abs(rel) <= DRYRUN_PEAK_REL_TOL,
+              f"phase 32b: the dry-run's peak {costs.peak_bytes} bytes is "
+              f"{rel:+.4f} off phase 14's {trained['peak_bytes']}")
+        out["c"] = {}
+        for i, ((cmd, proc), mesh_name) in enumerate(
+                zip(procs, ("16x16", "2x16x16"))):
+            with open(os.path.join(out_dir, f"cell{i}.log")) as f:
+                log = f.read()
+            path = os.path.join(out_dir, f"{LM_ARCH}__train_4k__"
+                                f"{mesh_name}__baseline.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {}
+            check(proc.returncode == 0 and rec.get("ok"),
+                  f"phase 32c: {' '.join(cmd[2:])} exited "
+                  f"{proc.returncode}: {log[-2000:]}")
+            mem = rec["memory"]
+            out["c"][mesh_name] = rec
+            r = rec["roofline"]
+            print(f"[smoke] phase 32c: {LM_ARCH} train_4k on {mesh_name}: "
+                  f"ok, {mem['per_chip_live_bytes'] / 2**30:.2f} GiB a card "
+                  f"(fits_hbm {mem['fits_hbm']}), terms compute "
+                  f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
+                  f"collective {r['collective_s']:.4e} s, bound "
+                  f"{r['bound']}, traced in {rec['trace_s']} s")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5325,6 +5584,10 @@ def main() -> int:
     timer = Timer()
     floor_ms = launch_floor_ms(timer)
     print(f"[smoke]   launch floor (an empty kernel) {floor_ms:.4f} ms")
+    # phase 32c's two cells trace on the host's CPU while the graphs are
+    # built, and end before any kernel is timed
+    dry_dir = os.path.join(HERE, "chiprun_out", "dryrun")
+    dry_procs = dryrun_cells_start(dry_dir)
     reddit = load_dataset("reddit", large_scale=True)
     t0 = time.perf_counter()
     synth = attach_features(rmat_graph(RMAT_NODES, RMAT_EDGES, seed=0,
@@ -5333,6 +5596,9 @@ def main() -> int:
           f"{synth.num_edges} edges, features "
           f"{synth.features.nbytes / 1e6:.0f} MB, built in "
           f"{time.perf_counter() - t0:.1f} s")
+    dry_wait_s = dryrun_cells_wait(dry_procs)
+    print(f"[smoke]   phase 32c's dry-run cells ended {dry_wait_s:.1f} s "
+          "after the graphs")
     # the cached kernels' rows are reddit's (phase 8's graph); R-MAT keeps
     # the whole-hop sampler cases as count-0 yardsticks
     per_graph = {"reddit-large": kernel_phase("reddit-lg", reddit, timer,
@@ -5524,6 +5790,10 @@ def main() -> int:
     stamp("31")
     tp_run = tp_phase(served, *tp_parts)
     stamp("32")
+    fake_kernels = fake_kernel_phase()
+    dry = dryrun_phase(trained, dry_procs, dry_dir)
+    dry.update(a=fake_kernels, c_wait_s=dry_wait_s)
+    stamp("33")
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory
     # kernels at the reddit-sized graph's shapes (its 631 MB table does not
@@ -5647,6 +5917,7 @@ def main() -> int:
                "host": hosted, "telemetry": telemetry, "isp": isp,
                "mesh": mesh, "moe": moe_run, "multimodal": mm_run,
                "mesh_lm": mesh_lm, "tensor_parallel": tp_run,
+               "dryrun": dry,
                "phase_start_s": stamps,
                "seconds": time.perf_counter() - t_all}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

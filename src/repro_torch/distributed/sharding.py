@@ -24,6 +24,7 @@ split.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Mapping, Sequence
 
 # The reference's rules, unchanged (its comments name each axis):
@@ -58,6 +59,7 @@ DEFAULT_RULES: tuple[tuple[str, Any], ...] = (
     ("gnn_hidden", "model"),
     ("enc_seq", None),
 )
+DEFAULT_BATCH_AXES = dict(DEFAULT_RULES)["batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +167,32 @@ def tree_placements(defs, rules: ShardingRules, mesh):
         return {k: tree_placements(v, rules, mesh) for k, v in defs.items()}
     return placements(logical_to_spec(defs.logical_axes, rules, mesh,
                                       defs.shape), mesh)
+
+
+# the data-parallel groups of meshes with more than one batch axis,
+# flattened once per mesh
+_BATCH_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The axes of ``mesh`` that the rules' ``batch`` maps to: ("pod",
+    "data"), those the mesh has."""
+    return tuple(a for a in DEFAULT_BATCH_AXES if a in mesh.mesh_dim_names)
+
+
+def batch_group(mesh):
+    """The data-parallel process group of the ``DeviceMesh`` ``mesh``: the
+    ranks that hold the same ``model`` shard and split the batch, over
+    ``batch_axes``.  One axis: its group; "pod" and "data": their product,
+    flattened (``DeviceMesh._flatten``) at the first call for that mesh and
+    kept (the production mesh makes it at once, before any step is traced
+    on fake tensors)."""
+    axes = batch_axes(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if mesh not in _BATCH_GROUPS:
+        _BATCH_GROUPS[mesh] = mesh[axes]._flatten("batch").get_group()
+    return _BATCH_GROUPS[mesh]
 
 
 def constrain(x, logical_axes: Sequence[str | None], rules: ShardingRules,

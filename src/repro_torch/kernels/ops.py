@@ -11,12 +11,25 @@ device), which raises on what it does not take; a CPU tensor takes the
 plain version in ``kernels.ref``.
 There is no switch and no fallback between the two: the device of the
 data decides.
+
+A fake CUDA tensor (``FakeTensorMode``: the dry-run's trace,
+``launch.dryrun``) launches nothing: the four LM kernel entries (the
+flash forward, the flash backward's two kernels, ``decode_attention``
+and the SSD scan) call their ``torch.library`` op instead (``repro_torch::
+flash_attention_fwd`` and so on), whose fake implementation returns
+outputs of the kernel's shapes, dtypes and strides and whose FLOP formula
+(``torch.utils.flop_counter``) is the count behind each kernel's
+"operations" bound in ``chip_smoke.py``.  A real CUDA tensor never goes
+through these ops: it launches its kernel as before, with no dispatcher
+step in between (the decode loop is host-bound).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import rng
 from repro_torch.kernels import decode_attention as _da
@@ -125,6 +138,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     S, Hq, D), k and v (B, S, Hkv, D) -> (out (B, S, Hq, D) in q.dtype,
     lse (B, Hq, S) float32).  The kernel takes bf16 and any S."""
     if q.is_cuda:
+        if isinstance(q, FakeTensor):
+            return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal)
         return _fa.flash_attention_fwd(q, k, v, causal=causal)
     return ref.flash_attention_fwd(q, k, v, causal=causal)
 
@@ -136,6 +151,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True):
     over each KV head's group.  On the card the dQ kernel (which also
     computes delta = rowsum(do * out)) and then the dK/dV kernel."""
     if q.is_cuda:
+        if isinstance(q, FakeTensor):
+            dq, delta = torch.ops.repro_torch.flash_attention_bwd_dq(
+                q, k, v, out, lse, do, causal)
+            dk, dv = torch.ops.repro_torch.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal)
+            return dq, dk, dv
         return _fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     return ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
 
@@ -175,12 +196,17 @@ def decode_attention(q, k, v, valid_len: int, window: int = 0):
     in q.dtype.  Any cache length S; the reference's padding of S to a
     block multiple is not needed."""
     if q.is_cuda:
+        if isinstance(q, FakeTensor):
+            return torch.ops.repro_torch.decode_attention(
+                q, k, v, int(valid_len), int(window))
         return _da.decode_attention(q, k, v, valid_len, window)
     return ref.decode_attention(q, k, v, valid_len, window)
 
 
 def _ssd_scan(x, dt, A, B, C, chunk: int):
     if x.is_cuda:
+        if isinstance(x, FakeTensor):
+            return torch.ops.repro_torch.ssd_chunk_scan(x, dt, A, B, C, chunk)
         return _ssd.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
     return ref.ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
 
@@ -234,3 +260,128 @@ def ssd_chunk_scan(x, dt, A, B, C, *, chunk: int = 128):
     args = [t.contiguous() for t in (x, dt, A, B, C)]
     y, state = SSDChunkScan.apply(*args, chunk)
     return y[:, :s], state
+
+
+# ---------------------------------------------------------------------------
+# Tracing: the LM kernels as ``torch.library`` ops on fake tensors
+# ---------------------------------------------------------------------------
+# Each op's real implementation is its wrapper above (the kernel on a CUDA
+# tensor; the forward, decode and scan ops also the plain version on a CPU
+# one, the two backward kernels have none alone); the wrappers call an op
+# only on a fake CUDA tensor.  The fake implementations allocate what the kernel's
+# wrapper allocates; the FLOP formulas count what ``chip_smoke.py``'s
+# bounds count: the flash forward 2 * B * Hq * S^2 * D causal (4 * ...
+# without the mask), the backward's dQ kernel 3 and its dK/dV kernel 4
+# products of 2 * B * Hq * pairs * D (pairs S (S + 1) / 2 causal, else
+# S^2), decode 4 * B * Hq * D over the valid keys, the SSD scan its four
+# products three times over (3xTF32).
+
+Tensor = torch.Tensor
+
+
+def _pairs(S: int, causal: bool) -> int:
+    return S * (S + 1) // 2 if causal else S * S
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor,
+                  causal: bool) -> tuple[Tensor, Tensor]:
+    return flash_attention_fwd(q, k, v, causal=causal)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    B, S, Hq, D = q.shape
+    return (q.new_empty((B, S, Hq, D), dtype=torch.bfloat16),
+            q.new_empty((B, Hq, S), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def flash_fwd_flops(q_shape, k_shape, v_shape, causal, *args, **kwargs
+                    ) -> int:
+    B, S, Hq, D = q_shape
+    return (2 if causal else 4) * B * Hq * S * S * D
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_dq",
+                         mutates_args=())
+def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                     lse: Tensor, do: Tensor,
+                     causal: bool) -> tuple[Tensor, Tensor]:
+    return _fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal=causal)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, out, lse, do, causal):
+    B, S, Hq, D = q.shape
+    return (q.new_empty((B, S, Hq, D), dtype=torch.bfloat16),
+            q.new_empty((B, Hq, S), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd_dq)
+def flash_bwd_dq_flops(q_shape, *args, **kwargs) -> int:
+    B, S, Hq, D = q_shape
+    return 3 * 2 * B * Hq * _pairs(S, args[-1]) * D
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd_dkv",
+                         mutates_args=())
+def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                      lse: Tensor, delta: Tensor,
+                      causal: bool) -> tuple[Tensor, Tensor]:
+    return _fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                       causal=causal)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, causal):
+    return (k.new_empty(k.shape, dtype=torch.bfloat16),
+            k.new_empty(k.shape, dtype=torch.bfloat16))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd_dkv)
+def flash_bwd_dkv_flops(q_shape, *args, **kwargs) -> int:
+    B, S, Hq, D = q_shape
+    return 4 * 2 * B * Hq * _pairs(S, args[-1]) * D
+
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
+def _decode_op(q: Tensor, k: Tensor, v: Tensor, valid_len: int,
+               window: int) -> Tensor:
+    return decode_attention(q, k, v, valid_len, window)
+
+
+@_decode_op.register_fake
+def _(q, k, v, valid_len, window):
+    return q.new_empty(q.shape, dtype=torch.bfloat16)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def decode_flops(q_shape, k_shape, v_shape, valid_len, window, *args,
+                 **kwargs) -> int:
+    B, Hq, D = q_shape
+    lo, hi = _da.valid_range(k_shape[1], valid_len, window)
+    return 4 * B * Hq * max(0, hi - lo) * D
+
+
+@torch.library.custom_op("repro_torch::ssd_chunk_scan", mutates_args=())
+def _ssd_op(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor,
+            chunk: int) -> tuple[Tensor, Tensor]:
+    return _ssd_scan(x, dt, A, B, C, chunk)
+
+
+@_ssd_op.register_fake
+def _(x, dt, A, B, C, chunk):
+    b, s, h, p = x.shape
+    return (torch.empty_like(x),
+            x.new_empty((b, h, p, B.shape[3]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_scan)
+def ssd_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk, *args,
+              **kwargs) -> int:
+    b, s, h, p = x_shape
+    g, n = B_shape[2], B_shape[3]
+    pairs = chunk * (chunk + 1) // 2
+    return 3 * b * (s // chunk) * (g * 2 * pairs * n
+                                   + h * (2 * pairs * p + 4 * chunk * p * n))

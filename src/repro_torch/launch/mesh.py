@@ -20,12 +20,18 @@ already belongs to a group of the mesh's size it uses that group;
 otherwise it starts the other ranks itself (``torch.multiprocessing``,
 spawned) and runs rank 0 in the calling process, which gets rank 0's
 result.  Its ``model`` axis splits the LM's tensor-parallel leaves
-(``models.transformer.LM(..., mesh=)``).  The production mesh belongs
-to ROADMAP item 16, part 3.
+(``models.transformer.LM(..., mesh=)``).
+
+The production mesh (``make_production_mesh``) is the reference's target,
+(data 16, model 16) on one pod or (pod 2, data 16, model 16) on two, as
+a ``DeviceMesh`` over a fake process group: it exists only for the
+dry-run (``launch.dryrun``), which traces one rank's step on fake
+tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -212,3 +218,61 @@ def run_on_mesh(shape, axes, device, fn, *args,
             raise RuntimeError(f"mesh ranks {failed} exited with "
                                f"{[procs[r - 1].exitcode for r in failed]}")
         return out
+
+
+# the reference's production meshes: one pod, and two pods on a leading
+# "pod" axis that carries only the data-parallel gradient traffic
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(multi_pod: bool = False, device="cuda"):
+    """The production mesh for the dry-run, and for nothing else: a
+    ``DeviceMesh`` of (16, 16) over ("data", "model"), or of (2, 16, 16)
+    over ("pod", "data", "model"), of kind ``device`` ("cuda" or "cpu").
+
+    Its process group is a fake one (PyTorch's ``fake`` backend): this
+    process is rank 0 of 256 (512) ranks that do not exist, and a
+    collective returns at once without moving or changing anything.  So
+    a step traced on fake tensors over it issues the collectives that rank
+    0 would, at their shapes, and computes nothing; run for real it would
+    be wrong.  The group is started here when this process has none (a
+    group that is not a fake one of the mesh's size raises); end it with
+    ``torch.distributed.destroy_process_group()``, or use
+    ``production_mesh``.  No card is needed: a mesh of kind "cuda" holds
+    no device state.  The pod x data group (``sharding.batch_group``) is
+    made here, before any fake mode is entered."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed.sharding import batch_group
+
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    world = math.prod(shape)
+    if not dist.is_initialized():
+        # importing the module registers the ``fake`` backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    elif dist.get_world_size() != world or dist.get_backend() != "fake":
+        raise RuntimeError(
+            f"make_production_mesh: this process already belongs to a "
+            f"{dist.get_backend()} group of {dist.get_world_size()} ranks; "
+            f"the production mesh needs a fake group of {world}")
+    mesh = DeviceMesh(torch.device(device).type,
+                      torch.arange(world).reshape(shape),
+                      mesh_dim_names=axes)
+    batch_group(mesh)
+    return mesh
+
+
+@contextlib.contextmanager
+def production_mesh(multi_pod: bool = False, device="cuda"):
+    """``make_production_mesh`` for the body of a ``with``; the fake group
+    ends after it when it started here."""
+    started = not dist.is_initialized()
+    try:
+        yield make_production_mesh(multi_pod, device)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

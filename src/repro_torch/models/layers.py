@@ -74,7 +74,8 @@ def apply_mrope(x, positions3, sections, theta: float = 1e4):
     freqs = rope_frequencies(head_dim, theta, device=x.device)
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))     # (hd/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=head_dim // 2)                   # (hd/2,)
     pos = positions3.movedim(0, -1)[..., sec_ids]    # (..., seq, hd/2)
     return _rotate(x, pos.float() * freqs)
 

@@ -43,7 +43,6 @@ whole groups and routing stays local.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 from typing import NamedTuple
 
 import torch
@@ -85,19 +84,24 @@ def _float32_products():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-_DISPATCH = contextvars.ContextVar("moe_dispatch_group", default=None)
+# the dispatch group, held for the whole process: the backward recomputes
+# a rematerialized block's routing on autograd's own thread for CUDA
+# tensors, which a context variable set by the train step would not reach
+_DISPATCH = [None]
 
 
 @contextlib.contextmanager
 def global_dispatch(group):
     """Route as one dispatch over the tokens of every rank of ``group``
-    (the ``data`` axis' process group) inside; None or a group of one
-    rank routes locally."""
-    token = _DISPATCH.set(group)
+    (the data-parallel process group) inside; None or a group of one
+    rank routes locally.  Every thread of the process routes so inside
+    (the backward's recompute included)."""
+    saved = _DISPATCH[0]
+    _DISPATCH[0] = group
     try:
         yield
     finally:
-        _DISPATCH.reset(token)
+        _DISPATCH[0] = saved
 
 
 def _ranks(group) -> tuple[int, int]:
@@ -131,7 +135,7 @@ def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
     (its global position less the counts of the ranks before it, under
     ``global_dispatch``)."""
     B, S, d = x.shape
-    group = _DISPATCH.get()
+    group = _DISPATCH[0]
     rank, ranks = _ranks(group)
     T = B * S * ranks                       # the tokens of every rank
     E = router.shape[-1]
@@ -206,7 +210,10 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     whole), runs its own experts on their slots, and each token's
     combine gathers only the assignments to those experts and is summed
     over the ranks (the reference's masked local gather and psum over
-    ``model``)."""
+    ``model``).  Where the ranks do not divide E the rules split each
+    expert's hidden dim instead: every rank runs every expert on its
+    block of that dim and the expert outputs are summed over the ranks
+    before the combine."""
     B, S, d = x.shape
     r = route(p["router"], x, top_k=top_k, capacity_factor=capacity_factor,
               routing=routing, groups=groups)
@@ -219,18 +226,28 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     xg = torch.gather(xt, 1, rows).reshape(G, E, C, d)
     xg = torch.where(slot_valid[..., None], xg, 0)
     split = tp is not None and tp.sharded("w_gate")
+    # the rules split the experts where the ranks divide them, else each
+    # expert's hidden dim (``mlp``): every rank then holds every expert
+    ffn_split = split and p["w_gate"].shape[0] == E
     e0, El, gates, keep = 0, E, r.gates, r.keep
     flat_e = r.expert_idx.reshape(G, Tg * top_k)
-    if split:
+    if split and not ffn_split:
         e0, e1 = tp.span(E)
         El = e1 - e0
         # the whole dispatch and gates, each rank's experts using a part
         xg = tp.enter(xg)[:, e0:e1]
         gates = tp.enter(gates)
         keep = keep & (flat_e >= e0) & (flat_e < e1)
+    elif ffn_split:
+        # column-parallel gate and up products, a row-parallel down
+        # product: each rank's partial expert outputs, summed over the
+        # ranks below
+        xg = tp.enter(xg)
     h = act(torch.einsum("gecd,edf->gecf", xg, p["w_gate"].to(x.dtype)))
     h = h * torch.einsum("gecd,edf->gecf", xg, p["w_up"].to(x.dtype))
     y = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(x.dtype))
+    if ffn_split:
+        y = tp.exit(y)
 
     # combine: each assignment gathers its expert output, token side
     slot_of_assign = ((flat_e - e0) * C + torch.where(keep, r.pos, C - 1)
@@ -240,6 +257,6 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     picked = torch.where(keep[..., None], picked, 0)
     out = (picked.float() * gates.reshape(G, Tg * top_k)[..., None]
            ).reshape(G, Tg, top_k, d).sum(dim=2)
-    if split:
+    if split and not ffn_split:
         out = tp.exit(out)
     return out.reshape(B, S, d).to(x.dtype), {"moe_aux_loss": r.aux}

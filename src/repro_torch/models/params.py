@@ -16,6 +16,13 @@ the rounding of the float32 weight, as the reference's cast at use
 does), so a model never passes through the host or through float32 when
 it is served in bf16.  The weights equal the reference's within
 ``erfinv``'s last-bit rounding (``rng.normal``).
+
+For the dry-run (``launch.dryrun``) a tree is also made without drawing
+and without memory: ``fake_params`` gives each leaf as a fake tensor of
+the shape a tensor-parallel rank holds, ``abstract_params`` (the
+reference's) as a DTensor on a mesh whose local tensor is a fake tensor
+of the rank's shard under the sharding rules.  Both make their fake
+tensors in the ``FakeTensorMode`` in force, else in this module's own.
 """
 
 from __future__ import annotations
@@ -130,3 +137,88 @@ def cast_tree(params, dtype):
     values)."""
     return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
                     params)
+
+
+# ---------------------------------------------------------------------------
+# Abstract trees: shapes without weights (the dry-run)
+# ---------------------------------------------------------------------------
+
+_FAKE = None          # this module's FakeTensorMode, made at first use
+
+
+def fake_empty(shape, dtype, device) -> torch.Tensor:
+    """An uninitialized fake tensor: in the ``FakeTensorMode`` in force,
+    else in this module's own (no memory either way)."""
+    global _FAKE
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if detect_fake_mode() is not None:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    if _FAKE is None:
+        _FAKE = FakeTensorMode(allow_non_fake_inputs=True)
+    with _FAKE:
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def local_shape(shape, placements, mesh) -> tuple[int, ...]:
+    """The shape of a rank's shard of a ``shape`` leaf under DTensor
+    ``placements`` on ``mesh`` (each ``Shard(d)`` divides dim ``d`` by its
+    mesh dim's size; the rules shard only dims they divide)."""
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def sharded_fake(shape, dtype, logical_axes, rules, mesh, device):
+    """A DTensor on ``mesh`` of global ``shape`` and ``dtype``, placed as
+    ``rules`` place ``logical_axes`` (``logical_to_spec``, divisibility
+    respected), whose local tensor is a fake tensor of this rank's shard:
+    the reference's ``ShapeDtypeStruct`` with a ``NamedSharding``.
+    Without a mesh (one process): a fake tensor of the whole shape."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import logical_to_spec, placements
+
+    if mesh is None:
+        return fake_empty(shape, dtype, device)
+    pl = placements(logical_to_spec(logical_axes, rules, mesh, shape), mesh)
+    local = fake_empty(local_shape(shape, pl, mesh), dtype, device)
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
+
+
+def fake_params(defs, device="cuda", dtype: torch.dtype | None = None,
+                tp=None) -> dict:
+    """``init_params``' tree without the draw: each leaf a fake tensor of
+    the shape ``init_params(defs, device=device, dtype=dtype, tp=tp)``
+    gives it (a ``tp`` rank's block of the leaves its ``model`` axis
+    splits), in ``dtype`` (default, and for a ``keep_dtype`` leaf: the
+    leaf's own)."""
+
+    def walk(tree, name: str = ""):
+        if isinstance(tree, dict):
+            return {k: walk(tree[k], k) for k in sorted(tree)}
+        dim = tp.dims.get(name) if tp is not None and tp.size > 1 else None
+        shape = list(tree.shape)
+        if dim is not None:
+            shape[dim] //= tp.size
+        dt = tree.dtype if dtype is None or tree.keep_dtype else dtype
+        return fake_empty(shape, dt, device)
+
+    return walk(defs)
+
+
+def abstract_params(defs, rules, mesh, device="cuda") -> dict:
+    """The reference's ``abstract_params``: every leaf of a ``ParamDef``
+    tree as a ``sharded_fake`` DTensor on ``mesh`` under ``rules``, in the
+    leaf's dtype."""
+    return tree_map(lambda d: sharded_fake(d.shape, d.dtype, d.logical_axes,
+                                           rules, mesh, device), defs)

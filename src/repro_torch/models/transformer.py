@@ -102,8 +102,9 @@ from repro_torch.models.attention import (decode_attention_local,
 from repro_torch.models.layers import (activation, apply_mrope, apply_rope,
                                        embed_def, embed_lookup, rmsnorm,
                                        rmsnorm_def, unembed_def)
-from repro_torch.models.params import (ParamDef, count_params, init_params,
-                                       tree_map)
+from repro_torch.models.params import (ParamDef, abstract_params,
+                                       count_params, fake_params,
+                                       init_params, tree_map)
 from repro_torch.models.registry import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -208,6 +209,41 @@ def build_defs(cfg: ModelConfig) -> dict:
         enc_cfg = dataclasses.replace(cfg, family="dense", post_norms=False)
         defs["enc_blocks"] = _block_defs(enc_cfg, cfg.encoder_layers)
         defs["enc_final_norm"] = rmsnorm_def(cfg.d_model)
+    return defs
+
+
+def cache_defs(cfg: ModelConfig, B: int, S: int) -> dict:
+    """The reference's ``ParamDef`` tree of the decode cache at batch B and
+    S positions (shapes, bf16, the logical axes that place it on a mesh):
+    K and V (L, B, S, Hkv, Dh) on ("layers", "kv_batch", "kv_seq"); the
+    SSM state (L, B, H, P, N) on ("layers", "kv_batch", "ssm_head") and
+    conv tail (L, B, d_conv - 1, conv_dim); the encdec family's cross K
+    and V (L, B, max(1, S // enc_seq_divisor), Hkv, Dh) on ("layers",
+    "kv_batch", "enc_seq").  ``LM.init_cache`` allocates a rank's cache;
+    this describes the whole one."""
+    L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(shape, axes):
+        return ParamDef(tuple(shape), dtype=COMPUTE_DTYPE, init="zeros",
+                        logical_axes=axes)
+
+    kv_axes = ("layers", "kv_batch", "kv_seq", None, None)
+    defs = {}
+    if cfg.family in ("dense", "moe", "hybrid", "encdec"):
+        defs["k"] = zeros((L, B, S, Hkv, Dh), kv_axes)
+        defs["v"] = zeros((L, B, S, Hkv, Dh), kv_axes)
+    if cfg.family in ("ssm", "hybrid"):
+        P = cfg.d_inner // cfg.ssm_heads
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        defs["state"] = zeros((L, B, cfg.ssm_heads, P, cfg.ssm_state),
+                              ("layers", "kv_batch", "ssm_head", None, None))
+        defs["conv"] = zeros((L, B, cfg.d_conv - 1, conv_dim),
+                             ("layers", "kv_batch", None, None))
+    if cfg.family == "encdec":
+        enc_S = max(1, S // cfg.enc_seq_divisor)
+        cross = ("layers", "kv_batch", "enc_seq", None, None)
+        defs["cross_k"] = zeros((L, B, enc_S, Hkv, Dh), cross)
+        defs["cross_v"] = zeros((L, B, enc_S, Hkv, Dh), cross)
     return defs
 
 
@@ -473,6 +509,22 @@ def _apply_block(cfg: ModelConfig, p, x, positions, window: int, *,
 # Model
 # ---------------------------------------------------------------------------
 
+def abstract_lm(cfg: ModelConfig, mesh=None,
+                rules: ShardingRules | None = None, *, device="cuda",
+                dtype: torch.dtype | None = None,
+                trainable: bool = False) -> "LM":
+    """The ``LM`` that a rank of ``mesh`` builds (``LM(cfg, mesh=mesh,
+    ...)``: its ``model`` shards, tensor-parallel), with fake parameters
+    in ``dtype`` (default: float32, the master weights; the serve entry
+    point draws bf16) instead of drawn ones: no weight is drawn and no
+    memory is held (``params.fake_params``).  For the dry-run, which
+    runs its steps on fake tensors."""
+    tp = TensorParallel.of(build_defs(cfg), mesh, rules)
+    params = fake_params(build_defs(cfg), device, dtype, tp)
+    return LM(cfg, params, device=device, trainable=trainable, mesh=mesh,
+              rules=rules)
+
+
 def seq_shards(mesh, S: int) -> int:
     """The ranks the decode splits a cache of S positions over: the
     mesh's ``model`` size where it is larger than 1 and divides S (the
@@ -569,6 +621,24 @@ class LM(nn.Module):
             whole = self.tp.sharded(k) and t.shape[dim] == defs[k].shape[dim]
             out[k] = self.tp.local(k, t).contiguous() if whole else t
         return out
+
+    def param_count(self) -> int:
+        """Parameters of the whole model (every leaf of ``defs``, whatever
+        this rank holds)."""
+        return count_params(self.defs)
+
+    def abstract(self, mesh, rules: ShardingRules | None = None) -> dict:
+        """The parameter tree as this rank of ``mesh`` holds it in the
+        sharded training state, without weights or memory: each leaf a
+        DTensor with the placements ``rules`` (default: the reference's)
+        give it and a fake local shard (``params.abstract_params``)."""
+        return abstract_params(self.defs, rules or ShardingRules.default(),
+                               mesh, self.embed.device)
+
+    def cache_defs(self, B: int, S: int) -> dict:
+        """The reference's ``ParamDef`` tree of the decode cache
+        (``cache_defs``)."""
+        return cache_defs(self.cfg, B, S)
 
     def active_param_count(self) -> int:
         """Parameters a token uses: the expert weights of the

@@ -25,7 +25,13 @@ rank's shard) and updates the shards; the loss and aux metrics are
 averaged over the ``data`` ranks, and the clip's norm is the global
 one.  The MoE family routes globally across the ``data`` ranks
 (``moe.global_dispatch``), as the reference's ``groups=1``, and runs
-each rank's experts.
+each rank's experts.  On a mesh with a "pod" axis (the production
+mesh's two pods) the data-parallel ranks are pod x data, as the rules'
+``batch`` maps the rows: the means, the metrics and the MoE's dispatch
+span both axes.
+
+``abstract_train_state`` builds the sharded state without weights or
+memory (fake local shards), for the dry-run (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import (ShardingRules, mesh_sizes,
+from repro_torch.distributed.sharding import (ShardingRules, batch_axes,
+                                              batch_group, mesh_sizes,
                                               model_slice, tree_placements)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import LM
@@ -159,20 +166,25 @@ def _unflatten(tree, leaves):
 
 class _DataParallel:
     """The gather over ``data``, the gradients' reduce-scatter and the
-    metrics' mean of a train step on a process mesh.  With one ``data``
-    rank nothing crosses it (ranks that share a card run gloo, which
-    serves only ``all_reduce`` and ``broadcast`` on CUDA tensors)."""
+    metrics' mean of a train step on a process mesh.  The data-parallel
+    ranks are those of the mesh's batch axes (``sharding.batch_axes``:
+    "data", and "pod" where the mesh has one, as the rules' ``batch``
+    maps the rows): the gradients' mean, the metrics' and the MoE's global
+    dispatch span them all.  With one data-parallel rank nothing crosses
+    them (ranks that share a card run gloo, which serves only
+    ``all_reduce`` and ``broadcast`` on CUDA tensors)."""
 
     def __init__(self, model: LM, mesh):
         _check_layout(model, mesh)
         self.model, self.mesh = model, mesh
-        self.group = mesh.get_group("data")
+        self.axes = batch_axes(mesh)
+        self.group = batch_group(mesh)
         self.ranks = dist.get_world_size(self.group)
 
     def _data_whole(self, placements) -> list:
         from torch.distributed.tensor import Replicate
 
-        return [Replicate() if a == "data" else pl
+        return [Replicate() if a in self.axes else pl
                 for a, pl in zip(self.mesh.mesh_dim_names, placements)]
 
     def grads(self, local_grads, tree: dict, batch: dict):
@@ -197,7 +209,7 @@ class _DataParallel:
         # the mean over the data ranks, scattered onto each leaf's shards
         grads = [DTensor.from_local(
                     g / self.ranks, self.mesh,
-                    [Partial("sum") if a == "data" else pl for a, pl in zip(
+                    [Partial("sum") if a in self.axes else pl for a, pl in zip(
                         self.mesh.mesh_dim_names, sh.placements)],
                     run_check=False, shape=sh.shape, stride=sh.stride())
                  .redistribute(self.mesh, sh.placements)
@@ -232,6 +244,19 @@ def init_train_state(model: LM, optimizer: Optimizer, mesh=None,
         params = shard_tree(params, tree_placements(
             model.defs, rules or ShardingRules.default(), mesh), mesh,
             model.defs)
+    return {"params": params, "opt": optimizer.init(params), "step": 0}
+
+
+def abstract_train_state(model: LM, optimizer: Optimizer, mesh,
+                         rules: ShardingRules | None = None) -> dict:
+    """``init_train_state``'s state without weights or memory, for the
+    dry-run: the parameters as this rank's shards under ``rules``
+    (``LM.abstract``: DTensors with fake local tensors) and the
+    optimizer's moments made from them, sharded alike (what makes the
+    AdamW moments ZeRO-sharded in the memory count), as the reference's
+    ``abstract_train_state`` gives them.  Call it in a ``FakeTensorMode``
+    (the moments are made by ``optimizer.init``)."""
+    params = model.abstract(mesh, rules)
     return {"params": params, "opt": optimizer.init(params), "step": 0}
 
 

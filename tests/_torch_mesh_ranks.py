@@ -541,3 +541,47 @@ def tp_task(rank: int, world: int, grads: list, decode: list, runs: dict,
             shutil.copytree(where, copy)
         dist.barrier()
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_roofline.py: a real step's collectives
+# ---------------------------------------------------------------------------
+
+def dryrun_task(rank: int, world: int, arch: str, derived: dict | None,
+                B: int, S: int) -> dict:
+    """One train step of the reduced ``arch`` on a (1, world) mesh, on
+    real tensors, counted: ``collectives.TRAFFIC`` (the tensor-parallel
+    all_reduces and their bytes) and every collective this rank issued as
+    ``roofline.analysis.StepCounter`` counts it, (kind, result bytes,
+    group size) in order."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.roofline.analysis import StepCounter
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    cfg = tp_config(arch, derived)
+    mesh = make_device_mesh((1, world), device="cpu")
+    model = LM(cfg, device="cpu", trainable=True, mesh=mesh)
+    opt = adamw(3e-4)
+    state = init_train_state(model, opt, mesh)
+    step = build_train_step(model, opt, mesh)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    calls = []
+    counter = StepCounter()
+    add = counter.collectives.add
+
+    def record(kind, nbytes, group):
+        calls.append((kind, nbytes, group))
+        add(kind, nbytes, group)
+
+    counter.collectives.add = record
+    collectives.reset_traffic()
+    with counter, counter.step():
+        _, metrics = step(state, batch)
+    return {"traffic": dict(collectives.TRAFFIC), "calls": calls,
+            "loss": float(metrics["loss"])}

@@ -15,7 +15,9 @@ PORT = SRC / "repro_torch"
 
 
 def _run(args, timeout=300):
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    # two torch threads, as the mesh tests' ranks take: the suite's other
+    # workers share the host's cores
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable, *args], capture_output=True,
                           text=True, timeout=timeout, env=env)
 
@@ -51,7 +53,8 @@ PORT_MODULES = ("repro_torch", "repro_torch.launch.train",
                 "repro_torch.isp.server", "repro_torch.isp.client",
                 "repro_torch.core.isp", "repro_torch.core.partition",
                 "repro_torch.launch.mesh", "repro_torch.storage.engines",
-                "repro_torch.storage.e2e")
+                "repro_torch.storage.e2e", "repro_torch.launch.dryrun",
+                "repro_torch.roofline", "repro_torch.roofline.analysis")
 
 
 def test_import_leaves_out_jax_and_repro():
@@ -130,23 +133,28 @@ def test_cli_rejects_flags_of_later_slices():
              "--log-every", "1"]
     out = _run(small + ["--backend", "isp"])
     assert out.returncode == 0, out.stderr
-    assert "backend=isp" in out.stdout and out.stdout.count("loss=") == 2
+    assert "backend=isp" in out.stdout and out.stdout.count("loss=") == 2, \
+        out.stdout
     out = _run(small + ["--backend", "host", "--graph-store", "disk",
                         "--storage-engine", "mmap"])
     assert out.returncode == 0, out.stderr
-    assert "engine=mmap" in out.stdout and "measured-vs-simulated" in out.stdout
+    assert "engine=mmap" in out.stdout and "measured-vs-simulated" in \
+        out.stdout, out.stdout
     out = _run(small + ["--mesh", "4x1"])
     assert out.returncode == 0, out.stderr
-    assert "mesh of 4 shard(s)" in out.stdout and out.stdout.count("loss=") == 2
+    assert "mesh of 4 shard(s)" in out.stdout and out.stdout.count("loss=") \
+        == 2, out.stdout
     one = _run(small)
+    assert one.returncode == 0, one.stderr
     out = _run(small + ["--mesh", "1x2"])
     assert out.returncode == 0, out.stderr
-    assert "mesh of 1 shard(s)" in out.stdout
+    assert "mesh of 1 shard(s)" in out.stdout, out.stdout
     losses = [ln.split("loss=")[1].split()[0]
               for ln in out.stdout.splitlines() if "loss=" in ln]
     assert len(losses) == 2 and losses == [
         ln.split("loss=")[1].split()[0]
-        for ln in one.stdout.splitlines() if "loss=" in ln]
+        for ln in one.stdout.splitlines() if "loss=" in ln], (out.stdout,
+                                                             one.stdout)
 
 
 def test_isp_server_process_imports_numpy_only(tmp_path):

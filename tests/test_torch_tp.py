@@ -67,13 +67,21 @@ from repro_torch.train.steps import build_train_step, init_train_state
 ROOT = Path(__file__).resolve().parents[1]
 GRAD_TOL = 1e-5
 GRAD_TOL_NEAR_ARGMAX = 5e-5            # seamless-m4t-large-v2
+# "expert-ffn": each expert's hidden-dim sum is split in two halves added
+# after, another order than one process's; this config's float32
+# gradients lie up to 3.3e-4 from float64's (its routing amplifies
+# rounding), and the reordered sums move them by ~1.6e-5
+GRAD_TOL_FFN_SPLIT = 5e-5
 F32_LOGIT_TOL, BF16_LOGIT_TOL = 1e-5, 0.05
 STEP1_TOL, LOSS_TOL = 2e-3, 3e-2
 STEPS = 4
 
 DERIVED = {"fallback": ("hymba-1.5b", dict(num_heads=5, num_kv_heads=5,
                                            vocab_size=257)),
-           "pick": ("qwen2-0.5b", dict(num_heads=6, num_kv_heads=3))}
+           "pick": ("qwen2-0.5b", dict(num_heads=6, num_kv_heads=3)),
+           # 3 experts do not split over 2 ranks: each expert's hidden
+           # dim does (as mixtral's 8 over the production mesh's 16)
+           "expert-ffn": ("mixtral-8x7b", dict(num_experts=3))}
 CONFIGS = {**{a: (a, None) for a in ARCH_IDS}, **DERIVED}
 BF16_DECODE = ("qwen2-0.5b", "gemma3-1b", "fallback", "pick")
 # decode: one arch a family (the dense family's kv-pick case is gemma3),
@@ -285,8 +293,8 @@ def test_every_leaf_gradient_matches_one_process(runs, one_process, name,
     assert float((got["logits"] - lg).abs().max()) <= \
         F32_LOGIT_TOL * float(lg.abs().max())
     assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
-    tol = GRAD_TOL_NEAR_ARGMAX if name == "seamless-m4t-large-v2" \
-        else GRAD_TOL
+    tol = {"seamless-m4t-large-v2": GRAD_TOL_NEAR_ARGMAX,
+           "expert-ffn": GRAD_TOL_FFN_SPLIT}.get(name, GRAD_TOL)
     # AdamW's global norm over the shards counts each leaf once
     assert abs(got["grad_norm"] - want["grad_norm"]) <= \
         tol * want["grad_norm"]
@@ -328,6 +336,8 @@ def test_carried_params_are_the_drawn_shards(runs, name, shape):
 def test_fallback_layouts(runs):
     """The derived configs' layouts: "fallback" keeps q heads, kv heads
     and the vocab whole at M 2 and splits the SSM heads and ``mlp``;
+    "expert-ffn" keeps its 3 experts whole and splits each one's hidden
+    dim;
     "pick" splits its 6 q heads and keeps its 3 kv heads (each rank's
     attention reads all 3, one a q head: not a block of whole groups);
     gemma3-1b splits its 4 q heads and keeps its 1 kv head."""
@@ -341,6 +351,9 @@ def test_fallback_layouts(runs):
     g3 = runs["grads"]["gemma3-1b@(1, 2)"]
     assert g3["tp"]["wq"] == 2 and g3["tp"]["wk"] is None
     assert g3["kv_heads"] == 1
+    ffn = runs["grads"]["expert-ffn@(1, 2)"]
+    assert ffn["tp"]["w_gate"] == 3 and ffn["tp"]["w_down"] == 2
+    assert ffn["tp"]["router"] is None
 
 
 @pytest.mark.parametrize("name", list(LOSS_RUNS))

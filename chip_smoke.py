@@ -381,9 +381,16 @@ Phases, in order; any failure raises and the script exits nonzero:
      measured step ms, the roofline fraction.  c: ``python -m
      repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k`` on
      the (16, 16) production mesh and with ``--multi-pod`` on (2, 16,
-     16), in two processes started in phase 3 (they trace on the host's
-     CPU while phase 3 builds its graphs, and end before it times a
-     kernel): each exits 0 with ``ok`` and its per-card bytes;
+     16), and seamless-m4t-large-v2's train_4k on (2, 16, 16) at full
+     width and depth (16 microbatches of 16 rows over 32 ranks: 8
+     passes of 1 row a rank), in three processes started before phase 2
+     (they trace on the host's CPU while the kernels and phase 3's graphs
+     are built; phase 3 waits for qwen2's before it times a kernel, and
+     seamless's, the longest, is stopped there and goes on only during
+     the card-against-CPU checks, which time nothing: phases 4, 10, 13,
+     16, 28a, 28d, 29a and 29d, then in phase 32): each exits 0 with
+     ``ok``, its per-card bytes and its bound term, seamless's with its
+     8 passes of 1 row;
   33. a JSON line of the kernels' numbers (the GNN's per launch, with
      their sums per step beside them; the LM's launches in phases 28's
      and 29's runs beside the serve and train entry points'), the card
@@ -397,12 +404,14 @@ It needs one CUDA device and exits nonzero without one.  Details go to
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
 import functools
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -717,9 +726,13 @@ SSD_RAGGED_CASES = ((2, 96, 6, 24, 3, 40, 32), (1, 300, 4, 100, 2, 72, 100))
 SSD_TP_CASE = (SERVE_BATCH, SERVE_PROMPT, 16, 64, 1, 128, 256)
 # phase 32b: the dry-run's peak-memory estimate of phase 14's step within
 # this of phase 14's measured peak (the prediction in PERF.md);
-# phase 32c's two cells each end within DRYRUN_CELL_TIMEOUT_S
+# phase 32c's cells (arch, mesh) each end within DRYRUN_CELL_TIMEOUT_S;
+# DRYRUN_SIDE_ARCH's 16 microbatches outnumber a rank's rows on 2x16x16
 DRYRUN_PEAK_REL_TOL = 0.10
 DRYRUN_CELL_TIMEOUT_S = 600
+DRYRUN_SIDE_ARCH = "seamless-m4t-large-v2"
+DRYRUN_CELLS = ((LM_ARCH, "16x16"), (LM_ARCH, "2x16x16"),
+                (DRYRUN_SIDE_ARCH, "2x16x16"))
 # H100 SXM data sheet: HBM bandwidth, the float32 rate outside the tensor
 # cores (used for the kernels' scalar integer and float work), the dense
 # bf16 tensor-core rate (the attention kernels' bf16 inputs) and the dense
@@ -4379,12 +4392,13 @@ def _moe_grad_case(arch: str) -> dict:
     return out
 
 
-def moe_phase() -> dict:
+def moe_phase(side: HeldProcess) -> dict:
     """Phase 28, the MoE family: card-vs-CPU serving (28a), the serve
     entry point for moonshot (28b) and mixtral cut in layers (28c), and
     moonshot's first MOE_TRAIN_LAYERS layers in training, card against CPU
     (28d): its MoE layer's backward on equal inputs
-    (``_moe_grad_case``), then one step (``_train_parity``)."""
+    (``_moe_grad_case``), then one step (``_train_parity``).  ``side``
+    runs during 28a and 28d, which time nothing."""
     t0 = time.perf_counter()
     split = {}
 
@@ -4394,12 +4408,14 @@ def moe_phase() -> dict:
         split[name] = round(time.perf_counter() - t, 1)
 
     out = {}
-    part("parity", moe_parity_phase)
+    with side.running():
+        part("parity", moe_parity_phase)
     part("serve", moe_serve_phase)
-    part("grad", lambda: _moe_grad_case(MOE_ARCH))
-    part("train_parity", lambda: _train_parity(MOE_ARCH, "28d",
-                                               layers=MOE_TRAIN_LAYERS,
-                                               update=False))
+    with side.running():
+        part("grad", lambda: _moe_grad_case(MOE_ARCH))
+        part("train_parity", lambda: _train_parity(MOE_ARCH, "28d",
+                                                   layers=MOE_TRAIN_LAYERS,
+                                                   update=False))
     out["seconds"], out["seconds_by_part"] = time.perf_counter() - t0, split
     print(f"[smoke] phase 28: {out['seconds']:.1f} s {split}")
     return out
@@ -4608,15 +4624,17 @@ def mm_train_phase() -> dict:
     return out
 
 
-def mm_phase() -> dict:
+def mm_phase(side: HeldProcess) -> dict:
     """Phase 29: qwen2-vl-7b and seamless-m4t-large-v2 served card
     against CPU (29a) and through the serve entry point (29b, 29c); the
     training step card against CPU (29d) of qwen2-vl on ``embeds``,
     seamless, mamba2-370m and hymba-1.5b, beside SSDChunkScan's
     gradients; the SSM training entry points (29e); and full-width
-    training steps of seamless and of qwen2-vl cut in layers (29f)."""
+    training steps of seamless and of qwen2-vl cut in layers (29f).
+    ``side`` runs during 29a and 29d, which time nothing."""
     t0 = time.perf_counter()
-    out = {"parity": mm_parity_phase()}
+    with side.running():
+        out = {"parity": mm_parity_phase()}
     split = {"a": time.perf_counter() - t0}
     out["serve"] = {
         VL_ARCH: _serve_entry("29b", VL_ARCH, MM_GEN, {
@@ -4628,13 +4646,15 @@ def mm_phase() -> dict:
             "decode_attention": 2 * get_config(ENCDEC_ARCH).num_layers
             * (MM_GEN - 1)})}
     split["b-c"] = time.perf_counter() - t0 - sum(split.values())
-    out["ssd_grad"] = {arch: ssd_grad_case(arch) for arch in SSM_GEN}
-    out["train_parity"] = {
-        VL_ARCH: _train_parity(VL_ARCH, "29d", _model_batch, update=False),
-        ENCDEC_ARCH: _train_parity(ENCDEC_ARCH, "29d", _model_batch,
-                                   staged=True, update=False),
-        **{arch: _train_parity(arch, "29d", update=False)
-           for arch in SSM_GEN}}
+    with side.running():
+        out["ssd_grad"] = {arch: ssd_grad_case(arch) for arch in SSM_GEN}
+        out["train_parity"] = {
+            VL_ARCH: _train_parity(VL_ARCH, "29d", _model_batch,
+                                   update=False),
+            ENCDEC_ARCH: _train_parity(ENCDEC_ARCH, "29d", _model_batch,
+                                       staged=True, update=False),
+            **{arch: _train_parity(arch, "29d", update=False)
+               for arch in SSM_GEN}}
     split["d"] = time.perf_counter() - t0 - sum(split.values())
     out["ssm_train"] = ssm_train_phase()
     split["e"] = time.perf_counter() - t0 - sum(split.values())
@@ -5426,27 +5446,34 @@ def fake_kernel_phase() -> dict:
 
 
 def dryrun_cells_start(out_dir: str) -> list:
-    """Phase 32c's two dry-run cells, each ``python -m
-    repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k`` (and
-    ``--multi-pod``) in a process of its own (one torch thread), started
-    together in phase 3 before its graphs are built: they trace on the
-    host's CPU beside the R-MAT build (numpy), about as long on every
-    host seen, and phase 3 waits for them before it times a kernel (the
-    smallest kernels' times take the host's enqueue in, which the
-    cells' CPU load would move).  Killed at exit if still running."""
+    """Phase 32c's dry-run cells (``DRYRUN_CELLS``), each ``python -m
+    repro_torch.launch.dryrun --arch ARCH --shape train_4k`` (with
+    ``--multi-pod`` on (2, 16, 16)) in a process of its own (one torch
+    thread), started together before the kernels' build: they trace on
+    the host's CPU beside the build and phase 3's graph builds (numpy),
+    and phase 3 waits for the first ones before it times a kernel (the
+    smallest kernels' times take the host's enqueue in, which the cells'
+    CPU load would move); the last, the longest, goes on only where the
+    checks time nothing (``HeldProcess``) and is waited for in phase 32.
+    Killed at exit if still running."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                OMP_NUM_THREADS="1")
     os.makedirs(out_dir, exist_ok=True)
     procs = []
-    for extra in ([], ["--multi-pod"]):
+    for arch, mesh_name in DRYRUN_CELLS:
+        extra = ["--multi-pod"] if mesh_name == "2x16x16" else []
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               LM_ARCH, "--shape", "train_4k", "--device", "cuda", "--out",
+               arch, "--shape", "train_4k", "--device", "cuda", "--out",
                out_dir, *extra]
         # each cell's output to a file: a pipe read only in phase 32
         # could fill and stop it
         with open(os.path.join(out_dir, f"cell{len(procs)}.log"), "w") as f:
+            # a session of its own: a stopped process (``HeldProcess``)
+            # in this script's process group would bring the kernel's
+            # SIGHUP onto the whole group once the group is orphaned
             procs.append((cmd, subprocess.Popen(
-                cmd, env=env, stdout=f, stderr=subprocess.STDOUT)))
+                cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True)))
 
     def stop():
         for _, proc in procs:
@@ -5466,15 +5493,47 @@ def dryrun_cells_wait(procs: list) -> float:
     return time.perf_counter() - t0
 
 
+class HeldProcess:
+    """A background process (phase 32c's longest dry-run cell) that runs
+    only inside ``running()``, around checks that time nothing (card
+    against CPU), and is stopped (SIGSTOP) outside, so that its CPU load
+    moves no timed phase; ``held_s`` counts the seconds it was stopped.
+    A no-op once the process has ended."""
+
+    def __init__(self, proc):
+        self.proc, self.held_s, self._since = proc, 0.0, None
+
+    def hold(self) -> None:
+        if self._since is None and self.proc.poll() is None:
+            os.kill(self.proc.pid, signal.SIGSTOP)
+            self._since = time.perf_counter()
+
+    def release(self) -> None:
+        if self._since is not None:
+            os.kill(self.proc.pid, signal.SIGCONT)
+            self.held_s += time.perf_counter() - self._since
+            self._since = None
+
+    @contextlib.contextmanager
+    def running(self):
+        self.release()
+        try:
+            yield
+        finally:
+            self.hold()
+
+
 def dryrun_phase(trained: dict, procs: list, out_dir: str) -> dict:
     """Phase 32b and c (the module docstring).  b: the dry-run of phase
     14's own configuration (qwen2-0.5b, flash, B 4 x S 4096, one process)
     traced on fake tensors on the card's device type: its peak estimate
     within DRYRUN_PEAK_REL_TOL of phase 14's measured peak, and its bound
     step time (the largest roofline term) beside phase 14's step ms.  c:
-    the two production-mesh cells of ``dryrun_cells_start`` (ended in
-    phase 3, ``dryrun_cells_wait``): each exited 0 with ``ok`` and its
-    per-card bytes."""
+    the production-mesh cells of ``dryrun_cells_start`` (ended in phase
+    3, ``dryrun_cells_wait``): each exited 0 with ``ok`` and its per-card
+    bytes and bound term; seamless-m4t-large-v2's on (2, 16, 16), whose
+    16 microbatches of 16 rows outnumber a rank's 8 rows, runs 8 passes
+    of 1 row a rank (its verbose line)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import ShapeCell
     from repro_torch.roofline import analysis as roofline
@@ -5516,25 +5575,36 @@ def dryrun_phase(trained: dict, procs: list, out_dir: str) -> dict:
               f"phase 32b: the dry-run's peak {costs.peak_bytes} bytes is "
               f"{rel:+.4f} off phase 14's {trained['peak_bytes']}")
         out["c"] = {}
-        for i, ((cmd, proc), mesh_name) in enumerate(
-                zip(procs, ("16x16", "2x16x16"))):
+        for i, ((cmd, proc), (arch, mesh_name)) in enumerate(
+                zip(procs, DRYRUN_CELLS)):
             with open(os.path.join(out_dir, f"cell{i}.log")) as f:
                 log = f.read()
-            path = os.path.join(out_dir, f"{LM_ARCH}__train_4k__"
+            path = os.path.join(out_dir, f"{arch}__train_4k__"
                                 f"{mesh_name}__baseline.json")
             rec = json.load(open(path)) if os.path.exists(path) else {}
             check(proc.returncode == 0 and rec.get("ok"),
                   f"phase 32c: {' '.join(cmd[2:])} exited "
                   f"{proc.returncode}: {log[-2000:]}")
+            # "16; a rank: passes=8 rows_per_pass=1 (...)"
+            layout = log.split("microbatches:")[-1].splitlines()[0].strip() \
+                if "microbatches:" in log else ""
+            if arch == DRYRUN_SIDE_ARCH:
+                check(rec["microbatches"] == 16
+                      and "passes=8 rows_per_pass=1 " in layout,
+                      f"phase 32c: {arch} on {mesh_name}: "
+                      f"{rec['microbatches']} microbatches, a rank's "
+                      f"layout {layout!r} (8 passes of 1 row expected)")
             mem = rec["memory"]
-            out["c"][mesh_name] = rec
+            out["c"][f"{arch} {mesh_name}"] = dict(rec, layout=layout)
             r = rec["roofline"]
-            print(f"[smoke] phase 32c: {LM_ARCH} train_4k on {mesh_name}: "
+            print(f"[smoke] phase 32c: {arch} train_4k on {mesh_name}: "
                   f"ok, {mem['per_chip_live_bytes'] / 2**30:.2f} GiB a card "
                   f"(fits_hbm {mem['fits_hbm']}), terms compute "
                   f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
                   f"collective {r['collective_s']:.4e} s, bound "
-                  f"{r['bound']}, traced in {rec['trace_s']} s")
+                  f"{r['bound']} {r['step_time_s'] * 1e3:.1f} ms, "
+                  f"microbatches: {layout}, traced in "
+                  f"{rec['trace_s']} s")
     finally:
         for _, proc in procs:
             if proc.poll() is None:
@@ -5568,6 +5638,10 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
 
+    # phase 32c's cells trace on the host's CPU while the kernels and
+    # phase 3's graphs are built, and end before any kernel is timed
+    dry_dir = os.path.join(HERE, "chiprun_out", "dryrun")
+    dry_procs = dryrun_cells_start(dry_dir)
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
@@ -5584,10 +5658,6 @@ def main() -> int:
     timer = Timer()
     floor_ms = launch_floor_ms(timer)
     print(f"[smoke]   launch floor (an empty kernel) {floor_ms:.4f} ms")
-    # phase 32c's two cells trace on the host's CPU while the graphs are
-    # built, and end before any kernel is timed
-    dry_dir = os.path.join(HERE, "chiprun_out", "dryrun")
-    dry_procs = dryrun_cells_start(dry_dir)
     reddit = load_dataset("reddit", large_scale=True)
     t0 = time.perf_counter()
     synth = attach_features(rmat_graph(RMAT_NODES, RMAT_EDGES, seed=0,
@@ -5596,9 +5666,12 @@ def main() -> int:
           f"{synth.num_edges} edges, features "
           f"{synth.features.nbytes / 1e6:.0f} MB, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    dry_wait_s = dryrun_cells_wait(dry_procs)
-    print(f"[smoke]   phase 32c's dry-run cells ended {dry_wait_s:.1f} s "
-          "after the graphs")
+    dry_wait_s = dryrun_cells_wait(dry_procs[:-1])
+    print(f"[smoke]   phase 32c's first {len(dry_procs) - 1} dry-run cells "
+          f"ended {dry_wait_s:.1f} s after the graphs")
+    # the last cell goes on only inside ``side.running()``
+    side = HeldProcess(dry_procs[-1][1])
+    side.hold()
     # the cached kernels' rows are reddit's (phase 8's graph); R-MAT keeps
     # the whole-hop sampler cases as count-0 yardsticks
     per_graph = {"reddit-large": kernel_phase("reddit-lg", reddit, timer,
@@ -5614,7 +5687,8 @@ def main() -> int:
     lm_cases = lm_kernel_phase(timer)
 
     stamp("4")
-    parity_phase(reddit)
+    with side.running():
+        parity_phase(reddit)
 
     stamp("5")
     argv = ["--arch", "graphsage", "--backend", "pallas", "--dataset",
@@ -5682,7 +5756,8 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     stamp("10")
-    serve_parity = serve_parity_phase()
+    with side.running():
+        serve_parity = serve_parity_phase()
 
     layers = get_config(LM_ARCH).num_layers
     argv_serve = ["--arch", LM_ARCH, "--full-config", "--batch",
@@ -5712,7 +5787,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     stamp("13")
-    train_parity = train_parity_phase()
+    with side.running():
+        train_parity = train_parity_phase()
 
     stamp("14")
     argv_lm = ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq-len",
@@ -5744,7 +5820,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     stamp("16")
-    ssm_parity = ssm_parity_phase()
+    with side.running():
+        ssm_parity = ssm_parity_phase()
     stamp("17")
     ssm_served = ssm_serve_phase()
     ssm_prof = serve_profile_phase("mamba2-370m", SSM_GEN["mamba2-370m"], 18)
@@ -5779,10 +5856,10 @@ def main() -> int:
     mesh = mesh_phase(argv, argv_ooc, ooc)
     torch.cuda.empty_cache()
     stamp("28")
-    moe_run = moe_phase()
+    moe_run = moe_phase(side)
     torch.cuda.empty_cache()
     stamp("29")
-    mm_run = mm_phase()
+    mm_run = mm_phase(side)
     torch.cuda.empty_cache()
     stamp("30")
     mesh_lm, tp_parts = mesh_lm_phase(argv_lm, trained, served)
@@ -5791,8 +5868,13 @@ def main() -> int:
     tp_run = tp_phase(served, *tp_parts)
     stamp("32")
     fake_kernels = fake_kernel_phase()
+    side.release()
+    side_wait_s = dryrun_cells_wait(dry_procs[-1:])
+    print(f"[smoke] phase 32: the last dry-run cell ended {side_wait_s:.1f} "
+          f"s into phase 32, held {side.held_s:.1f} s in all")
     dry = dryrun_phase(trained, dry_procs, dry_dir)
-    dry.update(a=fake_kernels, c_wait_s=dry_wait_s)
+    dry.update(a=fake_kernels, c_wait_s=dry_wait_s,
+               c_side_wait_s=side_wait_s, c_side_held_s=side.held_s)
     stamp("33")
 
     # the JSON line: the GNN kernels per launch and per step; the in-memory

@@ -13,11 +13,21 @@ over the ``data`` axis, and with ``microbatches > 1`` it first reshapes
 the global batch to ``(microbatches, B / microbatches)`` and shards the
 second dim, so rank ``r``'s microbatch ``j`` is global rows ``j * B / mb
 + r * B / (mb * D)`` onward, not a contiguous block of the batch.
+
+The reference trains wherever the ``D`` data ranks and the ``mb``
+microbatches each divide ``B``.  Where ``D`` does not divide a
+microbatch's ``m = B / mb`` rows, several microbatches run side by side
+(``microbatch_layout``): ``q = gcd(D, m)`` ranks share one microbatch,
+``c = D / q`` microbatches run at once, and each rank runs ``mb / c``
+passes of ``m / q`` rows.  Where ``D`` divides ``m`` (``q = D``, ``c =
+1``) these are the rows above.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,18 +69,45 @@ class TokenPipeline:
                 for k, v in self.batch(step).items()}
 
 
+class Layout(NamedTuple):
+    """How each of ``D`` data ranks takes its share of a global batch's
+    microbatches (``microbatch_layout``)."""
+    share: int      # q: the data ranks that share one microbatch
+    side: int       # c = D / q: the microbatches that run side by side
+    passes: int     # mb / c: a rank's passes
+    rows: int       # m / q: a rank's rows in a pass
+
+
+def microbatch_layout(batch: int, microbatches: int, ranks: int) -> Layout:
+    """The layout of a ``batch`` of rows in ``microbatches`` microbatches
+    over ``ranks`` data ranks (the module docstring); ``ValueError``,
+    naming which, unless the ranks and the microbatches each divide the
+    batch, as the reference needs."""
+    if batch % ranks:
+        raise ValueError(f"a batch of {batch} rows does not split over "
+                         f"{ranks} data ranks")
+    if batch % microbatches:
+        raise ValueError(f"a batch of {batch} rows does not split into "
+                         f"{microbatches} microbatches")
+    m = batch // microbatches
+    q = math.gcd(ranks, m)
+    c = ranks // q
+    # c divides mb: D divides mb * m, and D / q is prime to m / q
+    return Layout(q, c, microbatches // c, m // q)
+
+
 def rank_rows(batch: int, rank: int, ranks: int,
               microbatches: int = 1) -> np.ndarray:
     """The global batch rows that rank ``rank`` of ``ranks`` on the
-    ``data`` axis holds, in the order its microbatches take them (each
-    of its ``microbatches`` blocks is one of the reference's microbatches'
-    share); ``ValueError`` unless ``microbatches * ranks`` divides
-    ``batch``."""
-    if batch % (microbatches * ranks):
-        raise ValueError(f"a batch of {batch} rows does not split into "
-                         f"{microbatches} microbatches over {ranks} ranks")
-    per_mb, per_rank = batch // microbatches, batch // (microbatches * ranks)
+    ``data`` axis holds, in the order its passes take them: rank ``s * q
+    + t`` takes in pass ``i`` the ``m / q`` rows of microbatch ``j = i *
+    c + s`` that start at row ``j * m + t * m / q``
+    (``microbatch_layout``; where ``ranks`` divides ``m`` each pass is its
+    share of one of the reference's microbatches).  ``ValueError`` where
+    the layout refuses the batch."""
+    lay = microbatch_layout(batch, microbatches, ranks)
+    s, t = divmod(rank, lay.share)
+    m = batch // microbatches
     return np.concatenate([
-        np.arange(j * per_mb + rank * per_rank,
-                  j * per_mb + (rank + 1) * per_rank)
-        for j in range(microbatches)])
+        np.arange(j * m + t * lay.rows, j * m + (t + 1) * lay.rows)
+        for j in range(s, microbatches, lay.side)])

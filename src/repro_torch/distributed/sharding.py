@@ -24,7 +24,6 @@ split.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Any, Mapping, Sequence
 
 # The reference's rules, unchanged (its comments name each axis):
@@ -169,9 +168,15 @@ def tree_placements(defs, rules: ShardingRules, mesh):
                                       defs.shape), mesh)
 
 
-# the data-parallel groups of meshes with more than one batch axis,
-# flattened once per mesh
-_BATCH_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+def _mesh_groups(mesh) -> dict:
+    """The process groups made for ``mesh``, kept on the mesh itself: a
+    cache keyed by the mesh would hand a new mesh the groups of an equal
+    one (``DeviceMesh`` compares by layout) and drop them when that one is
+    collected, perhaps inside a fake mode that cannot remake them."""
+    groups = getattr(mesh, "_repro_groups", None)
+    if groups is None:
+        groups = mesh._repro_groups = {}
+    return groups
 
 
 def batch_axes(mesh) -> tuple[str, ...]:
@@ -190,9 +195,46 @@ def batch_group(mesh):
     axes = batch_axes(mesh)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    if mesh not in _BATCH_GROUPS:
-        _BATCH_GROUPS[mesh] = mesh[axes]._flatten("batch").get_group()
-    return _BATCH_GROUPS[mesh]
+    groups = _mesh_groups(mesh)
+    if "batch" not in groups:
+        groups["batch"] = mesh[axes]._flatten("batch").get_group()
+    return groups["batch"]
+
+
+def microbatch_group(mesh, share: int):
+    """The process group of the ``share`` data-parallel ranks that hold
+    one microbatch with this rank (``data.tokens.microbatch_layout``):
+    ranks ``s * share`` to ``(s + 1) * share - 1`` in the order of
+    ``batch_group``, ``s`` this rank's.  The whole ``batch_group`` where
+    ``share`` is its size, None (no collective) where ``share`` is 1.
+    Every rank makes every sub-group, one set for each ``model``
+    position, at the first call for a mesh and ``share``, and keeps them
+    (``torch.distributed.new_group`` needs every rank to call it in the
+    same order): make them before any step is traced on fake tensors."""
+    import torch.distributed as dist
+
+    ranks = dist.get_world_size(batch_group(mesh))
+    if share == ranks:
+        return batch_group(mesh)
+    if share == 1:
+        return None
+    groups = _mesh_groups(mesh)
+    if share not in groups:
+        names = list(mesh.mesh_dim_names)
+        axes = batch_axes(mesh)
+        # each row: one position of the other axes, its batch ranks in
+        # the flattened (pod-major) order
+        order = [names.index(a) for a in names if a not in axes] + [
+            names.index(a) for a in axes]
+        grid = mesh.mesh.permute(order).reshape(-1, ranks).tolist()
+        me = dist.get_rank()
+        for row in grid:
+            for s in range(0, ranks, share):
+                members = row[s:s + share]
+                g = dist.new_group(members)
+                if me in members:
+                    groups[share] = g
+    return groups[share]
 
 
 def constrain(x, logical_axes: Sequence[str | None], rules: ShardingRules,

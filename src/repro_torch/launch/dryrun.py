@@ -26,6 +26,12 @@ CUDA runtime for each tensor's stream, and a PyTorch without CUDA, or
 with CUDA and no card, refuses): where there is none the default device
 is ``cpu``, and every record names the device it traced.
 
+A train cell takes the reference's microbatches wherever the reference
+does (each of them and the pod x data ranks divide the global batch):
+where the ranks do not divide a microbatch's rows, microbatches run side
+by side (``data.tokens.microbatch_layout``), and the verbose lines print
+a rank's passes and its rows in a pass.
+
 Results are one JSON a cell under --out (default ``dryrun_out/``,
 git-ignored).  A cell that fails is recorded and the run exits 1.
 
@@ -70,6 +76,20 @@ def _local(x):
     return x.to_local() if hasattr(x, "to_local") else x
 
 
+def train_layout(shape, microbatches: int, mesh):
+    """How a rank of ``mesh`` (None: one process) takes ``shape``'s global
+    batch in ``microbatches`` microbatches: ``data.tokens.
+    microbatch_layout`` over the mesh's pod x data ranks (``ValueError``
+    where the reference also fails, naming the microbatches or the
+    ranks)."""
+    from repro_torch.data.tokens import microbatch_layout
+    from repro_torch.distributed.sharding import batch_group
+
+    ranks = (1 if mesh is None else
+             torch.distributed.get_world_size(batch_group(mesh)))
+    return microbatch_layout(shape.global_batch, microbatches, ranks)
+
+
 def trace_step(cfg, shape, mesh, rules=None, *, microbatches: int = 1,
                ce: str = "gather", device="cuda"):
     """Run ``cfg``'s step of ``shape``'s kind once on fake tensors as rank
@@ -80,7 +100,7 @@ def trace_step(cfg, shape, mesh, rules=None, *, microbatches: int = 1,
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.distributed.sharding import (ShardingRules,
-                                                  batch_group)
+                                                  microbatch_group)
     from repro_torch.launch.shapes import input_specs
     from repro_torch.models.transformer import (COMPUTE_DTYPE, abstract_lm,
                                                 seq_shards)
@@ -92,18 +112,18 @@ def trace_step(cfg, shape, mesh, rules=None, *, microbatches: int = 1,
                                          init_train_state)
 
     rules = rules or ShardingRules.default()
+    if shape.kind == "train":
+        # the reference's refusals; the MoE's dispatch sub-groups are made
+        # here, before the fake mode
+        lay = train_layout(shape, microbatches, mesh)
+        if mesh is not None:
+            microbatch_group(mesh, lay.share)
     counter = StepCounter()
     with FakeTensorMode(allow_non_fake_inputs=True):
         # made before the counter: it counts the leaves the step takes
         specs = input_specs(cfg, shape, rules, mesh, device)
         with counter:
             if shape.kind == "train":
-                rows = shape.global_batch // (
-                    1 if mesh is None else
-                    torch.distributed.get_world_size(batch_group(mesh)))
-                if rows % microbatches:
-                    raise ValueError(f"{microbatches} microbatches of a "
-                                     f"rank's {rows} rows")
                 model = abstract_lm(cfg, mesh, rules, device=device,
                                     trainable=True)
                 opt = adamw(3e-4)
@@ -197,6 +217,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     t0 = time.time()
     try:
         with production_mesh(multi_pod, device) as mesh:
+            lay = train_layout(shape, mb, mesh) if shape.kind == "train" \
+                else None
             costs = trace_step(cfg, shape, mesh, rules, microbatches=mb,
                                ce=ce, device=device)
     except Exception as e:  # noqa: BLE001 — failures are cell bugs, recorded
@@ -233,6 +255,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         print(f"  memory/chip: {costs.peak_bytes / 2**30:.2f} GiB "
               f"(fits_hbm={record['memory']['fits_hbm']}) "
               f"trace={t_trace:.1f}s")
+        if lay is not None:
+            print(f"  microbatches: {mb}; a rank: passes={lay.passes} "
+                  f"rows_per_pass={lay.rows} "
+                  f"(ranks_per_microbatch={lay.share}, "
+                  f"side_by_side={lay.side})")
     return record
 
 

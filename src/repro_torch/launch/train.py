@@ -124,13 +124,18 @@ spawned), NCCL when each rank has a card of its own, gloo on the CPU.
 Each parameter and its AdamW moments are sharded over ``data`` as the
 reference's rules give (``train.steps``), each rank trains on its rows
 of the global batch (``TokenPipeline.torch_batch(..., rank=)``), the MoE
-family routes globally across the ranks, and rank 0 logs the global
-loss and grad norm and writes the checkpoints, whole, so a checkpoint
-written at one mesh shape resumes at another.  Each leaf that the rules
+family routes each microbatch globally across the ranks that hold it,
+and rank 0 logs the global loss and grad norm and writes the
+checkpoints, whole, so a checkpoint written at one mesh shape resumes at
+another.  Each leaf that the rules
 split over ``model`` (``heads``, ``kv_heads``, ``mlp``, ``vocab``,
 ``experts``, ``ssm_head``, where they divide M) is held as that shard,
 and the layers sum over ``model`` where the reference's partitioner
-does (``models.transformer.LM(..., mesh=)``):
+does (``models.transformer.LM(..., mesh=)``).  As in the reference, the
+D data ranks and the ``--microbatches`` each divide ``--batch`` (exit 2
+naming which does not); where D does not divide a microbatch's rows,
+microbatches run side by side on the ranks (``data.tokens.
+microbatch_layout``), with the reference's mean gradient:
 
   python -m repro_torch.launch.train --device cpu --arch qwen2-0.5b \
       --reduced --devices 2 --batch 8 --seq-len 32 --steps 4
@@ -257,10 +262,10 @@ def parse_args(argv=None) -> argparse.Namespace:
             or args.batch % args.microbatches:
         ap.error("--seq-len and --microbatches must be >= 1, and "
                  "--microbatches must divide --batch")
-    if args.arch != "graphsage" \
-            and args.batch % (args.microbatches * args.mesh_dims[0]):
-        ap.error(f"--batch {args.batch} does not split into "
-                 f"{args.microbatches} microbatches over "
+    if args.arch != "graphsage" and args.batch % args.mesh_dims[0]:
+        # the reference needs the data ranks and the microbatches each to
+        # divide the batch, not their product (data.tokens.microbatch_layout)
+        ap.error(f"--batch {args.batch} does not split over "
                  f"{args.mesh_dims[0]} data ranks")
     return args
 

@@ -23,9 +23,11 @@ kernel.  ``constrain_fn`` and ``moe_zero3_gather`` are sharding knobs of
 the reference's mesh and have no counterpart here.
 
 Under data parallelism (``global_dispatch(group)``, which the train step
-of a process mesh enters) the tokens of one dispatch group may lie on
-several ranks.  With ``groups`` 1 the reference dispatches globally: the
-capacity ``C`` comes from the global token count, each assignment's slot
+of a process mesh enters with the ranks that hold one of the reference's
+microbatches: ``sharding.microbatch_group``, None where a rank holds a
+whole one) the tokens of one dispatch group may lie on several ranks.
+With ``groups`` 1 the reference dispatches globally: the capacity ``C``
+comes from the global token count, each assignment's slot
 is its place in a cumsum over the global token order, and the aux loss
 is ``E * sum(f_e * P_e)`` over global means.  So each rank offsets its
 positions by the per-expert counts of the ranks before it (an
@@ -93,9 +95,9 @@ _DISPATCH = [None]
 @contextlib.contextmanager
 def global_dispatch(group):
     """Route as one dispatch over the tokens of every rank of ``group``
-    (the data-parallel process group) inside; None or a group of one
-    rank routes locally.  Every thread of the process routes so inside
-    (the backward's recompute included)."""
+    (the data-parallel ranks that hold one microbatch) inside; None or a
+    group of one rank routes locally.  Every thread of the process routes
+    so inside (the backward's recompute included)."""
     saved = _DISPATCH[0]
     _DISPATCH[0] = group
     try:

@@ -23,9 +23,16 @@ gradient of its ``model`` shard is already whole over ``model``: the
 layers sum the parts over ``model`` where a whole tensor enters a
 rank's shard) and updates the shards; the loss and aux metrics are
 averaged over the ``data`` ranks, and the clip's norm is the global
-one.  The MoE family routes globally across the ``data`` ranks
-(``moe.global_dispatch``), as the reference's ``groups=1``, and runs
-each rank's experts.  On a mesh with a "pod" axis (the production
+one.  With microbatches, a rank runs its passes of
+``data.tokens.microbatch_layout`` (its rows in ``rank_rows``' order):
+every pass has the same size and every row lies on one rank, so the
+mean over a rank's passes, averaged over the ranks, is the reference's
+mean over microbatches with the sum reordered.  The MoE family routes
+each of the reference's microbatches as one dispatch group, globally
+across the ``data`` ranks that hold it (``moe.global_dispatch`` on
+``sharding.microbatch_group``; the whole group where the ranks divide a
+microbatch's rows, as the reference's ``groups=1``), and runs each
+rank's experts.  On a mesh with a "pod" axis (the production
 mesh's two pods) the data-parallel ranks are pod x data, as the rules'
 ``batch`` maps the rows: the means, the metrics and the MoE's dispatch
 span both axes.
@@ -39,9 +46,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.data.tokens import microbatch_layout
 from repro_torch.distributed.sharding import (ShardingRules, batch_axes,
                                               batch_group, mesh_sizes,
-                                              model_slice, tree_placements)
+                                              microbatch_group, model_slice,
+                                              tree_placements)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.transformer import LM
 from repro_torch.models.params import tree_leaves
@@ -100,7 +109,9 @@ def build_train_step(model: LM, optimizer: Optimizer, mesh=None,
     ("gather" or "sharded").  Metrics: ``loss``, ``moe_aux``,
     ``grad_norm`` and ``lr``.  On a ``mesh`` (see the module docstring)
     ``batch`` is this rank's rows (``TokenPipeline.torch_batch(...,
-    rank=, ranks=, microbatches=)``) and ``rules`` (default: the
+    rank=, ranks=, microbatches=)``), split into the rank's passes of
+    ``microbatch_layout`` instead (``microbatches`` of them where the
+    data ranks divide a microbatch's rows), and ``rules`` (default: the
     reference's) are those ``init_train_state`` took."""
     ce_fn = CE_IMPLS[ce]
     dp = _DataParallel(model, mesh) if mesh is not None else None
@@ -124,30 +135,31 @@ def build_train_step(model: LM, optimizer: Optimizer, mesh=None,
                  for p, g in zip(params, grads)]
         return grads, {"loss": loss.detach(), "moe_aux": moe_aux.detach()}
 
-    def local_grads(params: list, batch: dict):
-        if microbatches == 1:
+    def local_grads(params: list, batch: dict, passes: int):
+        if passes == 1:
             grads, metrics = grad_fn(params, batch)
         else:
-            mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                *v.shape[1:]) for k, v in batch.items()}
+            mbs = {k: v.reshape(passes, v.shape[0] // passes, *v.shape[1:])
+                   for k, v in batch.items()}
             grads, metrics = None, None
-            for i in range(microbatches):
+            for i in range(passes):
                 g, m = grad_fn(params, {k: v[i] for k, v in mbs.items()})
                 if grads is None:
                     grads, metrics = list(g), m
                     continue
                 grads = [a + b for a, b in zip(grads, g)]
                 metrics = {k: metrics[k] + m[k] for k in metrics}
-            grads = [g / microbatches for g in grads]
-            metrics = {k: v / microbatches for k, v in metrics.items()}
+            grads = [g / passes for g in grads]
+            metrics = {k: v / passes for k, v in metrics.items()}
         return grads, metrics
 
     def train_step(state: dict, batch: dict):
         tree = state["params"]
         if dp is None:
-            grads, metrics = local_grads(tree_leaves(tree), batch)
+            grads, metrics = local_grads(tree_leaves(tree), batch,
+                                         microbatches)
         else:
-            grads, metrics = dp.grads(local_grads, tree, batch)
+            grads, metrics = dp.grads(local_grads, tree, batch, microbatches)
         opt_metrics = optimizer.update(_unflatten(tree, iter(grads)),
                                        state["opt"], tree, state["step"])
         state["step"] += 1
@@ -187,7 +199,8 @@ class _DataParallel:
         return [Replicate() if a in self.axes else pl
                 for a, pl in zip(self.mesh.mesh_dim_names, placements)]
 
-    def grads(self, local_grads, tree: dict, batch: dict):
+    def grads(self, local_grads, tree: dict, batch: dict,
+              microbatches: int):
         from torch.distributed.tensor import DTensor, Partial
 
         local = tree_leaves(self.model.param_tree())
@@ -198,8 +211,13 @@ class _DataParallel:
                     sh = sh.redistribute(self.mesh,
                                          self._data_whole(sh.placements))
                 f.copy_(sh.to_local())
-        with moe_lib.global_dispatch(self.group):
-            grads, metrics = local_grads(local, batch)
+        # each of the reference's microbatches is one dispatch group: the
+        # ranks that hold it route it together
+        lay = microbatch_layout(batch["labels"].shape[0] * self.ranks,
+                                microbatches, self.ranks)
+        with moe_lib.global_dispatch(microbatch_group(self.mesh,
+                                                      lay.share)):
+            grads, metrics = local_grads(local, batch, lay.passes)
         if self.ranks == 1:
             grads = [DTensor.from_local(g, self.mesh, sh.placements,
                                         run_check=False, shape=sh.shape,

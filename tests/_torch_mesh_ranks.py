@@ -28,11 +28,11 @@ JOIN_TIMEOUT_S = 240
 
 
 def _entry(rank: int, world: int, init_file: str, out_dir: str, task,
-           args) -> None:
+           args, threads: int = 2) -> None:
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
     os.nice(10)     # the suite's other workers (their servers) come first
-    torch.set_num_threads(2)
+    torch.set_num_threads(threads)
     path = os.path.join(out_dir, f"rank{rank}.pt")
     code = 1
     try:
@@ -55,10 +55,11 @@ def _entry(rank: int, world: int, init_file: str, out_dir: str, task,
 
 
 def run_ranks(task, world: int, tmp_dir, *args,
-              timeout_s: float = JOIN_TIMEOUT_S) -> list:
-    """``task(rank, world, *args)`` on ``world`` spawned gloo ranks;
-    returns their results in rank order (raises with a rank's traceback
-    if one failed, or if one did not end within ``timeout_s``)."""
+              timeout_s: float = JOIN_TIMEOUT_S, threads: int = 2) -> list:
+    """``task(rank, world, *args)`` on ``world`` spawned gloo ranks of
+    ``threads`` torch threads each; returns their results in rank order
+    (raises with a rank's traceback if one failed, or if one did not end
+    within ``timeout_s``)."""
     import torch.multiprocessing as mp
 
     tmp_dir = str(tmp_dir)
@@ -66,7 +67,7 @@ def run_ranks(task, world: int, tmp_dir, *args,
     init_file = os.path.join(tmp_dir, "rendezvous")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(r, world, init_file, tmp_dir,
-                                              task, args))
+                                              task, args, threads))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -170,6 +171,16 @@ QWEN_ARGV = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "8",
              "--seq-len", "32", "--microbatches", "2", "--log-every", "1"]
 MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--reduced", "--batch", "4",
             "--seq-len", "32", "--log-every", "1"]
+# microbatches whose rows the data ranks do not divide: at 2 ranks 2 of
+# 3 rows (one a rank), at 4 ranks 4 of 2 rows (2 ranks each, 2 passes);
+# the reference's losses at --devices 2 equal its one-device run's
+QWEN_SIDE_ARGV = QWEN_ARGV + ["--batch", "6", "--steps", "2"]
+SIDE_ARGV = {"qwen_side4": QWEN_ARGV + ["--microbatches", "4", "--steps",
+                                        "2"],
+             "moe_side4": MOE_ARGV + ["--batch", "8", "--microbatches", "4",
+                                      "--steps", "2"]}
+# the 4-rank routing: B rows of S tokens in mb microbatches
+ROUTE_SIDE = dict(B=8, S=16, mb=4, capacity_factor=1.0)
 # the sharded decode's case: B, Hq, Hkv, D, S and (position, window) steps
 DECODE = dict(B=2, Hq=4, Hkv=2, D=16, S=16,
               steps=((3, 0), (11, 0), (12, 4), (15, 0)))
@@ -240,6 +251,8 @@ def lm_mesh_task(rank: int, world: int, ckpt_in: str, ckpt_out: str,
                                        "--ckpt-dir", ckpt_out])
     out["resumed"] = _train(QWEN_ARGV + ["--steps", "4", "--devices", "2",
                                          "--ckpt-dir", ckpt_in])
+    # a microbatch of 3 rows on each rank: side by side, routed locally
+    out["qwen_side"] = _train(QWEN_SIDE_ARGV + ["--devices", "2"])
 
     mesh = make_device_mesh((2, 1), device="cpu")
     rules = ShardingRules.default()
@@ -306,6 +319,45 @@ def lm_mesh_task(rank: int, world: int, ckpt_in: str, ckpt_out: str,
     out["train_ex"] = run_example(root, [
         "examples/train_lm_torch.py", "qwen2-0.5b", str(twin_steps),
         "--device", "cpu"])
+    return out
+
+
+def side_task(rank: int, world: int) -> dict:
+    """The 4-rank session: the launcher's runs of ``SIDE_ARGV`` on the
+    (4, 1) mesh, and moonshot's routing of each microbatch by the ranks
+    that hold it (``ROUTE_SIDE``: each pass of this rank's rows routed
+    under ``global_dispatch(microbatch_group(...))``)."""
+    import numpy as np
+
+    from repro_torch.data.tokens import microbatch_layout, rank_rows
+    from repro_torch.distributed.sharding import microbatch_group
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.models.registry import get_config
+    from repro_torch.models.transformer import build_defs
+
+    out = {name: _train(argv + ["--devices", str(world), "--mesh",
+                                f"{world}x1"])
+           for name, argv in SIDE_ARGV.items()}
+    mesh = make_device_mesh((world, 1), device="cpu")
+    r = ROUTE_SIDE
+    lay = microbatch_layout(r["B"], r["mb"], world)
+    rows = rank_rows(r["B"], rank, world, r["mb"])
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    router = init_params(build_defs(cfg), seed=0)["blocks"]["router"][0]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (r["B"], r["S"], cfg.d_model)).astype(np.float32))
+    out["layout"], out["rows"], out["route"] = lay, rows, []
+    with moe.global_dispatch(microbatch_group(mesh, lay.share)):
+        for i in range(lay.passes):
+            part = rows[i * lay.rows:(i + 1) * lay.rows]
+            got = moe.route(router, x[part], top_k=cfg.experts_per_token,
+                            capacity_factor=r["capacity_factor"],
+                            routing=cfg.routing)
+            out["route"].append({"keep": got.keep,
+                                 "expert_idx": got.expert_idx,
+                                 "aux": got.aux})
     return out
 
 

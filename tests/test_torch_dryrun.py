@@ -14,6 +14,11 @@ steps traced on the production meshes.
 * Every family's train, prefill and decode steps (reduced configs) trace
   on the (16, 16) mesh, and one arch's on (2, 16, 16): positive FLOPs,
   bytes and peak, collectives over the mesh's groups.
+* On (2, 16, 16) a train step whose microbatches outnumber a rank's rows
+  traces as the reference's does: a dense and an MoE config run a rank's
+  passes, the MoE routing over the ranks that hold a microbatch; one CLI
+  cell of seamless-m4t-large-v2 (one layer each side) runs 8 passes of
+  one row a rank.
 """
 
 import json
@@ -210,6 +215,67 @@ def test_multi_pod_steps_trace(kind, S, B):
     assert costs.flops > 0 and costs.peak_bytes > costs.state_bytes > 0
     if kind == "train":
         assert costs.collectives.max_group == 32
+
+
+# a rank's rows fewer than the microbatches on (2, 16, 16): arch, B, mb,
+# and the layout (ranks a microbatch, side by side, passes, rows a pass)
+F5_CASES = (("seamless-m4t-large-v2", 32, 16, (2, 16, 1, 1)),
+            ("mixtral-8x7b", 64, 4, (16, 2, 2, 1)))
+
+
+@pytest.mark.parametrize("arch,B,mb,layout", F5_CASES,
+                         ids=[c[0] for c in F5_CASES])
+def test_multi_pod_microbatches_outnumber_a_ranks_rows(arch, B, mb, layout,
+                                                       monkeypatch):
+    """Microbatches run side by side where the 32 pod x data ranks do not
+    divide a microbatch's rows, as the reference traces them: the step
+    runs a rank's passes, and the MoE routes each microbatch over the
+    ranks that hold it (groups of 16 for mixtral's 16-row microbatches)."""
+    from repro_torch.models import moe
+    from repro_torch.train import steps
+
+    cfg = get_config(arch).reduced()
+    shape = ShapeCell("t", 32, B, "train")
+    passes, groups = [], []
+    ce = steps.CE_IMPLS["gather"]
+    monkeypatch.setitem(steps.CE_IMPLS, "gather", lambda *a: passes.append(
+        a[1].shape[0]) or ce(*a))
+    ranks = moe._ranks
+    monkeypatch.setattr(moe, "_ranks", lambda g: groups.append(ranks(g))
+                        or ranks(g))
+    with production_mesh(True, "cpu") as mesh:
+        assert tuple(dryrun.train_layout(shape, mb, mesh)) == layout
+        costs = dryrun.trace_step(cfg, shape, mesh, microbatches=mb,
+                                  device="cpu")
+    assert costs.flops > 0 and costs.peak_bytes > costs.state_bytes > 0
+    assert costs.collectives.max_group == 32
+    assert costs.collectives.counts["reduce-scatter"] > 0
+    # a loss for each pass, over its rows
+    assert passes == [layout[3]] * layout[2]
+    if cfg.family == "moe":
+        # every route of every layer, forward and remat recompute
+        assert groups and {n for _, n in groups} == {layout[0]}
+    else:
+        assert not groups
+
+
+def test_cli_multi_pod_cell_of_16_microbatches(tmp_path):
+    """seamless-m4t-large-v2 train_4k on (2, 16, 16), cut to one layer
+    each side: 16 microbatches of 16 rows over 32 ranks, 8 passes of one
+    row a rank."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "seamless-m4t-large-v2", "--shape", "train_4k", "--multi-pod",
+         "--set", "num_layers=1", "--set", "encoder_layers=1", "--device",
+         "cpu", "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    rec = json.loads((tmp_path / "seamless-m4t-large-v2__train_4k__2x16x16"
+                      "__baseline.json").read_text())
+    assert rec["ok"] and rec["microbatches"] == 16 and rec["n_chips"] == 512
+    assert set(rec) == KEYS | {"cfg_overrides"}
+    assert "passes=8 rows_per_pass=1" in r.stdout
 
 
 @pytest.mark.parametrize("arch", dryrun.TRAIN_MICROBATCHES)

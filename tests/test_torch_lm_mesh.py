@@ -14,6 +14,15 @@ on one process.
   of each rank's rows equal one rank's routing of the whole batch.
 - the microbatch row order: each rank's rows are those the reference's
   ``(mb, B / mb)`` reshape sharded over ``data`` puts on its device.
+- microbatches whose rows the data ranks do not divide (the reference
+  trains wherever the ranks and the microbatches each divide the batch):
+  the layout over every such (B <= 64, mb, D) puts each row on one rank
+  in passes of one size, each microbatch in one pass of its ranks; qwen2
+  at 2 ranks (batch 6, 2 microbatches) and qwen2 and moonshot at 4 ranks
+  (a second session, 1 thread a rank; batch 8, 4 microbatches) log the
+  reference's losses within the tolerances above, and at 4 ranks each
+  microbatch's routing by the 2 ranks that hold it equals one process's
+  routing of that microbatch alone.
 - the sequence-sharded decode at M 2 against the reference's
   ``sharded_decode_attention`` on a (1, 2) mesh within 1e-5 (float32
   partials, different summation order), with a step whose position lies
@@ -38,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -162,19 +172,32 @@ def runs(tmp_path_factory):
     ref_examples = {"ref_train_ex": ["examples/train_lm.py", "qwen2-0.5b",
                                      str(TWIN_STEPS)],
                     "ref_serve_ex": ["examples/serve_decode.py"]}
+    # the side-by-side microbatches' runs (the reference's losses do not
+    # depend on its mesh: 2 placeholder devices stand for 4)
+    ref_side = {"ref_qwen_side": launcher + ranks.QWEN_SIDE_ARGV}
+    ref_side.update({"ref_" + k: launcher + v
+                     for k, v in ranks.SIDE_ARGV.items()})
     procs = {
         "ref": _start(["-c", REF_SCRIPT, str(ref_npz), str(ROOT / "tests"),
                        str(ROOT), json.dumps(ref_runs)]),
         "ref_ex": _start(["-c", REF_SCRIPT, str(tmp / "examples"),
                           str(ROOT / "tests"), str(ROOT),
                           json.dumps(ref_examples)]),
+        "ref_side": _start(["-c", REF_SCRIPT, str(tmp / "side"),
+                            str(ROOT / "tests"), str(ROOT),
+                            json.dumps(ref_side)]),
     }
     try:
         ckpt_in, ckpt_out = str(tmp / "ckpt_1rank"), str(tmp / "ckpt_2rank")
         one = {"saved": ranks._train(ranks.QWEN_ARGV + [
             "--steps", "2", "--ckpt-dir", ckpt_in])}
-        on = ranks.run_ranks(ranks.lm_mesh_task, 2, tmp / "ranks", ckpt_in,
-                             ckpt_out, str(ROOT), TWIN_STEPS)
+        # the 4-rank session (1 thread a rank) beside the 2-rank one
+        with ThreadPoolExecutor(1) as pool:
+            side = pool.submit(ranks.run_ranks, ranks.side_task, 4,
+                               tmp / "ranks4", threads=1)
+            on = ranks.run_ranks(ranks.lm_mesh_task, 2, tmp / "ranks",
+                                 ckpt_in, ckpt_out, str(ROOT), TWIN_STEPS)
+            four = side.result()
         one["qwen"] = ranks._train(ranks.QWEN_ARGV + ["--steps", "3"])
         one["four"] = ranks._train(ranks.QWEN_ARGV + ["--steps", "4"])
         one["resumed"] = ranks._train(ranks.QWEN_ARGV + [
@@ -192,9 +215,9 @@ def runs(tmp_path_factory):
                 p.communicate()
     with np.load(ref_npz) as z:
         ref = dict(z)
-    for logs in ("ref.npz.json", "examples.json"):
+    for logs in ("ref.npz.json", "examples.json", "side.json"):
         outs.update(json.loads((tmp / logs).read_text()))
-    return {"ranks": on, "one": one, "out": outs, "ref": ref,
+    return {"ranks": on, "four": four, "one": one, "out": outs, "ref": ref,
             "ckpt_in": ckpt_in}
 
 
@@ -272,8 +295,103 @@ def test_microbatch_rows_are_the_references(runs):
                 rank_rows(8, rank, 2, mb),
                 runs["ref"][f"rows_mb{mb}_dev{rank}"])
     np.testing.assert_array_equal(rank_rows(8, 1, 2, 2), [2, 3, 6, 7])
+    # 4 ranks do not divide 6 rows: the reference's device_put fails too
     with pytest.raises(ValueError):
-        rank_rows(6, 0, 2, 2)
+        rank_rows(6, 0, 4, 1)
+
+
+@pytest.mark.parametrize("D", (1, 2, 3, 4, 6, 8))
+def test_microbatch_layout_puts_each_row_on_one_rank(D):
+    """Every (B <= 64, mb) that the reference trains on D data ranks (D and
+    mb each divide B): each row lies on exactly one rank, every pass has
+    the same size, each microbatch's rows lie in one pass on ``share``
+    ranks, and where D divides a microbatch's rows they are the rows of
+    the layout before microbatches ran side by side."""
+    from repro_torch.data.tokens import microbatch_layout, rank_rows
+
+    for B in range(D, 65, D):
+        for mb in (n for n in range(1, B + 1) if B % n == 0):
+            m = B // mb
+            lay = microbatch_layout(B, mb, D)
+            assert lay.share * lay.side == D and lay.side * lay.passes == mb
+            rows = [rank_rows(B, r, D, mb) for r in range(D)]
+            assert all(len(x) == lay.passes * lay.rows for x in rows)
+            np.testing.assert_array_equal(np.sort(np.concatenate(rows)),
+                                          np.arange(B))
+            # (rank, pass) of each row
+            owner = {int(row): (r, n // lay.rows)
+                     for r in range(D) for n, row in enumerate(rows[r])}
+            for j in range(mb):
+                holders = {owner[row] for row in range(j * m, (j + 1) * m)}
+                assert len(holders) == lay.share
+                assert len({i for _, i in holders}) == 1
+            if m % D == 0:
+                per = m // D
+                for r in range(D):
+                    np.testing.assert_array_equal(rows[r], np.concatenate([
+                        np.arange(j * m + r * per, j * m + (r + 1) * per)
+                        for j in range(mb)]))
+    with pytest.raises(ValueError, match="microbatches"):
+        microbatch_layout(6 * D, 4 * 6 * D + 1, D)
+    if D > 1:
+        with pytest.raises(ValueError, match="data ranks"):
+            microbatch_layout(D + 1, 1, D)
+
+
+def test_two_ranks_run_microbatches_side_by_side(runs):
+    """--batch 6 --microbatches 2 at 2 ranks: each rank runs one of the
+    reference's 3-row microbatches, routed locally."""
+    got = runs["ranks"][0]["qwen_side"]
+    assert got["world"] == 2
+    _close(got["losses"], _losses(runs["out"]["ref_qwen_side"]),
+           "port --devices 2 --batch 6 vs reference")
+
+
+@pytest.mark.parametrize("name", ranks.SIDE_ARGV)
+def test_four_ranks_share_microbatches_as_the_reference(runs, name):
+    """--batch 8 --microbatches 4 at 4 ranks: 2 ranks a 2-row microbatch,
+    2 passes of one row a rank; losses against the reference's."""
+    got = runs["four"][0][name]
+    assert [r[name] for r in runs["four"][1:]] == [None] * 3
+    assert got["world"] == 4 and tuple(got["mesh"]) == (4, 1)
+    _close(got["losses"], _losses(runs["out"]["ref_" + name]),
+           f"port 4 ranks vs reference: {name}")
+
+
+def test_four_ranks_route_each_microbatch_as_one(runs):
+    """Each of the reference's microbatches is one dispatch group on the
+    ranks that hold it: their kept assignments, expert ids and aux loss
+    equal one process's routing of that microbatch alone (some
+    assignments dropped, so the offsets between the ranks matter)."""
+    r = ranks.ROUTE_SIDE
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    router = init_params(build_defs(cfg), seed=0)["blocks"]["router"][0]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (r["B"], r["S"], cfg.d_model)).astype(np.float32))
+    four = runs["four"]
+    lay = four[0]["layout"]
+    assert tuple(lay) == (2, 2, 2, 1)
+    m, dropped = r["B"] // r["mb"], 0
+    for j in range(r["mb"]):
+        whole = moe.route(router, x[j * m:(j + 1) * m],
+                          top_k=cfg.experts_per_token,
+                          capacity_factor=r["capacity_factor"],
+                          routing=cfg.routing)
+        dropped += int((~whole.keep).sum())
+        s, i = j % lay.side, j // lay.side
+        holders = four[s * lay.share:(s + 1) * lay.share]
+        for t, h in enumerate(holders):
+            np.testing.assert_array_equal(
+                h["rows"][i * lay.rows:(i + 1) * lay.rows],
+                np.arange(j * m + t * lay.rows, j * m + (t + 1) * lay.rows))
+        for key in ("keep", "expert_idx"):
+            assert torch.equal(torch.cat([h["route"][i][key]
+                                          for h in holders], dim=1),
+                               getattr(whole, key)), (j, key)
+        for h in holders:
+            torch.testing.assert_close(h["route"][i]["aux"], whole.aux,
+                                       rtol=1e-6, atol=0)
+    assert dropped > 0
 
 
 def test_sharded_decode_matches_the_references(runs):

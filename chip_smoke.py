@@ -367,7 +367,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      TP_LAYER_REL_TOL relative L2), and mamba2-370m's mixer, its 32
      heads split 16 a rank (the SSD kernel launched once a rank at 16
      heads; the outputs within TP_LAYER_REL_TOL, the rank's block of the
-     final state within TP_LAYER_REL_TOL);
+     final state within TP_LAYER_REL_TOL); then moonshot's MoE block
+     data-parallel on the (2, 1) mesh, 6 rows of 2048 a rank at
+     ``moe_groups`` 3 (group 1 straddles the ranks; inputs that crowd
+     some experts, so assignments drop), against every rank's run of all
+     12 rows as one process: the kept assignments equal (expert ids
+     apart only at near-ties of the scores), the aux loss, and the
+     outputs within TP_LAYER_REL_TOL relative L2;
   32. the dry-run (``repro_torch.launch.dryrun``), which traces a step
      on fake tensors.  a: each LM kernel entry of ``kernels.ops`` (the
      flash forward, the flash backward's two kernels, ``decode_attention``
@@ -651,6 +657,13 @@ SHARDED_CACHE = SERVE_PROMPT + SHARDED_GEN + 1
 TP_TRAIN_BATCH, TP_LOSS_REL_TOL = 2, 2e-3
 TP_LAYER_REL_TOL = 1e-2
 TP_LAYER_ARCHS = (MOE_ARCH, "mamba2-370m")
+# 31c's data-parallel case: moonshot's MoE layer on the (2, 1) mesh, 6
+# rows of 2048 a rank at 3 dispatch groups (group 1 straddles the ranks),
+# held against one process's run of all 12 rows within TP_LAYER_REL_TOL;
+# its inputs share an offset of DP_MOE_SKEW standard deviations, so that
+# the router crowds some experts past their capacity (a quarter of the
+# assignments dropped) and each part's offset decides what is kept
+DP_MOE_ROWS, DP_MOE_GROUPS, DP_MOE_SKEW = 6, 3, 0.5
 # 31b's decode steps in float32 activations (30c's 8 halved: the phase's
 # time)
 TP_F32_STEPS = 4
@@ -5184,6 +5197,76 @@ def _tp_layers(mesh, dev) -> dict:
     return out
 
 
+def _dp_moe_layer(dev) -> dict:
+    """31c's data-parallel case on one rank: one layer of moonshot's MoE
+    block at full width and ``moe_groups`` DP_MOE_GROUPS on the (2, 1)
+    mesh, this rank's DP_MOE_ROWS rows of 2048 under ``global_dispatch``
+    over the ``data`` ranks; every rank also runs all the rows as one
+    process and holds its own rows' routing and outputs against that
+    run's.  Where an expert id differs (the router product's float32
+    sums in another order at another row count), its two scores must lie
+    within ROUTER_TIE_TOL of each other, and the outputs are compared on
+    the tokens routed alike."""
+    from repro_torch.launch.mesh import make_device_mesh
+
+    mesh = make_device_mesh((2, 1), device=dev.type)
+    rank, R = mesh.get_local_rank("data"), DP_MOE_ROWS
+    cfg = dataclasses.replace(get_config(MOE_ARCH), moe_groups=DP_MOE_GROUPS)
+    _, p = _first_layer(MOE_ARCH, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (torch.randn(2 * R, SERVE_PROMPT, cfg.d_model, generator=g,
+                     device=dev)
+         + DP_MOE_SKEW * torch.randn(cfg.d_model, generator=g, device=dev)
+         ).to(COMPUTE_DTYPE)
+    kw, k = _moe_kw(cfg), cfg.experts_per_token
+    mine = x[rank * R:(rank + 1) * R]
+    with torch.no_grad():
+        with moe.global_dispatch(mesh.get_group("data")):
+            got = transformer._moe_block(cfg, p, mine, cfg.capacity_factor)[0]
+            r = moe.route(p["router"], rmsnorm(mine, p["mlp_norm"],
+                                               cfg.norm_eps), **kw)
+        want = transformer._moe_block(cfg, p, x, cfg.capacity_factor)[0]
+        h = rmsnorm(x, p["mlp_norm"], cfg.norm_eps)
+        w = moe.route(p["router"], h, **kw)
+        Tl = R * SERVE_PROMPT
+        ew = w.expert_idx.reshape(-1, k)[rank * Tl:(rank + 1) * Tl].cpu()
+        er = r.expert_idx.reshape(-1, k).cpu()
+        keep_w = w.keep.reshape(-1, k)[rank * Tl:(rank + 1) * Tl].cpu()
+        keep_r = r.keep.reshape(-1, k).cpu()
+        differ = (ew != er).any(-1).nonzero()[:, 0].tolist()
+        gaps = []
+        if differ:
+            hc = h.reshape(-1, cfg.d_model)[rank * Tl:(rank + 1) * Tl].cpu()
+            scores = hc[differ].float() @ p["router"].float().cpu()
+            if cfg.routing != "softmax":
+                scores = torch.sigmoid(scores)
+            for i, t in enumerate(differ):
+                j = int((er[t] != ew[t]).nonzero()[0, 0])
+                gaps.append(abs(float(scores[i, er[t, j]]
+                                      - scores[i, ew[t, j]])))
+        # keep flags apart on tokens whose expert ids agree: a near-tie
+        # moves one of k ids, so two experts' counts by one each, and so
+        # at most two keep flags after it in its group, on either rank
+        same_ids = (ew == er).all(-1, keepdim=True)
+        keep_apart = int(((keep_w != keep_r) & same_ids).sum())
+        # the outputs of the tokens routed alike (all of them without a
+        # near-tie)
+        alike = ((ew == er) & (keep_w == keep_r)).all(-1).to(dev)
+        a = got.reshape(-1, cfg.d_model)[alike].float()
+        b = want[rank * R:(rank + 1) * R].reshape(-1, cfg.d_model)[alike]
+        row = {"rank": rank, "parts": int(r.slot_tok.shape[0]),
+               "kept": int(keep_r.sum()), "kept_one": int(keep_w.sum()),
+               "keep_equal": torch.equal(keep_r, keep_w),
+               "keep_apart": keep_apart, "ids_apart": len(differ), "max_gap": max(gaps, default=0.0),
+               "routed_alike": int(alike.sum()), "tokens": Tl, "k": k,
+               "aux": float(r.aux), "aux_one": float(w.aux),
+               "out_rel_l2": float((a - b.float()).norm()
+                                   / b.float().norm())}
+    del p, x, got, want, h, r, w
+    torch.cuda.empty_cache()
+    return _per_rank(row)
+
+
 def _tp_rank(mesh, argv_tp: list, device: str) -> dict | None:
     """One rank of phase 31 (a spawned rank imports this script afresh,
     so everything it reads is an argument or a constant): 31a through
@@ -5204,6 +5287,7 @@ def _tp_rank(mesh, argv_tp: list, device: str) -> dict | None:
     out["b"] = _tp_decode(mesh, dev)
     out["b_s"], t0 = time.perf_counter() - t0, time.perf_counter()
     out["c"] = _tp_layers(mesh, dev)
+    out["c_dp"] = _dp_moe_layer(dev)
     out["c_s"] = time.perf_counter() - t0
     out["backend"] = dist.get_backend()
     return out if dist.get_rank() == 0 else None
@@ -5332,6 +5416,41 @@ def tp_phase(served: dict, one_run: dict, got: dict) -> dict:
               + f"; launches per rank "
               f"{[{k: n for k, n in l.items() if n} for l in row['launches']]}")
     out["c"] = c
+    # 31c's data-parallel case
+    ids_apart = sum(row["ids_apart"] for row in got["c_dp"])
+    for row in got["c_dp"]:
+        tag = f"phase 31c ({MOE_ARCH}, (2, 1) mesh, rank {row['rank']})"
+        check(row["max_gap"] <= ROUTER_TIE_TOL, f"{tag}: an expert id apart "
+              f"from one process's, {row['max_gap']:g} apart in the scores")
+        # every keep flag is the one process's but for what the near-ties
+        # of either rank move (none without one): a part's offset wrong
+        # by any count moves more
+        check(row["keep_apart"] <= 2 * row["k"] * ids_apart,
+              f"{tag}: {row['keep_apart']} keep flags apart from one "
+              f"process's on tokens with its expert ids ({ids_apart} "
+              "tokens' ids apart on the ranks)")
+        check(row["kept"] < row["tokens"] * row["k"],
+              f"{tag}: no assignment dropped")
+        check(abs(row["aux"] - row["aux_one"]) <= 1e-5 * abs(row["aux_one"]),
+              f"{tag}: aux {row['aux']} vs one process's {row['aux_one']}")
+        check(row["out_rel_l2"] <= TP_LAYER_REL_TOL,
+              f"{tag}: outputs {row['out_rel_l2']:.3g} relative L2 from one "
+              f"process's (limit {TP_LAYER_REL_TOL})")
+    out["c_dp"] = got["c_dp"]
+    print(f"[smoke] phase 31c ({MOE_ARCH}, one layer, (2, 1) mesh, "
+          f"{DP_MOE_ROWS} rows of {SERVE_PROMPT} a rank, moe_groups "
+          f"{DP_MOE_GROUPS}: group 1 straddles the ranks): per rank "
+          + "; ".join(
+              f"rank {r['rank']}: {r['parts']} parts, {r['kept']} of "
+              f"{r['tokens'] * r['k']} assignments kept (one process "
+              f"{r['kept_one']}, keep flags "
+              f"{'equal' if r['keep_equal'] else 'apart'}, "
+              f"{r['keep_apart']} apart on tokens of equal ids, "
+              f"{r['ids_apart']} tokens' expert ids apart at near-ties), aux "
+              f"{r['aux']:.6g} (one process {r['aux_one']:.6g}), outputs of "
+              f"the {r['routed_alike']} of {r['tokens']} tokens routed alike "
+              f"within {r['out_rel_l2']:.3g} relative L2"
+              for r in got["c_dp"]))
     out["seconds"]["total"] = (time.perf_counter() - t0 + one_s
                                + got["a_s"] + got["b_s"] + got["c_s"])
     print(f"[smoke] phase 31: {out['seconds']['total']:.1f} s (one process "

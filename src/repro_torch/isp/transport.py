@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import os
 import socket
-import struct
 import time
 
 TRANSPORTS = ("unix", "tcp", "shm")
@@ -157,7 +156,7 @@ def make_listener(kind: str, address: str):
 # shared-memory byte ring
 # ---------------------------------------------------------------------------
 
-_RING_HDR = struct.Struct("<QQBB")      # head, tail, writer_closed, reader_closed
+# the header: head and tail (u64), writer_closed and reader_closed (u8)
 _RING_HDR_BYTES = 64                    # cacheline-padded
 
 
@@ -171,6 +170,11 @@ class _Ring:
         self.capacity = capacity
         self.owner = owner
         self.buf = shm.buf
+        # head and tail as native u64s: each read or write of one is a
+        # single aligned 8-byte access, which the other process never sees
+        # half done (struct packs and unpacks byte by byte, and a torn
+        # head could read as fewer bytes than the reader has taken)
+        self._at = shm.buf[:16].cast("Q")
 
     @classmethod
     def create(cls, name: str, capacity: int) -> "_Ring":
@@ -195,16 +199,16 @@ class _Ring:
         return cls(shm, shm.size - _RING_HDR_BYTES, owner=False)
 
     def _hdr(self) -> tuple[int, int, int, int]:
-        return _RING_HDR.unpack_from(self.buf, 0)
+        return self._at[0], self._at[1], self.buf[16], self.buf[17]
 
     def _set_head(self, v: int) -> None:
-        struct.pack_into("<Q", self.buf, 0, v)
+        self._at[0] = v
 
     def _set_tail(self, v: int) -> None:
-        struct.pack_into("<Q", self.buf, 8, v)
+        self._at[1] = v
 
     def mark_closed(self, *, writer: bool) -> None:
-        struct.pack_into("<B", self.buf, 16 if writer else 17, 1)
+        self.buf[16 if writer else 17] = 1
 
     def write(self, data, *, timeout: float | None = None) -> None:
         mv = memoryview(data)
@@ -262,6 +266,7 @@ class _Ring:
         buf = self.buf
         self.buf = None
         if buf is not None:
+            self._at.release()
             try:
                 self.shm.close()
             except Exception:

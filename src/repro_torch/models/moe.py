@@ -26,25 +26,32 @@ Under data parallelism (``global_dispatch(group)``, which the train step
 of a process mesh enters with the ranks that hold one of the reference's
 microbatches: ``sharding.microbatch_group``, None where a rank holds a
 whole one) the tokens of one dispatch group may lie on several ranks.
-With ``groups`` 1 the reference dispatches globally: the capacity ``C``
-comes from the global token count, each assignment's slot
-is its place in a cumsum over the global token order, and the aux loss
-is ``E * sum(f_e * P_e)`` over global means.  So each rank offsets its
-positions by the per-expert counts of the ranks before it (an
-``all_gather`` of (E,) counts) and keeps an assignment iff that global
-position is below ``C``; its own kept tokens fill a local (E, C) table
-at their local positions, and the expert products are row by row, so
-each kept token gets the output one rank would give it.  ``f`` is the
-global count share, and ``P`` takes the global mean's value (an
+The reference cuts a microbatch's T tokens, in row-major order, into
+``groups`` G groups of ``Tg = T / G``, each with its own cumsum and
+capacity ``C``; rank t of the q that hold the microbatch holds its
+tokens ``t * T / q`` onward, which may end inside a group or begin in
+one.  So each rank cuts its tokens into parts, one for each group they
+touch, counts each part's assignments per expert and sums over the
+ranks a (q, G, E) table of those counts (one ``all_reduce``: a rank's
+row is zero but for its groups); a part's slot 0 lies at the counts of
+the ranks before it in that group, and an assignment is kept iff that
+offset plus its place in its part is below ``C``.  Each part's kept
+tokens fill its own (E, C) table at their places in the part, and the
+expert products are row by row, so each kept token gets the output one
+rank would give it.  Where every rank holds whole groups (G a multiple
+of q) no part needs an offset and the table is not summed.  The aux
+loss is ``E * sum(f_e * P_e)`` over the microbatch whatever G is: ``f``
+the global count share (an ``all_reduce`` of the (E,) counts where the
+table was not summed), ``P`` the global mean's value (an
 ``all_reduce`` of the probability sums) with the local mean's gradient,
 which the gradient's average over the ranks turns into the global
-mean's.  With ``groups`` a multiple of the ranks, each rank's tokens are
-whole groups and routing stays local.
+mean's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple
 
 import torch
@@ -96,8 +103,10 @@ _DISPATCH = [None]
 def global_dispatch(group):
     """Route as one dispatch over the tokens of every rank of ``group``
     (the data-parallel ranks that hold one microbatch) inside; None or a
-    group of one rank routes locally.  Every thread of the process routes
-    so inside (the backward's recompute included)."""
+    group of one rank routes locally.  A rank's place in the microbatch's
+    token order is its rank in ``group`` (``data.tokens.rank_rows``: rank
+    t holds its t-th range).  Every thread of the process routes so
+    inside (the backward's recompute included)."""
     saved = _DISPATCH[0]
     _DISPATCH[0] = group
     try:
@@ -119,13 +128,25 @@ def capacity(capacity_factor: float, top_k: int, Tg: int, E: int) -> int:
 
 
 class Route(NamedTuple):
-    """A routing of ``T = G * Tg`` tokens to their top-k experts."""
-    expert_idx: torch.Tensor    # (G, Tg, k) int64, best first
-    gates: torch.Tensor         # (G, Tg, k) float32
-    pos: torch.Tensor           # (G, Tg * k) int64: slot in its expert
-    keep: torch.Tensor          # (G, Tg * k) bool: global position < C
-    slot_tok: torch.Tensor      # (G, E, C) int64: token id, Tg if empty
+    """A routing of this rank's ``n * Tc`` tokens to their top-k experts,
+    in ``n`` chunks of ``Tc`` tokens that each lie in one dispatch group
+    (on one rank: the reference's (G, Tg) groups), and their slots in
+    ``P`` tables, one for each part of the tokens: the run of chunks in
+    one group (each chunk its own part unless a group straddles ranks)."""
+    expert_idx: torch.Tensor    # (n, Tc, k) int64, best first
+    gates: torch.Tensor         # (n, Tc, k) float32
+    pos: torch.Tensor           # (n, Tc * k) int64: slot in its part's table
+    keep: torch.Tensor          # (n, Tc * k) bool: global position < C
+    slot_tok: torch.Tensor      # (P, E, C) int64: token id in its part,
+    #                             Tg if empty
     aux: torch.Tensor           # float32 scalar: the Switch aux loss
+    offset: torch.Tensor | None  # (P, E) int64: the global position of
+    #                             each part's slot 0 (the counts of the
+    #                             ranks before this one in its group);
+    #                             None where every part starts a group
+    part: torch.Tensor          # (n,) int64: each chunk's part
+    first: torch.Tensor         # (P,) int64: each part's first token
+    #                             among this rank's
 
 
 def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
@@ -133,30 +154,30 @@ def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
     """The routing ``apply_moe`` takes for ``x`` (B, S, d) under the
     router (d, E): ``groups`` dispatch groups (1 when it does not divide
     the B * S tokens of every rank together), each with its own cumsum
-    and capacity.  ``pos`` is an assignment's slot in this rank's table
-    (its global position less the counts of the ranks before it, under
-    ``global_dispatch``)."""
+    and capacity, cut where they span ranks (the module docstring).  On
+    one rank the chunks and parts are the reference's groups, and its
+    fields are the reference's."""
     B, S, d = x.shape
     group = _DISPATCH[0]
     rank, ranks = _ranks(group)
-    T = B * S * ranks                       # the tokens of every rank
+    Tl = B * S                              # this rank's tokens
+    T = Tl * ranks                          # the microbatch's
     E = router.shape[-1]
     G = groups if T % groups == 0 else 1
-    if ranks > 1 and G > 1 and G % ranks:
-        raise NotImplementedError(
-            f"{G} dispatch groups over {ranks} data ranks: a group spans "
-            "ranks (take groups 1 or a multiple of the ranks)")
-    spans = ranks > 1 and G == 1            # one group over every rank
-    G = G // ranks if ranks > 1 and G > 1 else G
-    Tg = B * S // G
-    C = capacity(capacity_factor, top_k, T if spans else Tg, E)
+    Tg = T // G
+    C = capacity(capacity_factor, top_k, Tg, E)
+    Tc = math.gcd(Tl, Tg)                   # a chunk lies in one group
+    n = Tl // Tc
+    start = rank * Tl                       # this rank's first token
+    g0 = start // Tg                        # the group of its first part
+    P = (start + Tl - 1) // Tg - g0 + 1
     dev = x.device
 
     with _float32_products():
         # one (T, d) x (d, E) product: no batch dims, as the reference's
         # einsum (a "dots" remat saves it)
-        logits = (x.reshape(G * Tg, d).float() @ router.float()
-                  ).reshape(G, Tg, E)
+        logits = (x.reshape(Tl, d).float() @ router.float()
+                  ).reshape(n, Tc, E)
     scores = logits if routing == "softmax" else torch.sigmoid(logits)
     # lax.top_k: the k largest, ties to the lower index
     vals, order = torch.sort(scores, dim=-1, descending=True, stable=True)
@@ -166,39 +187,60 @@ def route(router, x, *, top_k: int, capacity_factor: float = 1.25,
     else:  # sigmoid (deepseek/moonlight-style), renormalized over top-k
         gates = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # position of each (token, k) assignment within its expert, per group
-    flat_e = expert_idx.reshape(G, Tg * top_k)                  # (G, Tk)
+    # position of each (token, k) assignment within its expert, per chunk
+    flat_e = expert_idx.reshape(n, Tc * top_k)                  # (n, Tk)
     oh = (flat_e[..., None] == torch.arange(E, device=dev)).to(torch.int32)
     pos = torch.gather(oh.cumsum(dim=1, dtype=torch.int32) - 1, 2,
-                       flat_e[..., None])[..., 0].long()        # (G, Tk)
-    counts = oh.sum(dim=(0, 1))                                 # (E,)
-    probs = torch.softmax(logits, dim=-1)                       # (G, Tg, E)
+                       flat_e[..., None])[..., 0].long()        # (n, Tk)
+    counts = oh.sum(dim=1)                                      # (n, E)
+    # then per part: after the counts of its part's earlier chunks
+    part = (start + torch.arange(n, device=dev) * Tc) // Tg - g0
+    first = ((g0 + torch.arange(P, device=dev)) * Tg - start).clamp_min(0)
+    before = counts.cumsum(dim=0) - counts
+    before = before - before[first[part] // Tc]
+    pos = pos + torch.gather(before, 1, flat_e)
+    counts = torch.zeros(P, E, dtype=counts.dtype,
+                         device=dev).index_add_(0, part, counts)
+    offset = None
+    probs = torch.softmax(logits, dim=-1)                       # (n, Tc, E)
     frac_probs = probs.mean(dim=(0, 1))
-    if spans:
-        every = [torch.empty_like(counts) for _ in range(ranks)]
-        dist.all_gather(every, counts, group=group)
-        before = sum(every[:rank], torch.zeros_like(counts)).long()
-        keep = pos + before[flat_e] < C     # the global position
-        counts = sum(every)
+    if ranks > 1:
+        if Tl % Tg:
+            # a group spans ranks: every rank's counts in every group
+            table = torch.zeros(ranks, G, E, dtype=counts.dtype, device=dev)
+            table[rank, g0:g0 + P] = counts
+            dist.all_reduce(table, group=group)
+            offset = table[:rank, g0:g0 + P].sum(dim=0)        # (P, E)
+            counts = table.sum(dim=(0, 1))
+        else:
+            counts = counts.sum(dim=0)
+            dist.all_reduce(counts, group=group)
         psum = probs.detach().sum(dim=(0, 1))
         dist.all_reduce(psum, group=group)
         # the global mean's value, the local mean's gradient
         frac_probs = frac_probs + (psum / T - frac_probs).detach()
     else:
+        counts = counts.sum(dim=0)
+    if offset is None:
         keep = pos < C
+    else:                                   # the global position
+        keep = pos + torch.gather(offset[part], 1, flat_e) < C
 
     # Switch load-balancing loss: the one-hot's counts over T * k
     frac_tokens = counts.float() / (T * top_k)
     aux = E * torch.sum(frac_tokens * frac_probs)
 
-    # the (G, E, C) slot table of token ids; a dropped assignment writes
-    # the sentinel Tg to column E * C, which is cut off
-    token_ids = torch.arange(Tg, device=dev).repeat_interleave(top_k)
-    slot = torch.full((G, E * C + 1), Tg, dtype=torch.int64, device=dev)
-    slot.scatter_(1, torch.where(keep, flat_e * C + pos, E * C),
-                  torch.where(keep, token_ids, Tg))
-    slot_tok = slot[:, :E * C].reshape(G, E, C)
-    return Route(expert_idx, gates, pos, keep, slot_tok, aux)
+    # the (P, E, C) slot table of token ids in their part; a dropped
+    # assignment writes the sentinel Tg to column E * C, which is cut off
+    slot = torch.full((P, E * C + 1), Tg, dtype=torch.int64, device=dev)
+    at = torch.where(keep, flat_e * C + pos, E * C)
+    token_ids = (torch.arange(Tl, device=dev).reshape(n, Tc)
+                 - first[part][:, None]).repeat_interleave(top_k, dim=1)
+    slot.view(-1).scatter_(0, (at + part[:, None] * (E * C + 1)).reshape(-1),
+                           torch.where(keep, token_ids, Tg).reshape(-1))
+    slot_tok = slot[:, :E * C].reshape(P, E, C)
+    return Route(expert_idx, gates, pos, keep, slot_tok, aux, offset, part,
+                 first)
 
 
 def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
@@ -219,20 +261,22 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     B, S, d = x.shape
     r = route(p["router"], x, top_k=top_k, capacity_factor=capacity_factor,
               routing=routing, groups=groups)
-    G, E, C = r.slot_tok.shape
-    Tg = B * S // G
-    xt = x.reshape(G, Tg, d)
-    slot_valid = r.slot_tok < Tg
-
-    rows = r.slot_tok.clamp_max(Tg - 1).reshape(G, E * C, 1).expand(-1, -1, d)
-    xg = torch.gather(xt, 1, rows).reshape(G, E, C, d)
-    xg = torch.where(slot_valid[..., None], xg, 0)
+    P, E, C = r.slot_tok.shape
+    n, Tc, _ = r.expert_idx.shape
+    part, first = r.part, r.first
+    # a part's filled slots hold ids below its token count, from its first
+    size = torch.diff(first, append=first.new_full((1,), n * Tc))
+    rows = (first[:, None, None] + r.slot_tok).clamp_max(n * Tc - 1)
+    xg = torch.gather(x.reshape(1, n * Tc, d), 1,
+                      rows.reshape(1, -1, 1).expand(-1, -1, d))
+    xg = torch.where((r.slot_tok < size[:, None, None])[..., None],
+                     xg.reshape(P, E, C, d), 0)
     split = tp is not None and tp.sharded("w_gate")
     # the rules split the experts where the ranks divide them, else each
     # expert's hidden dim (``mlp``): every rank then holds every expert
     ffn_split = split and p["w_gate"].shape[0] == E
     e0, El, gates, keep = 0, E, r.gates, r.keep
-    flat_e = r.expert_idx.reshape(G, Tg * top_k)
+    flat_e = r.expert_idx.reshape(n, Tc * top_k)
     if split and not ffn_split:
         e0, e1 = tp.span(E)
         El = e1 - e0
@@ -251,14 +295,16 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float = 1.25,
     if ffn_split:
         y = tp.exit(y)
 
-    # combine: each assignment gathers its expert output, token side
+    # combine: each assignment gathers its expert output from its part's
+    # table, token side
     slot_of_assign = ((flat_e - e0) * C + torch.where(keep, r.pos, C - 1)
-                      ).clamp(0, El * C - 1)
-    picked = torch.gather(y.reshape(G, El * C, d), 1,
-                          slot_of_assign[..., None].expand(-1, -1, d))
-    picked = torch.where(keep[..., None], picked, 0)
-    out = (picked.float() * gates.reshape(G, Tg * top_k)[..., None]
-           ).reshape(G, Tg, top_k, d).sum(dim=2)
+                      ).clamp(0, El * C - 1) + part[:, None] * (El * C)
+    picked = torch.gather(y.reshape(1, P * El * C, d), 1,
+                          slot_of_assign.reshape(1, -1, 1).expand(-1, -1, d))
+    picked = torch.where(keep[..., None], picked.reshape(n, Tc * top_k, d),
+                         0)
+    out = (picked.float() * gates.reshape(n, Tc * top_k)[..., None]
+           ).reshape(n, Tc, top_k, d).sum(dim=2)
     if split and not ffn_split:
         out = tp.exit(out)
     return out.reshape(B, S, d).to(x.dtype), {"moe_aux_loss": r.aux}

@@ -28,10 +28,11 @@ one.  With microbatches, a rank runs its passes of
 every pass has the same size and every row lies on one rank, so the
 mean over a rank's passes, averaged over the ranks, is the reference's
 mean over microbatches with the sum reordered.  The MoE family routes
-each of the reference's microbatches as one dispatch group, globally
-across the ``data`` ranks that hold it (``moe.global_dispatch`` on
-``sharding.microbatch_group``; the whole group where the ranks divide a
-microbatch's rows, as the reference's ``groups=1``), and runs each
+each of the reference's microbatches as the reference does, in its
+``moe_groups`` dispatch groups, across the ``data`` ranks that hold it
+(``moe.global_dispatch`` on ``sharding.microbatch_group``, each rank at
+its place in the microbatch's token order, its rank in that group; the
+whole group where the ranks divide a microbatch's rows), and runs each
 rank's experts.  On a mesh with a "pod" axis (the production
 mesh's two pods) the data-parallel ranks are pod x data, as the rules'
 ``batch`` maps the rows: the means, the metrics and the MoE's dispatch
@@ -211,8 +212,8 @@ class _DataParallel:
                     sh = sh.redistribute(self.mesh,
                                          self._data_whole(sh.placements))
                 f.copy_(sh.to_local())
-        # each of the reference's microbatches is one dispatch group: the
-        # ranks that hold it route it together
+        # each of the reference's microbatches is routed as one by the
+        # ranks that hold it
         lay = microbatch_layout(batch["labels"].shape[0] * self.ranks,
                                 microbatches, self.ranks)
         with moe_lib.global_dispatch(microbatch_group(self.mesh,

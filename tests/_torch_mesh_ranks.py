@@ -1,9 +1,9 @@
 """Multi-rank helpers of the port's mesh tests: start ``world`` ranks
 under gloo on the CPU and collect what a task returns on each.
 
-Each rank is a spawned process (niced by 10, so that the suite's other
-workers and the processes they wait on come first) with 2 torch
-threads that joins a gloo
+Each rank is a spawned process (niced by 10 unless the caller asks
+otherwise, so that the suite's other workers and the processes they
+wait on come first) with 2 torch threads that joins a gloo
 process group through a file in the test's own ``tmp_path`` (so xdist
 workers never share a port) with a 60 s collective timeout, runs
 ``task(rank, world, *args)`` and saves its result; the parent joins each
@@ -28,10 +28,10 @@ JOIN_TIMEOUT_S = 240
 
 
 def _entry(rank: int, world: int, init_file: str, out_dir: str, task,
-           args, threads: int = 2) -> None:
+           args, threads: int = 2, nice: int = 10) -> None:
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
-    os.nice(10)     # the suite's other workers (their servers) come first
+    os.nice(nice)   # the suite's other workers (their servers) come first
     torch.set_num_threads(threads)
     path = os.path.join(out_dir, f"rank{rank}.pt")
     code = 1
@@ -55,11 +55,12 @@ def _entry(rank: int, world: int, init_file: str, out_dir: str, task,
 
 
 def run_ranks(task, world: int, tmp_dir, *args,
-              timeout_s: float = JOIN_TIMEOUT_S, threads: int = 2) -> list:
+              timeout_s: float = JOIN_TIMEOUT_S, threads: int = 2,
+              nice: int = 10) -> list:
     """``task(rank, world, *args)`` on ``world`` spawned gloo ranks of
-    ``threads`` torch threads each; returns their results in rank order
-    (raises with a rank's traceback if one failed, or if one did not end
-    within ``timeout_s``)."""
+    ``threads`` torch threads each, niced by ``nice``; returns their
+    results in rank order (raises with a rank's traceback if one failed,
+    or if one did not end within ``timeout_s``)."""
     import torch.multiprocessing as mp
 
     tmp_dir = str(tmp_dir)
@@ -67,7 +68,7 @@ def run_ranks(task, world: int, tmp_dir, *args,
     init_file = os.path.join(tmp_dir, "rendezvous")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(r, world, init_file, tmp_dir,
-                                              task, args, threads))
+                                              task, args, threads, nice))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -186,6 +187,21 @@ DECODE = dict(B=2, Hq=4, Hkv=2, D=16, S=16,
               steps=((3, 0), (11, 0), (12, 4), (15, 0)))
 SERVE = dict(arch="gemma3-1b", B=2, prompt=16, gen=4)
 ROUTE = dict(B=4, S=16, capacity_factor=1.0)
+# dispatch groups over the ranks' tokens (moonshot's reduced router, some
+# assignments dropped): at 2 ranks of 24 tokens G 3 (group 1 straddles
+# the ranks) and 4 (whole groups); at 4 ranks of 24 tokens G 2 (each
+# group spans 2 ranks) and 6 (neither divides the other); in the 4-rank
+# side-by-side layout (2 ranks a 2-row microbatch of 24 tokens) G 2
+# (a group a rank) and 3 (group 1 straddles)
+ROUTE_GROUPS = {2: dict(B=4, S=12, groups=(3, 4)),
+                4: dict(B=8, S=12, groups=(2, 6)),
+                "side": dict(B=8, S=12, mb=4, groups=(2, 3))}
+# one float32 train step of moonshot reduced at 3 dispatch groups on the
+# 4-rank session's (2, 2) mesh (4 rows of 48 tokens: group 1 straddles
+# the 2 data ranks; the experts split over the 2 model ranks), some
+# assignments dropped
+MOE_STEP = dict(arch="moonshot-v1-16b-a3b", B=4, S=48,
+                derived=dict(moe_groups=3, capacity_factor=1.0))
 
 
 def decode_inputs():
@@ -286,6 +302,8 @@ def lm_mesh_task(rank: int, world: int, ckpt_in: str, ckpt_out: str,
     out["route"] = {"keep": r.keep, "expert_idx": r.expert_idx,
                     "aux": r.aux}
 
+    out["route_groups"] = route_groups(mesh, rank, world, ROUTE_GROUPS[world])
+
     # the sequence-sharded decode on a (1, 2) mesh
     dmesh = make_device_mesh((1, 2), device="cpu")
     fn = sharded_decode_attention(dmesh)
@@ -322,11 +340,116 @@ def lm_mesh_task(rank: int, world: int, ckpt_in: str, ckpt_out: str,
     return out
 
 
+def route_groups(mesh, rank: int, world: int, case: dict) -> dict:
+    """Moonshot's routing of this rank's rows of ``case``'s batch at each
+    of its dispatch groups, globally over the ``data`` ranks of ``mesh``
+    (with ``mb``: each pass of this rank's rows over the ranks that hold
+    its microbatch): {G: [each pass's route, as a dict of its fields]}."""
+    from repro_torch.data.tokens import microbatch_layout, rank_rows
+    from repro_torch.distributed.sharding import microbatch_group
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    router, x = route_groups_inputs(case)
+    mb = case.get("mb", 1)
+    lay = microbatch_layout(case["B"], mb, world)
+    rows = rank_rows(case["B"], rank, world, mb)
+    out = {}
+    with moe.global_dispatch(microbatch_group(mesh, lay.share)):
+        for G in case["groups"]:
+            out[G] = []
+            for i in range(lay.passes):
+                r = moe.route(router, x[rows[i * lay.rows:
+                                             (i + 1) * lay.rows]],
+                              top_k=cfg.experts_per_token,
+                              capacity_factor=1.0, routing=cfg.routing,
+                              groups=G)
+                out[G].append(r._asdict())
+    return out
+
+
+def route_groups_inputs(case: dict) -> tuple:
+    """A router of moonshot reduced's (d_model, num_experts) shape and
+    ``case``'s (B, S, d_model) tokens, drawn from seeds with numpy."""
+    import numpy as np
+
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    d, E = cfg.d_model, cfg.num_experts
+    router = np.random.default_rng(7).standard_normal((d, E)) / np.sqrt(2)
+    x = np.random.default_rng(6).standard_normal((case["B"], case["S"], d))
+    return (torch.from_numpy(router.astype(np.float32)),
+            torch.from_numpy(x.astype(np.float32)))
+
+
+def batch_position(mesh) -> int:
+    """This rank's place among the data-parallel ranks of ``mesh`` in the
+    flattened (pod-major) order of its batch axes: the rank of
+    ``data.tokens.rank_rows``."""
+    from repro_torch.distributed.sharding import batch_axes
+
+    coord, names = mesh.get_coordinate(), list(mesh.mesh_dim_names)
+    b = 0
+    for a in batch_axes(mesh):
+        i = names.index(a)
+        b = b * mesh.size(i) + coord[i]
+    return b
+
+
+def moe_step_config():
+    import dataclasses
+
+    from repro_torch.models.registry import get_config
+
+    return dataclasses.replace(get_config(MOE_STEP["arch"]).reduced(),
+                               **MOE_STEP["derived"])
+
+
+def moe_step(mesh=None) -> dict:
+    """One float32 ``build_train_step`` step of ``MOE_STEP`` from the
+    seed-0 weights on ``mesh`` (each ``data`` rank its rows of
+    ``make_batch``'s batch, the ``model`` ranks splitting the experts),
+    or on one process: the loss, aux and grad norm, and every leaf's
+    whole gradient by name."""
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.shapes import make_batch
+    from repro_torch.models import transformer
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.steps import build_train_step, init_train_state
+
+    cfg = moe_step_config()
+    rules = None if mesh is None else ShardingRules.default()
+    saved = transformer.COMPUTE_DTYPE
+    transformer.COMPUTE_DTYPE = torch.float32
+    try:
+        model = LM(cfg, device="cpu", trainable=True, mesh=mesh,
+                   rules=rules)
+        batch = make_batch(cfg, MOE_STEP["B"], MOE_STEP["S"], kind="train")
+        if mesh is not None:
+            n = MOE_STEP["B"] // mesh.size(0)
+            r = mesh.get_local_rank("data")
+            batch = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+        rec = _Recording()
+        step = build_train_step(model, rec.opt, mesh, rules)
+        _, m = step(init_train_state(model, rec.opt, mesh, rules), batch)
+    finally:
+        transformer.COMPUTE_DTYPE = saved
+    return {"loss": float(m["loss"]), "moe_aux": float(m["moe_aux"]),
+            "grad_norm": float(m["grad_norm"]),
+            "grads": dict(zip(_names(model.defs), tree_leaves(rec.grads)))}
+
+
 def side_task(rank: int, world: int) -> dict:
     """The 4-rank session: the launcher's runs of ``SIDE_ARGV`` on the
     (4, 1) mesh, and moonshot's routing of each microbatch by the ranks
     that hold it (``ROUTE_SIDE``: each pass of this rank's rows routed
-    under ``global_dispatch(microbatch_group(...))``)."""
+    under ``global_dispatch(microbatch_group(...))``); moonshot's
+    routing at ``ROUTE_GROUPS``' dispatch groups, a rank's place in a
+    microbatch's token order, and ``MOE_STEP`` on the (2, 2) mesh.  The
+    test module starts it once the 2-rank session has ended."""
     import numpy as np
 
     from repro_torch.data.tokens import microbatch_layout, rank_rows
@@ -358,6 +481,23 @@ def side_task(rank: int, world: int) -> dict:
             out["route"].append({"keep": got.keep,
                                  "expert_idx": got.expert_idx,
                                  "aux": got.aux})
+    out["route_groups"] = route_groups(mesh, rank, world, ROUTE_GROUPS[world])
+    out["route_groups_side"] = route_groups(mesh, rank, world,
+                                            ROUTE_GROUPS["side"])
+    out["moe_step"] = moe_step(make_device_mesh((2, world // 2),
+                                                device="cpu"))
+    # each rank's place in a microbatch's token order: its rank in the
+    # sub-group (sorted by global rank), which ``moe.route`` takes, and
+    # in the pod-major layout
+    out["order"] = {}
+    for shape, axes in (((world, 1), ("data", "model")),
+                        ((2, world // 2, 1), ("pod", "data", "model"))):
+        m = mesh if len(shape) == 2 else make_device_mesh(shape, axes,
+                                                          device="cpu")
+        for share in (2, world):
+            out["order"][(shape, share)] = (
+                dist.get_rank(microbatch_group(m, share)),
+                batch_position(m) % share)
     return out
 
 

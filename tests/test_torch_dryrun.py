@@ -19,6 +19,9 @@ steps traced on the production meshes.
   passes, the MoE routing over the ranks that hold a microbatch; one CLI
   cell of seamless-m4t-large-v2 (one layer each side) runs 8 passes of
   one row a rank.
+* ``--set moe_groups=`` with dispatch groups that span a microbatch's
+  ranks (8 over 16 on (16, 16), 16 over 32 on (2, 16, 16)): one layer of
+  moonshot train_4k traces, as the reference's does.
 """
 
 import json
@@ -276,6 +279,34 @@ def test_cli_multi_pod_cell_of_16_microbatches(tmp_path):
     assert rec["ok"] and rec["microbatches"] == 16 and rec["n_chips"] == 512
     assert set(rec) == KEYS | {"cfg_overrides"}
     assert "passes=8 rows_per_pass=1" in r.stdout
+
+
+# moonshot train_4k's dispatch groups that span ranks: 8 over the 16
+# ranks of a microbatch on (16, 16), 16 over its 32 on (2, 16, 16)
+SPAN_CELLS = (("16x16", [], 8), ("2x16x16", ["--multi-pod"], 16))
+
+
+@pytest.mark.parametrize("mesh,flags,groups", SPAN_CELLS,
+                         ids=[c[0] for c in SPAN_CELLS])
+def test_cli_moe_groups_spanning_ranks(tmp_path, mesh, flags, groups):
+    """``--set moe_groups=G`` where G dispatch groups span a microbatch's
+    ranks (the reference traces it): one layer of moonshot train_4k exits
+    0 with the cell ``ok`` and its overrides recorded."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "moonshot-v1-16b-a3b", "--shape", "train_4k", *flags, "--set",
+         "num_layers=1", "--set", f"moe_groups={groups}", "--device", "cpu",
+         "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    assert "[OK]" in r.stdout
+    rec = json.loads((tmp_path / f"moonshot-v1-16b-a3b__train_4k__{mesh}"
+                      "__baseline.json").read_text())
+    assert rec["ok"] and set(rec) == KEYS | {"cfg_overrides"}
+    assert rec["cfg_overrides"] == {"num_layers": "1",
+                                    "moe_groups": str(groups)}
+    assert rec["collectives"]["counts"]["all-reduce"] > 0
 
 
 @pytest.mark.parametrize("arch", dryrun.TRAIN_MICROBATCHES)
